@@ -1,0 +1,71 @@
+"""Move parameter and cache trees between ``repro`` and the port.
+
+Both sides are plain nested dicts; the bridge takes ``repro``'s trees as
+numpy arrays (``np.asarray`` of each leaf of ``sharding.tree_values``),
+so it needs neither JAX nor ``repro``.  The layouts agree leaf for leaf
+except the layer stack: ``repro`` stacks each layer parameter on a
+leading L axis (``p["layers"][name]`` of shape (L, ...)), the port keeps
+a list of per-layer dicts.  Cache trees agree as they are.
+
+numpy has no bfloat16: a ``repro`` array of that dtype (ml_dtypes) is
+widened to float32 on the way in and cast back to bfloat16 in torch;
+on the way out a bfloat16 tensor becomes a float32 array.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.registry import tree_leaves, tree_map
+
+
+def _tensor(a, device):
+    """A copy of ``a`` as a tensor (JAX hands out read-only arrays)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _array(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def to_torch(tree, device="cpu"):
+    """Nested dict of numpy arrays -> the same tree of tensors."""
+    return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def to_numpy(tree):
+    return tree_map(_array, tree)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_from_repro(tree, device="cpu"):
+    """``repro`` param tree (numpy leaves, stacked layers) -> port tree."""
+    out = to_torch(tree, device)
+    stacked = out["layers"]
+    n = tree_leaves(stacked)[0].shape[0]
+    out["layers"] = [tree_map(lambda t, i=i: t[i], stacked)
+                     for i in range(n)]
+    return out
+
+
+def params_to_repro(params):
+    """Port param tree -> ``repro``'s layout with numpy leaves."""
+    out = {k: to_numpy(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = _stack([to_numpy(lp) for lp in params["layers"]])
+    return out
+
+
+cache_from_repro = to_torch
+cache_to_repro = to_numpy

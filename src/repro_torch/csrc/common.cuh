@@ -1,0 +1,125 @@
+// Shared device code for the port's Hopper kernels: type conversion, the
+// MARCA nonlinear units (paper §5: biased fast exp, piecewise SiLU) and the
+// S6 cell every selective-SSM kernel applies per (channel, state) pair.
+//
+// The nonlinearities are a runtime switch on each kernel (one uniform branch
+// per call site); the numbering matches repro_torch/kernels/_lib.py.
+// fast_exp's multiply-add uses __fmul_rn/__fadd_rn so nvcc cannot contract
+// it into an FMA: the int32 it truncates then equals the one the plain
+// PyTorch version computes, bit for bit.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace marca {
+
+enum ExpImpl { EXP_EXACT = 0, EXP_OURS = 1, EXP_FAST = 2 };
+enum SiluImpl { SILU_EXACT = 0, SILU_OURS = 1, SILU_PAPER = 2 };
+enum DType { DT_F32 = 0, DT_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+// round to nearest even, as torch's .to(torch.bfloat16)
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// ---------------------------------------------------------------------------
+// Biased fast exponential (repro/core/approx.py:81 fast_exp, :100 our_exp):
+//   i = int32(clamp(x, +-80) * 2^23/ln2 + (127 + b_shift) * 2^23)
+//   y = bitcast_f32(i) + c
+// The constants are rounded to f32 exactly as np.float32 rounds them.
+// ---------------------------------------------------------------------------
+constexpr double kS23 = 8388608.0;
+constexpr double kLn2 = 0.6931471805599453;
+constexpr float kExpScale = (float)(kS23 / kLn2);
+constexpr float kFastBias = (float)((127.0 - 0.065) * kS23);    // FAST_EXP
+constexpr float kOursBias = (float)((127.0 - 0.03475) * kS23);  // OUR_EXP
+constexpr float kOursC = (float)5.6e-07;
+
+__device__ __forceinline__ float fast_exp(float x, float bias, float c) {
+  x = fminf(fmaxf(x, -80.0f), 80.0f);
+  const int i = __float2int_rz(__fadd_rn(__fmul_rn(x, kExpScale), bias));
+  return __fadd_rn(__int_as_float(i), c);
+}
+
+__device__ __forceinline__ float apply_exp(float x, int impl) {
+  if (impl == EXP_OURS) return fast_exp(x, kOursBias, kOursC);
+  if (impl == EXP_FAST) return fast_exp(x, kFastBias, 0.0f);
+  return expf(x);
+}
+
+// ---------------------------------------------------------------------------
+// Piecewise SiLU (repro/core/approx.py:153 "ours", :162 "paper").
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float quad(float x, float a2, float a1, float a0) {
+  return __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(a2, x), a1), x), a0);
+}
+
+__device__ __forceinline__ float silu_ours(float x) {
+  float y = 0.0f;
+  y = x >= -9.0f ? quad(x, -0.0026606f, -0.0442494f, -0.1855941f) : y;
+  y = x >= -5.0f ? quad(x, -0.0117359f, -0.1503727f, -0.4880836f) : y;
+  y = x >= -1.5f ? quad(x, 0.2163049f, 0.4986513f, 0.0058849f) : y;
+  y = x >= 0.75f ? quad(x, 0.0813905f, 0.7826839f, -0.1309739f) : y;
+  y = x >= 2.25f ? quad(x, -0.0164214f, 1.1849977f, -0.5492407f) : y;
+  y = x >= 4.5f ? quad(x, -0.0033375f, 1.0541269f, -0.2208955f) : y;
+  return x > 9.0f ? x : y;
+}
+
+__device__ __forceinline__ float silu_paper(float x) {
+  if (x < -5.0f) return -0.0135f;
+  if (x < -1.5f) return __fadd_rn(__fmul_rn(-0.06244f, x), -0.3457f);
+  if (x <= 0.75f) {
+    const float t = __fadd_rn(x, 1.181f);
+    return __fadd_rn(__fmul_rn(0.232f, __fmul_rn(t, t)), -0.275f);
+  }
+  return __fadd_rn(__fmul_rn(1.05f, x), -0.2781f);
+}
+
+__device__ __forceinline__ float apply_silu(float x, int impl) {
+  if (impl == SILU_OURS) return silu_ours(x);
+  if (impl == SILU_PAPER) return silu_paper(x);
+  return x / (1.0f + expf(-x));
+}
+
+// ---------------------------------------------------------------------------
+// The S6 cell (repro/kernels/decode_step.py:98 s6_cell) for one thread that
+// owns one (channel, state) pair; a group of kN consecutive lanes holds one
+// channel's whole state vector.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float s6_state_update(float h, float dt, float x,
+                                                 float a, float b,
+                                                 int exp_impl) {
+  return apply_exp(dt * a, exp_impl) * h + (dt * x) * b;
+}
+
+// y_d = sum_n C_n h_nd: butterfly over the kN lanes of the channel's group
+template <int kN>
+__device__ __forceinline__ float s6_contract(float h, float c) {
+  float v = h * c;
+#pragma unroll
+  for (int off = kN / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float s6_gate(float y, float x, const float* D,
+                                         int ch, bool has_z, float z,
+                                         int silu_impl) {
+  if (D != nullptr) y += D[ch] * x;
+  if (has_z) y *= apply_silu(z, silu_impl);
+  return y;
+}
+
+}  // namespace marca

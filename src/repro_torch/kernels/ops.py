@@ -1,0 +1,76 @@
+"""Dispatch from the model's implementation knobs to the kernel wrappers.
+
+``repro`` chooses between several XLA implementations and a Pallas
+kernel per op.  The port has one implementation of each op on this
+path: the hand-written CUDA kernel for a tensor on the card and its
+plain PyTorch version for a tensor on the CPU — the wrapper decides by
+the tensor's device alone.  The impl names of ``repro``'s configs are
+accepted so that one config describes both packages:
+
+* ``scan_impl``: seq | assoc | chunked | chunked_seq | pallas — all run
+  the scan kernel (``pallas`` is the name this slice is configured with);
+* ``conv_impl``: xla | pallas — both run the conv kernel;
+* ``step_impl``: auto | fused | pallas | xla resolve to "fused", the
+  per-layer decode-step kernel; "megakernel" is ROADMAP K3 and raises.
+
+``state_dtype`` "f32" and "bf16" store the pooled state at that width
+(the step math is f32 either way); "int8" and "fp8" are ROADMAP K2 and
+raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import conv1d as _conv_k
+from repro_torch.kernels import decode_step as _step_k
+from repro_torch.kernels import selective_scan as _scan_k
+
+SCAN_IMPLS = ("seq", "assoc", "chunked", "chunked_seq", "pallas")
+CONV_IMPLS = ("xla", "pallas")
+STEP_IMPLS = ("auto", "fused", "pallas", "xla")
+_STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def resolve_step_impl(name: str) -> str:
+    if name == "megakernel":
+        raise NotImplementedError(
+            "step_impl='megakernel' (the cross-layer decode kernel) is not "
+            "ported yet: ROADMAP K3")
+    if name not in STEP_IMPLS:
+        raise KeyError(f"unknown step impl {name!r}")
+    return "fused"
+
+
+def storage_dtype(state_dtype: str) -> torch.dtype:
+    """Torch dtype the pooled recurrent state is stored in."""
+    if state_dtype in ("int8", "fp8"):
+        raise NotImplementedError(
+            f"state_dtype={state_dtype!r} (quantized state and its decode "
+            "kernel) is not ported yet: ROADMAP K2")
+    if state_dtype not in _STORAGE:
+        raise KeyError(f"unknown state dtype {state_dtype!r}")
+    return _STORAGE[state_dtype]
+
+
+def selective_scan(x, dt, A, B, C, D=None, z=None, h0=None,
+                   impl: str = "pallas", exp_impl: str = "exact",
+                   silu_impl: str = "exact"):
+    if impl not in SCAN_IMPLS:
+        raise KeyError(f"unknown scan impl {impl!r}")
+    return _scan_k.selective_scan(x, dt, A, B, C, D=D, z=z, h0=h0,
+                                  exp_impl=exp_impl, silu_impl=silu_impl)
+
+
+def causal_conv1d(x, w, b=None, x_prev=None, impl: str = "pallas"):
+    if impl not in CONV_IMPLS:
+        raise KeyError(f"unknown conv impl {impl!r}")
+    return _conv_k.causal_conv1d(x, w, b=b, x_prev=x_prev)
+
+
+def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
+                         impl: str = "fused", exp_impl: str = "exact",
+                         silu_impl: str = "exact"):
+    resolve_step_impl(impl)
+    return _step_k.selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=D,
+                                        z_t=z_t, exp_impl=exp_impl,
+                                        silu_impl=silu_impl)

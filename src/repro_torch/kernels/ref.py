@@ -1,0 +1,95 @@
+"""Plain PyTorch versions of the port's kernels, in ``repro``'s layouts.
+
+Each CUDA kernel's wrapper runs the function here for a tensor on the
+CPU; the tests hold these against ``repro``'s Pallas kernels, and
+``chip_smoke.py`` holds each kernel against them on the card.  They are
+device-agnostic tensor code, so they run on a CUDA tensor when called
+directly.
+
+Layouts are ``repro``'s public ones (``repro/kernels/ref.py``): h is
+``(b, d, n)`` and the conv state is ``(b, k-1, d)``.
+
+``CALLS`` counts entries into each plain version, so a run on the card
+can show that the serving path never took one.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.core import approx
+
+CALLS: collections.Counter = collections.Counter()
+
+
+def selective_scan(x, dt, A, B, C, D=None, z=None, h0=None,
+                   exp_impl: str = "exact", silu_impl: str = "exact"):
+    """Sequential selective-SSM recurrence (``repro/kernels/ref.py:39``).
+
+    x, dt (b, L, d) with dt already softplus'd; A (d, n); B, C (b, L, n);
+    D (d,)|None; z (b, L, d)|None; h0 (b, d, n)|None.
+    Returns (y (b, L, d) in x.dtype, h_last (b, d, n) f32).
+
+      h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t^T
+      y_t = h_t C_t + D * x_t ;  out_t = y_t * silu(z_t)
+    """
+    CALLS["selective_scan"] += 1
+    exp = approx.get_exp(exp_impl)
+    silu = approx.get_silu(silu_impl)
+    bsz, L, d = x.shape
+    n = A.shape[1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    Af = A.float()
+    h = (torch.zeros(bsz, d, n, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(L):
+        dA = exp(dtf[:, t, :, None] * Af)                    # (b, d, n)
+        dBx = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1)                               # (b, L, d)
+    if D is not None:
+        y = y + D.float()[None, None, :] * xf
+    if z is not None:
+        y = y * silu(z.float())
+    return y.to(x.dtype), h
+
+
+def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
+                         exp_impl: str = "exact", silu_impl: str = "exact"):
+    """One decode step (``repro/kernels/ref.py:86``).  h (b, d, n) f32;
+    x_t, dt_t (b, d); B_t, C_t (b, n).  Returns (y (b, d) in x_t.dtype,
+    h_new (b, d, n) f32)."""
+    CALLS["selective_state_step"] += 1
+    exp = approx.get_exp(exp_impl)
+    silu = approx.get_silu(silu_impl)
+    xf, dtf = x_t.float(), dt_t.float()
+    dA = exp(dtf[..., None] * A.float())
+    dBx = (dtf * xf)[..., None] * B_t.float()[:, None, :]
+    h = dA * h.float() + dBx
+    y = torch.einsum("bdn,bn->bd", h, C_t.float())
+    if D is not None:
+        y = y + D.float()[None, :] * xf
+    if z_t is not None:
+        y = y * silu(z_t.float())
+    return y.to(x_t.dtype), h
+
+
+def causal_conv1d(x, w, b=None, x_prev=None):
+    """Causal depthwise conv (``repro/kernels/ref.py:128``).  x (b, L, d);
+    w (k, d); b (d,)|None; x_prev (b, k-1, d)|None.  Returns
+    (y (b, L, d) in x.dtype, new_state (b, k-1, d))."""
+    CALLS["causal_conv1d"] += 1
+    bsz, L, d = x.shape
+    k = w.shape[0]
+    if x_prev is None:
+        x_prev = torch.zeros(bsz, k - 1, d, dtype=x.dtype, device=x.device)
+    xp = torch.cat([x_prev, x], dim=1)                        # (b, L+k-1, d)
+    y = torch.zeros(bsz, L, d, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        y = y + xp[:, i:i + L, :].float() * w[i].float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype), xp[:, L:, :]

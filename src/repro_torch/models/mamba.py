@@ -1,0 +1,119 @@
+"""Mamba block (Gu & Dao 2023): the port of ``repro/models/mamba.py``
+(block apply :103, step :131, state init :280) with f32 weights.
+
+Per block: in_proj -> [x | z] -> causal depthwise conv (CUDA kernel) ->
+SiLU -> x_proj -> (dt, B, C) -> softplus(dt_proj) -> selective scan at
+prefill / fused decode step per token (CUDA kernels) -> out_proj.
+
+x_in and z are views of one in_proj output, and dt_low, B and C views
+of one x_proj output (as ``jnp.split`` gives in repro); the kernels take
+their row strides, so no copy is made.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import approx
+from repro_torch.kernels import ops
+from repro_torch.models import blocks
+
+
+def mamba_block_init(cfg, gen):
+    d, di, n, k, r = (cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv,
+                      cfg.dt_rank)
+    # S4D-real initialization for A; dt bias init for softplus range
+    a_init = torch.arange(1, n + 1, dtype=torch.float32)[None, :].repeat(di, 1)
+    dt_init = torch.exp(torch.rand(di, generator=gen)
+                        * (math.log(0.1) - math.log(0.001))
+                        + math.log(0.001))
+    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))  # inverse softplus
+    return {
+        "in_proj": blocks.dense_init(gen, d, 2 * di),
+        "conv_w": torch.randn(k, di, generator=gen) * (1.0 / k),
+        "conv_b": torch.zeros(di),
+        "x_proj": blocks.dense_init(gen, di, r + 2 * n),
+        "dt_proj": blocks.dense_init(gen, r, di, scale=r ** -0.5),
+        "dt_bias": dt_bias,
+        "A_log": torch.log(a_init),
+        "D": torch.ones(di),
+        "out_proj": blocks.dense_init(gen, di, d),
+    }
+
+
+def _project(cfg, p, x):
+    """in_proj -> (x_in, z), two views of one (b, l, 2*di) output."""
+    xz = blocks.dense(p["in_proj"], x, x.dtype)
+    return xz.chunk(2, dim=-1)
+
+
+def _ssm_inputs(cfg, p, x_a):
+    """x_a (b, l, di) -> dt (b, l, di), B (b, l, n), C (b, l, n)."""
+    n, r = cfg.d_state, cfg.dt_rank
+    cdt = x_a.dtype
+    dbc = blocks.dense(p["x_proj"], x_a, cdt)
+    dt_low, B, C = dbc.split([r, n, n], dim=-1)
+    dt = blocks.dense(p["dt_proj"], dt_low, cdt)
+    dt = F.softplus(dt.float() + p["dt_bias"]).to(cdt)
+    return dt, B, C
+
+
+def read_state_h(cfg, state):
+    """The stored state as the f32 the scan and step take (a cast for a
+    bf16 pool, the tensor itself for an f32 one)."""
+    return state["h"].float()
+
+
+def write_state_h(cfg, h):
+    return {"h": h.to(ops.storage_dtype(cfg.state_dtype))}
+
+
+def mamba_block_apply(cfg, p, x, state=None):
+    """Full-sequence path.  state (continuation) is a dict with 'h'
+    (b, di, n) and 'conv' (b, k-1, di); returns (y, new_state)."""
+    silu = approx.get_silu(cfg.silu_impl)
+    x_in, z = _project(cfg, p, x)
+    conv_state = None if state is None else state["conv"]
+    x_c, new_conv = ops.causal_conv1d(x_in, p["conv_w"], p["conv_b"],
+                                      x_prev=conv_state, impl=cfg.conv_impl)
+    x_a = silu(x_c)
+    dt, B, C = _ssm_inputs(cfg, p, x_a)
+    A = -torch.exp(p["A_log"])
+    h0 = None if state is None else read_state_h(cfg, state)
+    y, h_last = ops.selective_scan(x_a, dt, A, B, C, D=p["D"], z=z, h0=h0,
+                                   impl=cfg.scan_impl,
+                                   exp_impl=cfg.exp_impl,
+                                   silu_impl=cfg.silu_impl)
+    out = blocks.dense(p["out_proj"], y, x.dtype)
+    return out, {**write_state_h(cfg, h_last), "conv": new_conv}
+
+
+def mamba_block_step(cfg, p, x_t, state):
+    """Single-token decode over the slot pool.  x_t (b, 1, d); state as
+    above.  The conv tail update is the L=1 case of the conv kernel; the
+    SSM step is one launch of the fused decode-step kernel."""
+    silu = approx.get_silu(cfg.silu_impl)
+    x_in, z = _project(cfg, p, x_t)                       # (b, 1, di)
+    x_c, new_conv = ops.causal_conv1d(x_in, p["conv_w"], p["conv_b"],
+                                      x_prev=state["conv"],
+                                      impl=cfg.conv_impl)
+    x_a = silu(x_c)
+    dt, B, C = _ssm_inputs(cfg, p, x_a)
+    A = -torch.exp(p["A_log"])
+    y, h = ops.selective_state_step(
+        read_state_h(cfg, state), x_a[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
+        D=p["D"], z_t=z[:, 0], impl=cfg.step_impl, exp_impl=cfg.exp_impl,
+        silu_impl=cfg.silu_impl)
+    out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
+    return out, {**write_state_h(cfg, h), "conv": new_conv}
+
+
+def mamba_state_init(cfg, batch, dtype, device):
+    di, n, k = cfg.d_inner, cfg.d_state, cfg.d_conv
+    return {
+        "h": torch.zeros(batch, di, n, dtype=ops.storage_dtype(
+            cfg.state_dtype), device=device),
+        "conv": torch.zeros(batch, k - 1, di, dtype=dtype, device=device),
+    }

@@ -1,0 +1,99 @@
+"""Pure Mamba LM (the paper's Table-1 models): the port of
+``repro/models/mamba_lm.py``.
+
+Pre-norm residual stack of Mamba blocks with tied embeddings.  ``repro``
+stacks the layer parameters on a leading L axis for ``lax.scan``; the
+port keeps one dict per layer in a list (``p["layers"][l]``) and loops
+in Python, while the decode cache keeps ``repro``'s stacked layout:
+h (L, b, di, n), conv (L, b, k-1, di), pos (b,) int32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import blocks, mamba
+
+
+def init(cfg, gen):
+    """Parameters from a ``torch.Generator`` (on the CPU; move the tree
+    with ``registry.tree_to``)."""
+    return {"embed": blocks.embed_init(cfg, gen),
+            "layers": [{"norm": blocks.norm_init(cfg),
+                        "mixer": mamba.mamba_block_init(cfg, gen)}
+                       for _ in range(cfg.n_layers)],
+            "norm_f": blocks.norm_init(cfg),
+            "unembed": blocks.unembed_init(cfg, gen)}
+
+
+def _layer_apply(cfg, lp, x, state=None, step=False):
+    xn = blocks.apply_norm(cfg, lp["norm"], x)
+    if step:
+        y, new_state = mamba.mamba_block_step(cfg, lp["mixer"], xn, state)
+    else:
+        y, new_state = mamba.mamba_block_apply(cfg, lp["mixer"], xn,
+                                               state=state)
+    return x + y, new_state
+
+
+def _logits(cfg, p, h):
+    h = blocks.apply_norm(cfg, p["norm_f"], h)
+    return blocks.unembed_apply(cfg, p.get("unembed", {}), p["embed"], h)
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.dtype)
+
+
+def forward(cfg, p, batch):
+    h = blocks.embed_apply(cfg, p["embed"], batch["tokens"], _dtype(cfg))
+    for lp in p["layers"]:
+        h, _ = _layer_apply(cfg, lp, h)
+    return _logits(cfg, p, h), {}
+
+
+def init_cache(cfg, batch, max_seq, dtype, device):
+    L, di, n, k = cfg.n_layers, cfg.d_inner, cfg.d_state, cfg.d_conv
+    return {
+        "h": torch.zeros(L, batch, di, n,
+                         dtype=ops.storage_dtype(cfg.state_dtype),
+                         device=device),
+        "conv": torch.zeros(L, batch, k - 1, di, dtype=dtype, device=device),
+        "pos": torch.zeros(batch, dtype=torch.int32, device=device),
+    }
+
+
+def cache_slot_axes(cfg):
+    """Batch/slot axis index per cache leaf (layout matches init_cache)."""
+    return {"h": 1, "conv": 1, "pos": 0}
+
+
+def _stack(states, pos):
+    return {"h": torch.stack([s["h"] for s in states]),
+            "conv": torch.stack([s["conv"] for s in states]),
+            "pos": pos}
+
+
+def prefill(cfg, p, cache, batch):
+    """Full-sequence forward that also returns the decode cache (from the
+    init state, as repro's prefill does)."""
+    tokens = batch["tokens"]
+    h = blocks.embed_apply(cfg, p["embed"], tokens, _dtype(cfg))
+    states = []
+    for lp in p["layers"]:
+        h, ns = _layer_apply(cfg, lp, h)
+        states.append(ns)
+    pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                     device=tokens.device)
+    return _logits(cfg, p, h), _stack(states, pos)
+
+
+def decode_step(cfg, p, cache, batch):
+    """One token for every slot: (logits (b, 1, V), new cache)."""
+    h = blocks.embed_apply(cfg, p["embed"], batch["tokens"], _dtype(cfg))
+    states = []
+    for l, lp in enumerate(p["layers"]):
+        state = {"h": cache["h"][l], "conv": cache["conv"][l]}
+        h, ns = _layer_apply(cfg, lp, h, state=state, step=True)
+        states.append(ns)
+    return _logits(cfg, p, h), _stack(states, cache["pos"] + 1)

@@ -1,0 +1,182 @@
+"""Model registry: family dispatch, slot-indexable caches and parameter
+counts — the port of ``repro/models/registry.py`` for the mamba family.
+Other families raise ``NotImplementedError`` (ROADMAP A9-A11).
+
+  init_params(cfg, seed, device) -> param tree (nested dicts of tensors)
+  forward / prefill / decode_step(cfg, params, ...) -> (logits, ...)
+  init_cache(cfg, batch, max_seq, dtype, device) -> decode cache
+  gather_slots / scatter_slots / mask_slots -> the serving engine's
+      slot contract over cache_slot_axes
+  count_params(cfg) -> analytical N
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import mamba_lm
+
+_FAMILIES = {"mamba": mamba_lm}
+
+
+def family(cfg):
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet "
+            "(ROADMAP A9-A11)")
+    return _FAMILIES[cfg.family]
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_to(tree, device):
+    return tree_map(lambda t: t.to(device), tree)
+
+
+# ---------------------------------------------------------------------------
+# Params / caches
+# ---------------------------------------------------------------------------
+
+def init_params(cfg, seed: int = 0, device="cpu"):
+    """Weights made from ``seed`` with a CPU ``torch.Generator``, then
+    moved: the same seed gives the same weights on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    return tree_to(family(cfg).init(cfg, gen), device)
+
+
+def init_cache(cfg, batch, max_seq, dtype=None, device="cpu"):
+    dtype = dtype or getattr(torch, cfg.dtype)
+    return family(cfg).init_cache(cfg, batch, max_seq, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Slot-indexable caches (continuous-batching serving engine)
+# ---------------------------------------------------------------------------
+
+def cache_slot_axes(cfg):
+    return family(cfg).cache_slot_axes(cfg)
+
+
+def gather_slots(cfg, cache, slot_ids):
+    """Sub-cache of ``slot_ids`` (int64 tensor (m,)), a copy."""
+    axes = cache_slot_axes(cfg)
+    return {k: v.index_select(axes[k], slot_ids) for k, v in cache.items()}
+
+
+def scatter_slots(cfg, pool_cache, sub_cache, slot_ids):
+    """Write a sub-cache (m slot entries) into ``pool_cache`` at
+    ``slot_ids``.  In place — the pool's buffers are updated rather than
+    copied, unlike repro's functional ``.at[].set`` — and returned."""
+    axes = cache_slot_axes(cfg)
+    for k, dst in pool_cache.items():
+        dst.index_copy_(axes[k], slot_ids, sub_cache[k].to(dst.dtype))
+    return pool_cache
+
+
+def mask_slots(cfg, old_cache, new_cache, active):
+    """Per-slot select: ``new_cache`` where ``active`` (bool (slots,)),
+    else ``old_cache`` — inactive slots never change."""
+    axes = cache_slot_axes(cfg)
+    out = {}
+    for k, old in old_cache.items():
+        shape = [1] * old.dim()
+        shape[axes[k]] = -1
+        out[k] = torch.where(active.reshape(shape),
+                             new_cache[k].to(old.dtype), old)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward / serving entry points
+# ---------------------------------------------------------------------------
+
+def forward(cfg, params, batch):
+    return family(cfg).forward(cfg, params, batch)
+
+
+def prefill(cfg, params, cache, batch):
+    return family(cfg).prefill(cfg, params, cache, batch)
+
+
+def decode_step(cfg, params, cache, batch):
+    return family(cfg).decode_step(cfg, params, cache, batch)
+
+
+# ---------------------------------------------------------------------------
+# Analytical parameter counts (a copy of repro's; pure arithmetic)
+# ---------------------------------------------------------------------------
+
+def count_params(cfg, active_only: bool = False) -> int:
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = 0
+
+    def attn():
+        return d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+
+    def dense_mlp(ff):
+        return 3 * d * ff if cfg.mlp == "swiglu" else 2 * d * ff
+
+    def moe_mlp():
+        E = cfg.top_k if active_only else cfg.n_experts
+        m = E * 3 * d * f + d * cfg.n_experts  # router always full
+        if cfg.n_shared_experts:
+            m += 3 * d * (cfg.n_shared_experts * f)
+        if cfg.dense_residual:
+            m += dense_mlp(f)
+        return m
+
+    def mamba_blk():
+        di, ns, r, k = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
+        return (2 * d * di + k * di + di * (r + 2 * ns) + r * di
+                + di * ns + di + di * d)
+
+    def mlstm_blk():
+        di = 2 * d
+        dh2 = di // hq
+        return 2 * d * di + cfg.d_conv * di + 2 * hq * dh2 * dh2 + di + d * di
+
+    def slstm_blk():
+        dh2 = d // hq
+        return 4 * d * d + 4 * hq * dh2 * dh2 + d * d
+
+    def is_slstm(i):                     # repro/models/xlstm.py:476
+        return (cfg.slstm_every > 0 and i % cfg.slstm_every
+                == cfg.slstm_offset % cfg.slstm_every)
+
+    def pos_kind(i):                     # repro/models/jamba.py:24
+        is_attn = (cfg.attn_every > 0 and i % cfg.attn_every
+                   == cfg.attn_offset % cfg.attn_every)
+        is_moe = (cfg.is_moe and cfg.moe_every > 0
+                  and i % cfg.moe_every == cfg.moe_offset % cfg.moe_every)
+        return is_attn, is_moe
+
+    if cfg.family == "mamba":
+        n += L * mamba_blk()
+    elif cfg.family == "xlstm":
+        for i in range(L):
+            n += slstm_blk() if is_slstm(i) else mlstm_blk()
+    elif cfg.family == "jamba":
+        for i in range(L):
+            is_attn, is_moe = pos_kind(i)
+            n += attn() if is_attn else mamba_blk()
+            n += moe_mlp() if is_moe else dense_mlp(f)
+    else:
+        per = attn() + (moe_mlp() if cfg.is_moe else dense_mlp(f))
+        n += L * per
+    n += V * d                      # embed
+    if not cfg.tie_embeddings:
+        n += d * V * cfg.n_codebooks
+    return int(n)

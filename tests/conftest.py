@@ -21,6 +21,11 @@ import gc
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without one")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
     yield
