@@ -12,14 +12,20 @@ Phases, each fatal on failure:
    the compiler's ``-Xptxas -v`` report;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving shapes of mamba-130m, in f32 and bf16, for every exp/SiLU
-   variant, within the printed tolerances;
+   variant, within the printed tolerances: the scan, the conv, the decode
+   step with f32 A and with int8 A (K1), and the quantized-state step (K2)
+   with int8 and fp8 state, f32 and int8 A, at d 1536 and 1100; K2's
+   encoding against torch's over the whole code range; the fp8 slot
+   operations (byte views) against exact fp8 results;
 3. run mamba-130m at full width in f32 (prefill + 8 decode steps) through
    the kernel path on the card and through the plain path on the CPU, on
-   the same weights, and compare the logits;
-4. serve 9 requests at bf16 through ``Server``/``Engine`` (4 slots, prompt
-   lengths 64/127/256/512, 32 new tokens, 8 greedy + 1 sampled) and check
-   the launch counts of every kernel, that no plain version ran, and the
-   slot size;
+   the same weights, and compare the logits: f32 weights and state, int8
+   weights, int8 weights with int8 state, and fp8 state;
+4. serve 9 requests at bf16 (4 slots, prompt lengths 64/127/256/512, 32
+   new tokens, 8 greedy + 1 sampled) three times: f32 weights and state
+   through ``Server``, int8 weights with int8 state and int8 weights with
+   f32 state through ``Engine``; each run checks the launch counts of
+   every kernel, that no plain version ran, and the slot size;
 5. time each kernel on the card (device time from a CUDA graph replay, and
    eager per-call time) beside its bound, its plain version
    and (for the conv) ``F.conv1d``, then print one JSON line of kernels.
@@ -127,18 +133,138 @@ def phase_build():
 VARIANTS = [("exact", "exact"), ("ours", "ours"), ("fast", "paper")]
 
 
+def code_ordinals(q):
+    """Storage codes as integers in value order (adjacent codes differ by
+    1): int8 as they are, e4m3 by sign and magnitude bits."""
+    if q.dtype == torch.int8:
+        return q.to(torch.int32)
+    bits = q.view(torch.uint8).to(torch.int32)
+    mag = bits & 0x7F
+    return torch.where(bits >= 0x80, -mag, mag)
+
+
+def check_q(name, got, want, y_tol) -> float:
+    """A quantized-state step against its plain version: y within
+    ``y_tol``, scales to rtol 1e-6, payloads within one code (nvcc
+    contracts exp(dt*A)*h + dt*x*B into an FMA, the plain version does
+    not, so a value on a rounding boundary may land one code apart).
+    Returns y's max abs error."""
+    (y1, q1, s1), (y0, q0, s0) = got, want
+    ey = float((y1.float() - y0.float()).abs().max())
+    es = float(((s1 - s0).abs() / s0.abs().clamp_min(1e-30)).max())
+    codes = int((code_ordinals(q1) - code_ordinals(q0)).abs().max())
+    moved = float((q1.view(torch.uint8) != q0.view(torch.uint8)).float()
+                  .mean())
+    ok = (bool(torch.isfinite(y1.float()).all()) and q1.dtype == q0.dtype
+          and bool((((y1.float() - y0.float()).abs())
+                    <= y_tol + y_tol * y0.float().abs()).all())
+          and es <= 1e-6 and codes <= 1)
+    log(f"  {name:<52} y {ey:.3e} (tol {y_tol:g})  scale rel {es:.1e} "
+        f"(tol 1e-6)  codes apart {codes} (tol 1, share moved "
+        f"{moved:.1e})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(name)
+    return ey
+
+
+def q_state(h, state_dtype):
+    """A pooled quantized state from f32 ``h`` (slots, d, n): codes and
+    group scales, slot 0 a fresh slot (zero codes, zero scales)."""
+    from repro_torch.core import state_quant
+    hq, scale = state_quant.quantize_h(4.0 * h, state_dtype)
+    hq[0] = 0
+    scale[0] = 0.0
+    return hq, scale
+
+
+def encode_sweep(state_dtype, slots, d):
+    """(slots, d) f32 over [-qmax, qmax]: every code, every tie between
+    neighbouring codes, seeded values between, and qmax in every group."""
+    from repro_torch.core import state_quant
+    qm = state_quant.qmax(state_dtype)
+    if state_dtype == "int8":
+        codes = torch.arange(-127, 128, dtype=torch.float32)
+    else:
+        codes = torch.arange(256, dtype=torch.uint8).view(
+            torch.float8_e4m3fn).float()
+        codes = codes[torch.isfinite(codes)].unique() + 0.0   # no -0
+    fill = (torch.rand(slots * d, generator=torch.Generator().manual_seed(
+        SEED)) * 2 - 1) * qm
+    vals = torch.cat([codes, (codes[1:] + codes[:-1]) / 2, fill])
+    vals = vals[:slots * d].reshape(slots, d)
+    vals[:, state_quant.D_BLOCK - 1::state_quant.D_BLOCK] = qm
+    return vals
+
+
+def check_encoding(dev):
+    """K2's encode against torch's, bit for bit: from a fresh slot with
+    dt = 1 and B = 1 the new state is x, and with qmax in every group
+    every scale is exactly 1, so the payload is the encoding of x."""
+    from repro_torch.core import state_quant
+    from repro_torch.kernels import decode_step
+    slots, d = 4, 1536
+    for sd in ("int8", "fp8"):
+        x = encode_sweep(sd, slots, d).to(dev)
+        hq = torch.zeros(slots, d, 16, device=dev).to(
+            state_quant.storage_dtype(sd))
+        h_scale = torch.zeros(slots, state_quant.n_groups(d), device=dev)
+        ones = torch.ones(slots, 16, device=dev)
+        _, q, scale = decode_step.selective_state_step_q(
+            hq, h_scale, x, torch.ones_like(x), -torch.ones(d, 16, device=dev),
+            ones, ones, state_dtype=sd)
+        want = state_quant.encode(x[..., None].expand(slots, d, 16), sd)
+        torch.cuda.synchronize()
+        n_codes = len(torch.unique(q.view(torch.uint8)))
+        ok = bool((scale == 1.0).all()) and torch.equal(
+            q.view(torch.uint8), want.view(torch.uint8))
+        log(f"  K2 {sd} encode vs torch over {x.numel()} values "
+            f"({n_codes} distinct codes, ties included): "
+            f"{'bitwise equal' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"K2 {sd} encoding")
+
+
+def check_fp8_slot_ops(dev):
+    """The registry moves fp8 pool leaves through uint8 views: on the card
+    the views must give the bytes of the fp8 operation, which for
+    ``where`` is the fp8 op itself and for ``index_copy_`` (no fp8 kernel
+    in PyTorch on the CPU or the card) the same copy in f32, exact for
+    every e4m3 value."""
+    gen = torch.Generator().manual_seed(SEED)
+    fp8, u8 = torch.float8_e4m3fn, torch.uint8
+    pool = torch.randn(3, 4, 64, 16, generator=gen).to(dev, fp8)
+    new = torch.randn(3, 4, 64, 16, generator=gen).to(dev, fp8)
+    ids = torch.tensor([2, 0], device=dev)
+    active = torch.tensor([True, False, True, False],
+                          device=dev)[None, :, None, None]
+    checks = {
+        "index_copy_": (
+            pool.clone().view(u8).index_copy_(1, ids, new[:, :2].view(u8)),
+            pool.float().index_copy_(1, ids, new[:, :2].float()).to(fp8)),
+        "where": (torch.where(active, new.view(u8), pool.view(u8)),
+                  torch.where(active, new, pool)),
+    }
+    for op, (got, want) in checks.items():
+        ok = torch.equal(got, want.view(u8))
+        log(f"  fp8 {op} on the card: byte view == fp8 result: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"fp8 {op}")
+
+
 def phase_kernels(cfg, dev):
     """Each kernel against its plain version on the card.  Returns the max
     abs error at the serving configuration (bf16, exact exp and SiLU) per
     kernel."""
+    from repro_torch.core import weight_quant
     from repro_torch.kernels import conv1d, decode_step, ref, selective_scan
     d, n, r, k = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
     gen = torch.Generator().manual_seed(SEED)
     serving = {}
     tol = {torch.float32: dict(scan=(5e-4, 5e-4), conv=(1e-5, 1e-5),
-                               step=(1e-5, 1e-5)),
+                               step=(1e-5, 1e-5), step_q=1e-4),
            torch.bfloat16: dict(scan=(2e-2, 2e-2), conv=(3e-2, 3e-2),
-                                step=(2e-2, 2e-2))}
+                                step=(2e-2, 2e-2), step_q=2e-2)}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         t = tol[dtype]
@@ -165,80 +291,173 @@ def phase_kernels(cfg, dev):
             check(name + " tail", s1, s0, 0.0, 0.0)
             if dtype == torch.bfloat16 and L == 1:
                 serving["causal_conv1d"] = e
-        for ei, si in VARIANTS:
-            x, dt, A, B, C, D, z, h = scan_inputs(4, 1, d, n, r, dtype, gen,
-                                                  dev)
-            args = (h, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0])
-            kw = dict(D=D, z_t=z[:, 0], exp_impl=ei, silu_impl=si)
-            y1, h1 = decode_step.selective_state_step(*args, **kw)
-            y0, h0r = ref.selective_state_step(*args, **kw)
-            torch.cuda.synchronize()
-            name = f"step {tag} slots=4 exp={ei} silu={si}"
-            e = check(name + " y", y1, y0, *t["step"])
-            check(name + " h_new", h1, h0r, *tol[torch.float32]["step"])
-            if dtype == torch.bfloat16 and ei == "exact":
-                serving["decode_step"] = e
+        for a8 in (False, True):
+            key = "decode_step_int8a" if a8 else "decode_step"
+            for ei, si in VARIANTS:
+                x, dt, A, B, C, D, z, h = scan_inputs(4, 1, d, n, r, dtype,
+                                                      gen, dev)
+                a_scale = None
+                if a8:
+                    A, a_scale = weight_quant.quantize_rows(A)
+                args = (h, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0])
+                kw = dict(D=D, z_t=z[:, 0], exp_impl=ei, silu_impl=si,
+                          a_scale=a_scale)
+                y1, h1 = decode_step.selective_state_step(*args, **kw)
+                y0, h0r = ref.selective_state_step(*args, **kw)
+                torch.cuda.synchronize()
+                name = (f"step {tag} slots=4 {'int8' if a8 else 'f32'} A "
+                        f"exp={ei} silu={si}")
+                e = check(name + " y", y1, y0, *t["step"])
+                check(name + " h_new", h1, h0r, *tol[torch.float32]["step"])
+                if dtype == torch.bfloat16 and ei == "exact":
+                    serving[key] = e
+        for sd in ("int8", "fp8"):
+            for dd in (d, 1100):
+                for a8 in (False, True):
+                    for ei, si in VARIANTS:
+                        x, dt, A, B, C, D, z, h = scan_inputs(
+                            4, 1, dd, n, r, dtype, gen, dev)
+                        hq, h_scale = q_state(h, sd)
+                        a_scale = None
+                        if a8:
+                            A, a_scale = weight_quant.quantize_rows(A)
+                        args = (hq, h_scale, x[:, 0], dt[:, 0], A, B[:, 0],
+                                C[:, 0])
+                        kw = dict(D=D, z_t=z[:, 0], state_dtype=sd,
+                                  exp_impl=ei, silu_impl=si, a_scale=a_scale)
+                        got = decode_step.selective_state_step_q(*args, **kw)
+                        want = ref.selective_state_step_q(*args, **kw)
+                        torch.cuda.synchronize()
+                        aname = "int8" if a8 else "f32"
+                        e = check_q(f"step_q {tag} {sd} d={dd} {aname} A "
+                                    f"exp={ei} silu={si}", got, want,
+                                    t["step_q"])
+                        if (dtype == torch.bfloat16 and sd == "int8"
+                                and dd == d and a8 and ei == "exact"):
+                            serving["decode_step_q"] = e
+    check_encoding(dev)
+    check_fp8_slot_ops(dev)
     return serving
+
+
+# (weights, state, logits tolerance, why): each run of phase 3
+MODEL_RUNS = (
+    ("f32", "f32", 2e-3,
+     "f32 throughout; the kernels sum in another order and nvcc contracts "
+     "multiply-adds, over 24 layers"),
+    ("int8", "f32", 2e-3,
+     "as f32: the weights are quantized once on the CPU and moved, so both "
+     "paths read the same codes and dequantize with the same multiply"),
+    ("int8", "int8", 2e-2,
+     "a state value on a rounding boundary may land one code (1/127 of its "
+     "group's absmax) apart on the card, and that code feeds every later "
+     "step and layer"),
+    ("f32", "fp8", 2e-2,
+     "as int8 state, with e4m3 codes (a step of 1/16 to 1/8 of the value)"),
+)
 
 
 def phase_model(cfg, dev):
     """Full-width f32 model: kernel path on the card vs plain path on the
-    CPU, same weights, same tokens (teacher-forced)."""
+    CPU, same weights, same tokens (teacher-forced), for each setup of
+    MODEL_RUNS."""
     import dataclasses
+    from repro_torch.core import state_quant
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import registry
-    cfg = dataclasses.replace(cfg, dtype="float32")
     lp, steps = 127, 8
-    params = registry.init_params(cfg, seed=SEED)
     toks = torch.as_tensor(SyntheticLM(cfg.vocab, lp + steps, seed=2)
                            .batch_at(0, 0, 1, 1)["tokens"], dtype=torch.int64)
-    runs = []
-    for where in (dev, torch.device("cpu")):
-        p = registry.tree_to(params, where)
-        t = toks.to(where)
-        cache = registry.init_cache(cfg, 1, lp + steps, device=where)
-        t0 = time.perf_counter()
-        logits, cache = registry.prefill(cfg, p, cache,
-                                         {"tokens": t[:, :lp]})
-        out = [logits[0]]
-        for s in range(steps):
-            logits, cache = registry.decode_step(
-                cfg, p, cache, {"tokens": t[:, lp + s:lp + s + 1]})
-            out.append(logits[0])
-        out = torch.cat(out).cpu()
-        log(f"  {where.type}: prefill {lp} + {steps} decode steps in "
-            f"{time.perf_counter() - t0:.2f} s")
-        runs.append((out, {k: v.cpu() for k, v in cache.items()}))
-    (lg, cg), (lc, cc) = runs
-    check("model f32 logits (card kernels vs CPU plain)", lg, lc, 2e-3,
-          2e-3)
-    check("model f32 final h (card vs CPU)", cg["h"], cc["h"], 2e-3, 2e-3)
-    check("model f32 final conv tail (card vs CPU)", cg["conv"], cc["conv"],
-          2e-3, 2e-3)
-    agree = float((lg.argmax(-1) == lc.argmax(-1)).float().mean())
-    log(f"  greedy token agreement over {lg.shape[0]} positions: {agree:.4f}")
+    for wd, sd, tol, why in MODEL_RUNS:
+        c = dataclasses.replace(cfg, dtype="float32", weight_dtype=wd,
+                                state_dtype=sd)
+        params = registry.init_params(c, seed=SEED)
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            p = registry.tree_to(params, where)
+            t = toks.to(where)
+            cache = registry.init_cache(c, 1, lp + steps, device=where)
+            t0 = time.perf_counter()
+            logits, cache = registry.prefill(c, p, cache,
+                                             {"tokens": t[:, :lp]})
+            out = [logits[0]]
+            for s in range(steps):
+                logits, cache = registry.decode_step(
+                    c, p, cache, {"tokens": t[:, lp + s:lp + s + 1]})
+                out.append(logits[0])
+            out = torch.cat(out).cpu()
+            log(f"  {wd} weights, {sd} state, {where.type}: prefill {lp} + "
+                f"{steps} decode steps in {time.perf_counter() - t0:.2f} s")
+            runs.append((out, {k: v.cpu() for k, v in cache.items()}))
+        (lg, cg), (lc, cc) = runs
+        tag = f"model {wd} weights {sd} state"
+        log(f"  {tag}: logits held to {tol:g}: {why}")
+        check(f"{tag} logits (card vs CPU)", lg, lc, tol, tol)
+        if state_quant.is_quantized(sd):
+            hg = state_quant.dequantize_h(cg["h"], cg["h_scale"])
+            hc = state_quant.dequantize_h(cc["h"], cc["h_scale"])
+            same = float((cg["h"].view(torch.uint8) == cc["h"].view(
+                torch.uint8)).float().mean())
+            rel = float(((cg["h_scale"] - cc["h_scale"]).abs()
+                         / cc["h_scale"].clamp_min(1e-30)).max())
+            log(f"  {tag}: final payload codes equal {same:.6f}, "
+                f"scales max rel diff {rel:.3e}, dequantized h max abs "
+                f"diff {float((hg - hc).abs().max()):.3e} (printed)")
+        else:
+            check(f"{tag} final h (card vs CPU)", cg["h"], cc["h"], tol, tol)
+        check(f"{tag} final conv tail (card vs CPU)", cg["conv"], cc["conv"],
+              tol, tol)
+        agree = float((lg.argmax(-1) == lc.argmax(-1)).float().mean())
+        log(f"  greedy token agreement over {lg.shape[0]} positions: "
+            f"{agree:.4f}")
 
 
-def phase_serve(cfg, dev, card):
-    """bf16 serving through Server/Engine with launch counts."""
+# (weights, state, expected state_bytes_per_slot, step kernel served):
+# each run of phase 4; bytes per slot at mamba-130m, 24 layers: h
+# 24 x 1536 x 16 x 4 (f32) or x 1 (int8) + h_scale 24 x 3 x 4 (int8) +
+# conv 24 x 3 x 1536 x 2 (bf16) + pos 4
+SERVE_RUNS = (("f32", "f32", 2580484, "decode_step"),
+              ("int8", "int8", 811300, "decode_step_q"),
+              ("int8", "f32", 2580484, "decode_step_int8a"))
+STEP_COUNTERS = {"decode_step": "launches",
+                 "decode_step_int8a": "launches_int8a",
+                 "decode_step_q": "launches_q"}
+
+
+def phase_serve(cfg, dev, card, weight_dtype, state_dtype, want_spb,
+                served_step):
+    """bf16 serving with launch counts: the f32 setup through
+    ``Server`` (whose ``ServeConfig`` has no weight switch, as in repro),
+    the others through ``Engine``; the kernel counts are set to 0 just
+    before the measured run and read just after."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import conv1d, decode_step, ref, selective_scan
     from repro_torch.models import registry
+    from repro_torch.runtime.engine import Engine, EngineConfig
     from repro_torch.runtime.metrics import ServeStats
     from repro_torch.runtime.sampling import SamplingParams
     from repro_torch.runtime.serve import ServeConfig, Server
     max_new, lens = 32, (64, 127, 256, 512)
+    max_seq = max(lens) + max_new + 8
     params = registry.init_params(cfg, seed=SEED)
-    srv = Server(cfg, params, ServeConfig(batch_slots=4,
-                                          max_seq=max(lens) + max_new + 8,
-                                          device="cuda"))
+    if weight_dtype == "f32" and state_dtype == "f32":
+        srv = Server(cfg, params, ServeConfig(batch_slots=4, max_seq=max_seq,
+                                              device="cuda"))
+        eng = srv.engine
+    else:
+        eng = Engine(cfg, params, EngineConfig(
+            n_slots=4, max_seq=max_seq, weight_dtype=weight_dtype,
+            state_dtype=state_dtype, device="cuda"))
     warm = SyntheticLM(cfg.vocab, 16, seed=3).batch_at(0, 0, 1, 2)["tokens"]
-    srv.generate(warm, max_new=4)                  # cuBLAS and library init
-    eng = srv.engine
+    for row in warm:                               # cuBLAS and library init
+        eng.submit(row, max_new=4)
+    eng.run()
     eng.stats = ServeStats()
     prompts = [SyntheticLM(cfg.vocab, L, seed=4).batch_at(0, 0, 1, 2)
                ["tokens"][i] for L in lens for i in range(2)]
-    selective_scan.launches = conv1d.launches = decode_step.launches = 0
+    selective_scan.launches = conv1d.launches = 0
+    for attr in STEP_COUNTERS.values():
+        setattr(decode_step, attr, 0)
     ref.CALLS.clear()
     torch.cuda.synchronize()
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
@@ -247,31 +466,38 @@ def phase_serve(cfg, dev, card):
     eng.run()
     torch.cuda.synchronize()
     counts = {"selective_scan": selective_scan.launches,
-              "causal_conv1d": conv1d.launches,
-              "decode_step": decode_step.launches}
+              "causal_conv1d": conv1d.launches}
+    counts.update({k: getattr(decode_step, a)
+                   for k, a in STEP_COUNTERS.items()})
     s = eng.stats
     L = cfg.n_layers
     want = {"selective_scan": L * s.prefill_calls,
-            "causal_conv1d": L * (s.prefill_calls + s.decode_steps),
-            "decode_step": L * s.decode_steps}
-    log(f"  admissions {s.prefill_calls}, pooled decode steps "
-        f"{s.decode_steps}")
+            "causal_conv1d": L * (s.prefill_calls + s.decode_steps)}
+    want.update({k: L * s.decode_steps if k == served_step else 0
+                 for k in STEP_COUNTERS})
+    log(f"  {weight_dtype} weights, {state_dtype} state: admissions "
+        f"{s.prefill_calls}, pooled decode steps {s.decode_steps}")
     for name in counts:
-        ok = counts[name] == want[name] and counts[name] > 0
-        log(f"  launches {name:<16} {counts[name]:>6} (expected "
+        ok = counts[name] == want[name] and (counts[name] > 0) == (
+            want[name] > 0)
+        log(f"  launches {name:<18} {counts[name]:>6} (expected "
             f"{want[name]})  {'ok' if ok else 'FAIL'}")
         if not ok:
-            FAILURES.append(f"launch count {name}")
+            FAILURES.append(f"launch count {name} ({weight_dtype} weights, "
+                            f"{state_dtype} state)")
+    if s.decode_steps == 0:
+        FAILURES.append("no decode step ran")
     plain = sum(ref.CALLS.values())
     log(f"  plain-version calls during serving: {plain}  "
         f"{'ok' if plain == 0 else 'FAIL'}")
     if plain:
         FAILURES.append("plain versions ran on the card")
     spb = eng.pool.state_bytes_per_slot()
-    log(f"  state_bytes_per_slot {spb} (expected 2580484)  "
-        f"{'ok' if spb == 2580484 else 'FAIL'}")
-    if spb != 2580484:
-        FAILURES.append("state_bytes_per_slot")
+    ok = spb == want_spb
+    log(f"  state_bytes_per_slot {spb} (expected {want_spb}), slots per GiB "
+        f"{eng.pool.slots_per_gb():.1f}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"state_bytes_per_slot ({state_dtype} state)")
     good = all(r.finished and len(r.tokens) == max_new
                and all(0 <= t < cfg.vocab for t in r.tokens) for r in reqs)
     log(f"  9 requests finished with {max_new} in-vocab tokens each: "
@@ -279,9 +505,10 @@ def phase_serve(cfg, dev, card):
     if not good:
         FAILURES.append("serve outputs")
     smry = s.summary()
-    log(f"  serve bf16 on {card}: {smry['useful_tokens']} tokens in "
-        f"{smry['wall_s']:.3f} s = {smry['tokens_per_s']:.1f} tok/s; TTFT "
-        f"mean {smry['ttft_mean_s'] * 1e3:.1f} ms, p95 "
+    log(f"  serve bf16, {weight_dtype} weights, {state_dtype} state on "
+        f"{card}: {smry['useful_tokens']} tokens in {smry['wall_s']:.3f} s "
+        f"= {smry['tokens_per_s']:.1f} tok/s; TTFT mean "
+        f"{smry['ttft_mean_s'] * 1e3:.1f} ms, p95 "
         f"{smry['ttft_p95_s'] * 1e3:.1f} ms; TPOT mean "
         f"{smry['tpot_mean_s'] * 1e3:.2f} ms")
     return counts
@@ -343,6 +570,19 @@ def s6_work(b, L, d, n, in_bytes, h0):
     return nbytes, ops, b * L * d * n + b * L * d
 
 
+def q_step_work(b, d, n, in_bytes):
+    """Bytes and operations of one quantized-state step with int8 A: the
+    payload in and out at one byte per state element, the (b, g) scales in
+    and out, x, dt, z, B, C in and y out in the input type, A int8 with
+    its (d,) scales, D f32.  Per (d, n) element the step's 7 operations
+    plus the dequant multiply, the A dequant, |h'|, the max, the divide
+    and the rounding: 13; per (b, d) the gate's 8."""
+    g = -(-d // 512)
+    nbytes = 2 * b * d * n + 2 * b * g * 4
+    nbytes += (4 * b * d + 2 * b * n) * in_bytes + d * n + 2 * d * 4
+    return nbytes, 13 * b * d * n + 8 * b * d
+
+
 def conv_work(b, L, d, k, in_bytes):
     """x and x_prev in, y and the (b, k-1, d) tail out, w and bias f32;
     k multiply-adds and the bias add per output."""
@@ -371,6 +611,7 @@ def measure(name, shape, kernel, plain, library, work, reps):
 
 def phase_timing(cfg, dev, counts, errs):
     import torch.nn.functional as F
+    from repro_torch.core import weight_quant
     from repro_torch.kernels import conv1d, decode_step, ref, selective_scan
     d, n, r, k = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
     bf = torch.bfloat16
@@ -404,14 +645,37 @@ def phase_timing(cfg, dev, counts, errs):
             lambda: F.conv1d(xp, wl, bl, groups=d),
             conv_work(b, L, d, k, 2), 50))
 
-    # decode step at 4 slots
+    # decode step at 4 slots, f32 A and int8 A
     x, dt, A, B, C, D, z, h = scan_inputs(4, 1, d, n, r, bf, gen, dev)
     args = (h, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0])
     rows["decode_step"] = [measure(
-        "decode_step", "slots=4 d=1536 n=16 bf16, f32 state",
+        "decode_step", "slots=4 d=1536 n=16 bf16, f32 state, f32 A",
         lambda: decode_step.selective_state_step(*args, D=D, z_t=z[:, 0]),
         lambda: ref.selective_state_step(*args, D=D, z_t=z[:, 0]), None,
         s6_work(4, 1, d, n, 2, True)[:2], 50)]
+    A_q, a_scale = weight_quant.quantize_rows(A)
+    args8 = (h, x[:, 0], dt[:, 0], A_q, B[:, 0], C[:, 0])
+    kw8 = dict(D=D, z_t=z[:, 0], a_scale=a_scale)
+    nbytes, ops, _ = s6_work(4, 1, d, n, 2, True)
+    rows["decode_step_int8a"] = [measure(
+        "decode_step_int8a", "slots=4 d=1536 n=16 bf16, f32 state, int8 A",
+        lambda: decode_step.selective_state_step(*args8, **kw8),
+        lambda: ref.selective_state_step(*args8, **kw8), None,
+        (nbytes - 3 * d * n, ops + d * n), 50)]
+
+    # quantized-state step at 4 slots: int8 state with int8 A as served,
+    # then fp8 state
+    rows["decode_step_q"] = []
+    for sd in ("int8", "fp8"):
+        hq, h_scale = q_state(h, sd)
+        argsq = (hq, h_scale, x[:, 0], dt[:, 0], A_q, B[:, 0], C[:, 0])
+        kwq = dict(D=D, z_t=z[:, 0], state_dtype=sd, a_scale=a_scale)
+        rows["decode_step_q"].append(measure(
+            "decode_step_q",
+            f"slots=4 d=1536 n=16 bf16, {sd} state, int8 A",
+            lambda: decode_step.selective_state_step_q(*argsq, **kwq),
+            lambda: ref.selective_state_step_q(*argsq, **kwq), None,
+            q_step_work(4, d, n, 2), 50))
 
     meta = {
         "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
@@ -420,6 +684,10 @@ def phase_timing(cfg, dev, counts, errs):
                           "src/repro/kernels/conv1d.py:21"),
         "decode_step": ("src/repro_torch/csrc/decode_step.cu",
                         "src/repro/kernels/decode_step.py:223"),
+        "decode_step_int8a": ("src/repro_torch/csrc/decode_step.cu",
+                              "src/repro/kernels/decode_step.py:223"),
+        "decode_step_q": ("src/repro_torch/csrc/decode_step_q.cu",
+                          "src/repro/kernels/decode_step.py:234"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
@@ -446,19 +714,39 @@ def main() -> int:
     cfg = dataclasses.replace(cfg, scan_impl="pallas", conv_impl="pallas",
                               step_impl="fused")
     t_start = time.perf_counter()
+
+    def phase_ok() -> bool:
+        if FAILURES:
+            log(f"FAILED: {FAILURES}")
+            log(f"total {time.perf_counter() - t_start:.1f} s")
+        return not FAILURES
+
     log("== phase 1: build")
     phase_build()
     log("== phase 2: kernels vs plain versions on the card")
     errs = phase_kernels(cfg, dev)
+    if not phase_ok():
+        return 1
     log("== phase 3: mamba-130m f32, kernel path (card) vs plain path (CPU)")
     phase_model(cfg, dev)
-    log("== phase 4: serve mamba-130m bf16")
-    counts = phase_serve(cfg, dev, card)
+    if not phase_ok():
+        return 1
+    # the launches reported per kernel: the scan and conv from the first
+    # run, each step variant from the run that serves it
+    counts = {}
+    for i, (wd, sd, spb, served) in enumerate(SERVE_RUNS):
+        log(f"== phase 4.{i + 1}: serve mamba-130m bf16, {wd} weights, "
+            f"{sd} state")
+        run = phase_serve(cfg, dev, card, wd, sd, spb, served)
+        if i == 0:
+            counts.update(run)
+        counts[served] = run[served]
+        if not phase_ok():
+            return 1
     log("== phase 5: kernel timing (CUDA events)")
     kernels = phase_timing(cfg, dev, counts, errs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    if FAILURES:
-        log(f"FAILED: {FAILURES}")
+    if not phase_ok():
         return 1
     log(json.dumps({"kernels": kernels}))
     log(card_line())

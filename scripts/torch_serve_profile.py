@@ -10,6 +10,7 @@ time.  Run from the repository root on a machine with a CUDA card:
 
     python3 scripts/torch_serve_profile.py [--requests 4 --prompt-len 127]
         [--max-new 32 --slots 4 --seed 0 --trace build/serve_trace.json]
+        [--weight-dtype f32|int8 --state-dtype f32|bf16|int8|fp8]
 """
 import argparse
 import dataclasses
@@ -31,9 +32,8 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def serve(server, prompts, max_new):
+def serve(eng, prompts, max_new):
     """Submit every prompt, run the engine to the end; (tokens, seconds)."""
-    eng = server.engine
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
@@ -60,6 +60,9 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the profiled run here")
+    ap.add_argument("--weight-dtype", default="f32", choices=["f32", "int8"])
+    ap.add_argument("--state-dtype", default="f32",
+                    choices=["f32", "bf16", "int8", "fp8"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
@@ -70,22 +73,24 @@ def main(argv=None) -> int:
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import registry
-    from repro_torch.runtime.serve import ServeConfig, Server
+    from repro_torch.runtime.engine import Engine, EngineConfig
 
     cfg = dataclasses.replace(configs.get_config(args.arch),
                               scan_impl="pallas", conv_impl="pallas",
                               step_impl="fused")
-    server = Server(cfg, registry.init_params(cfg, seed=args.seed),
-                    ServeConfig(batch_slots=args.slots,
-                                max_seq=args.prompt_len + args.max_new + 8,
-                                device="cuda"))
+    engine = Engine(cfg, registry.init_params(cfg, seed=args.seed),
+                    EngineConfig(n_slots=args.slots,
+                                 max_seq=args.prompt_len + args.max_new + 8,
+                                 weight_dtype=args.weight_dtype,
+                                 state_dtype=args.state_dtype,
+                                 device="cuda"))
     prompts = SyntheticLM(cfg.vocab, args.prompt_len, seed=args.seed + 1) \
         .batch_at(0, 0, 1, args.requests)["tokens"]
-    serve(server, prompts[:1], 4)                       # library set-up
-    n_plain, t_plain = serve(server, prompts, args.max_new)
+    serve(engine, prompts[:1], 4)                       # library set-up
+    n_plain, t_plain = serve(engine, prompts, args.max_new)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        n_traced, t_traced = serve(server, prompts, args.max_new)
+        n_traced, t_traced = serve(engine, prompts, args.max_new)
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
@@ -95,7 +100,8 @@ def main(argv=None) -> int:
     busy_us = sum(device_self_us(e) for e in kernels)
     wall_us = t_traced * 1e6
     print(f"card: {card()}")
-    print(f"{cfg.name} bf16, {args.requests} requests x prompt "
+    print(f"{cfg.name} bf16, {args.weight_dtype} weights, "
+          f"{args.state_dtype} state, {args.requests} requests x prompt "
           f"{args.prompt_len} + {args.max_new} new, {args.slots} slots")
     print(f"untraced: {n_plain} tokens in {t_plain:.4f} s = "
           f"{n_plain / t_plain:.1f} tok/s")

@@ -7,9 +7,13 @@ except the layer stack: ``repro`` stacks each layer parameter on a
 leading L axis (``p["layers"][name]`` of shape (L, ...)), the port keeps
 a list of per-layer dicts.  Cache trees agree as they are.
 
-numpy has no bfloat16: a ``repro`` array of that dtype (ml_dtypes) is
-widened to float32 on the way in and cast back to bfloat16 in torch;
-on the way out a bfloat16 tensor becomes a float32 array.
+numpy has no bfloat16 or float8_e4m3fn: a ``repro`` array of either
+dtype (ml_dtypes) is widened to float32 on the way in and cast back in
+torch, and on the way out such a tensor becomes a float32 array that
+the caller narrows again.  Both are lossless: every bfloat16 and every
+e4m3 value is exact in float32.  Quantized trees need nothing more:
+int8 payloads and their f32 scale leaves (``w_scale``, ``A_q`` /
+``A_scale``, the cache's ``h_scale``) map leaf for leaf.
 """
 from __future__ import annotations
 
@@ -19,18 +23,22 @@ import torch
 from repro_torch.models.registry import tree_leaves, tree_map
 
 
+#: ml_dtypes names numpy lacks -> the torch dtype they arrive as
+_WIDENED = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
+
+
 def _tensor(a, device):
     """A copy of ``a`` as a tensor (JAX hands out read-only arrays)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name in _WIDENED:
         return torch.tensor(a.astype(np.float32), device=device).to(
-            torch.bfloat16)
+            _WIDENED[a.dtype.name])
     return torch.tensor(a, device=device)
 
 
 def _array(t):
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in _WIDENED.values():
         t = t.float()
     return t.numpy()
 

@@ -3,7 +3,8 @@
 // S6 cell every selective-SSM kernel applies per (channel, state) pair.
 //
 // The nonlinearities are a runtime switch on each kernel (one uniform branch
-// per call site); the numbering matches repro_torch/kernels/_lib.py.
+// per call site); the numbering of the switches and of the activation and
+// state storage types matches repro_torch/kernels/_lib.py.
 // fast_exp's multiply-add uses __fmul_rn/__fadd_rn so nvcc cannot contract
 // it into an FMA: the int32 it truncates then equals the one the plain
 // PyTorch version computes, bit for bit.
@@ -18,6 +19,7 @@ namespace marca {
 enum ExpImpl { EXP_EXACT = 0, EXP_OURS = 1, EXP_FAST = 2 };
 enum SiluImpl { SILU_EXACT = 0, SILU_OURS = 1, SILU_PAPER = 2 };
 enum DType { DT_F32 = 0, DT_BF16 = 1 };
+enum StateDType { SD_INT8 = 0, SD_FP8 = 1 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -102,6 +104,20 @@ __device__ __forceinline__ float s6_state_update(float h, float dt, float x,
                                                  float a, float b,
                                                  int exp_impl) {
   return apply_exp(dt * a, exp_impl) * h + (dt * x) * b;
+}
+
+// A[c][s] as the cell consumes it: f32 weights as stored, or int8 codes
+// times their per-channel scale with one rounded multiply -- the multiply
+// of repro/core/weight_quant.py dequantize_rows, so every path sees
+// bit-identical A values (__fmul_rn keeps nvcc from fusing it onward).
+__device__ __forceinline__ float load_a(const float* A, const float*,
+                                        int64_t idx, int) {
+  return A[idx];
+}
+__device__ __forceinline__ float load_a(const int8_t* A,
+                                        const float* a_scale, int64_t idx,
+                                        int c) {
+  return __fmul_rn((float)A[idx], a_scale[c]);
 }
 
 // y_d = sum_n C_n h_nd: butterfly over the kN lanes of the channel's group

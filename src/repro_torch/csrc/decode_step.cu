@@ -1,7 +1,9 @@
 // Fused single-token S6 decode step over the slot pool, for Hopper, sm_90a.
 //
 // Replaces: repro/kernels/decode_step.py:223 _step_kernel (pallas_call at
-// :316, "marca_decode_step"), the per-layer decode step of the Mamba block.
+// :316, "marca_decode_step"), the per-layer decode step of the Mamba block,
+// in both its variants: f32 A, and int8 A codes with per-channel f32
+// scales (weight_dtype="int8", the TPU kernel's `wq` dequant phase).
 //
 //   h' = exp(dt * A) * h + (dt * x) B ;  y = sum_n C_n h'_n
 //   out = (y + D * x) * silu(z)
@@ -18,6 +20,10 @@
 // layout and h' written to an output the wrapper allocates; masking of
 // inactive slots stays with the caller, as in repro.  Row strides for x,
 // dt, z, B and C let the block pass its strided views without a copy.
+// The A type is a template parameter beside the activation type: with
+// int8 A each thread dequantizes its own entry (load_a in common.cuh), so
+// A crosses device memory at one byte per entry and the f32-A path is
+// unchanged.
 #include "common.cuh"
 
 namespace marca {
@@ -25,10 +31,11 @@ namespace marca {
 constexpr int kStepN = 16;
 constexpr int kStepThreads = 128;  // 8 channels per block
 
-template <typename T>
+template <typename T, typename TA>
 __global__ void __launch_bounds__(kStepThreads)
 decode_step_kernel(const float* __restrict__ h, const T* __restrict__ x,
-                   const T* __restrict__ dt, const float* __restrict__ A,
+                   const T* __restrict__ dt, const TA* __restrict__ A,
+                   const float* __restrict__ a_scale,
                    const T* __restrict__ B, const T* __restrict__ C,
                    const float* __restrict__ D, const T* __restrict__ z,
                    T* __restrict__ y, float* __restrict__ h_new, int d,
@@ -43,9 +50,9 @@ decode_step_kernel(const float* __restrict__ h, const T* __restrict__ x,
   const int64_t hidx = ((int64_t)slot * d + c) * kStepN + s;
   const float xv = to_f32(x[slot * sx + c]);
   const float dtv = to_f32(dt[slot * sdt + c]);
-  const float hv = s6_state_update(h[hidx], dtv, xv,
-                                   A[(int64_t)c * kStepN + s],
-                                   to_f32(B[slot * sB + s]), exp_impl);
+  const float hv = s6_state_update(
+      h[hidx], dtv, xv, load_a(A, a_scale, (int64_t)c * kStepN + s, c),
+      to_f32(B[slot * sB + s]), exp_impl);
   float yv = s6_contract<kStepN>(hv, to_f32(C[slot * sC + s]));
   if (!valid) return;
   h_new[hidx] = hv;
@@ -59,31 +66,53 @@ decode_step_kernel(const float* __restrict__ h, const T* __restrict__ x,
 
 }  // namespace marca
 
+namespace {
+
+template <typename T, typename TA>
+void launch(dim3 grid, cudaStream_t st, const void* h, const void* x,
+            const void* dt, const void* A, const void* a_scale,
+            const void* B, const void* C, const void* D, const void* z,
+            void* y, void* h_new, int d, int64_t sx, int64_t sdt, int64_t sB,
+            int64_t sC, int64_t sz, int exp_impl, int silu_impl) {
+  marca::decode_step_kernel<T, TA><<<grid, marca::kStepThreads, 0, st>>>(
+      (const float*)h, (const T*)x, (const T*)dt, (const TA*)A,
+      (const float*)a_scale, (const T*)B, (const T*)C, (const float*)D,
+      (const T*)z, (T*)y, (float*)h_new, d, sx, sdt, sB, sC, sz, exp_impl,
+      silu_impl);
+}
+
+}  // namespace
+
+// a_scale == nullptr: A is f32; otherwise A is int8 codes and a_scale
+// their (d,) f32 per-channel scales.
 extern "C" int marca_decode_step(const void* h, const void* x, const void* dt,
-                                 const void* A, const void* B, const void* C,
-                                 const void* D, const void* z, void* y,
-                                 void* h_new, int slots, int d, int n,
-                                 int64_t sx, int64_t sdt, int64_t sB,
-                                 int64_t sC, int64_t sz, int dtype,
-                                 int exp_impl, int silu_impl, void* stream) {
+                                 const void* A, const void* a_scale,
+                                 const void* B, const void* C, const void* D,
+                                 const void* z, void* y, void* h_new,
+                                 int slots, int d, int n, int64_t sx,
+                                 int64_t sdt, int64_t sB, int64_t sC,
+                                 int64_t sz, int dtype, int exp_impl,
+                                 int silu_impl, void* stream) {
   using namespace marca;
   if (n != kStepN || slots < 1 || slots > 65535 || d < 1)
     return cudaErrorInvalidValue;
   const int per_block = kStepThreads / kStepN;
   const dim3 grid((d + per_block - 1) / per_block, slots);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) {
-    decode_step_kernel<float><<<grid, kStepThreads, 0, st>>>(
-        (const float*)h, (const float*)x, (const float*)dt, (const float*)A,
-        (const float*)B, (const float*)C, (const float*)D, (const float*)z,
-        (float*)y, (float*)h_new, d, sx, sdt, sB, sC, sz, exp_impl,
-        silu_impl);
+  const bool a8 = a_scale != nullptr;
+  using bf = __nv_bfloat16;
+  if (dtype == DT_F32 && !a8) {
+    launch<float, float>(grid, st, h, x, dt, A, a_scale, B, C, D, z, y,
+                         h_new, d, sx, sdt, sB, sC, sz, exp_impl, silu_impl);
+  } else if (dtype == DT_F32) {
+    launch<float, int8_t>(grid, st, h, x, dt, A, a_scale, B, C, D, z, y,
+                          h_new, d, sx, sdt, sB, sC, sz, exp_impl, silu_impl);
+  } else if (dtype == DT_BF16 && !a8) {
+    launch<bf, float>(grid, st, h, x, dt, A, a_scale, B, C, D, z, y, h_new,
+                      d, sx, sdt, sB, sC, sz, exp_impl, silu_impl);
   } else if (dtype == DT_BF16) {
-    using bf = __nv_bfloat16;
-    decode_step_kernel<bf><<<grid, kStepThreads, 0, st>>>(
-        (const float*)h, (const bf*)x, (const bf*)dt, (const float*)A,
-        (const bf*)B, (const bf*)C, (const float*)D, (const bf*)z, (bf*)y,
-        (float*)h_new, d, sx, sdt, sB, sC, sz, exp_impl, silu_impl);
+    launch<bf, int8_t>(grid, st, h, x, dt, A, a_scale, B, C, D, z, y, h_new,
+                       d, sx, sdt, sB, sC, sz, exp_impl, silu_impl);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("selective_scan.cu", "conv1d.cu", "decode_step.cu")
+SOURCES = ("selective_scan.cu", "conv1d.cu", "decode_step.cu",
+           "decode_step_q.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
@@ -32,13 +33,16 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 EXP_IMPLS = {"exact": 0, "ours": 1, "fast": 2}
 SILU_IMPLS = {"exact": 0, "ours": 1, "paper": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+STATE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "marca_selective_scan": [_P] * 10 + [_I] * 4 + [_L] * 10
     + [_I] * 3 + [_P],
     "marca_causal_conv1d": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I, _P],
-    "marca_decode_step": [_P] * 10 + [_I] * 3 + [_L] * 5 + [_I] * 3 + [_P],
+    "marca_decode_step": [_P] * 11 + [_I] * 3 + [_L] * 5 + [_I] * 3 + [_P],
+    "marca_decode_step_q": [_P] * 13 + [_I] * 4 + [_L] * 5 + [_I] * 4
+    + [_P],
 }
 
 _lib = None
@@ -172,6 +176,14 @@ def check_impls(exp_impl: str, silu_impl: str) -> None:
         raise ValueError(f"unknown exp_impl {exp_impl!r}")
     if silu_impl not in SILU_IMPLS:
         raise ValueError(f"unknown silu_impl {silu_impl!r}")
+
+
+def check_a(A, a_scale, d, n) -> None:
+    """The SSM A of a decode step: f32 (d, n), or int8 codes (d, n) with
+    their per-row f32 scales a_scale (d,)."""
+    check_dense("A", A, torch.float32 if a_scale is None else torch.int8,
+                (d, n))
+    check_dense("a_scale", a_scale, torch.float32, (d,))
 
 
 def check_dtype(t) -> None:

@@ -13,14 +13,15 @@ accepted so that one config describes both packages:
 * ``step_impl``: auto | fused | pallas | xla resolve to "fused", the
   per-layer decode-step kernel; "megakernel" is ROADMAP K3 and raises.
 
-``state_dtype`` "f32" and "bf16" store the pooled state at that width
-(the step math is f32 either way); "int8" and "fp8" are ROADMAP K2 and
-raise.
+``state_dtype`` "f32" and "bf16" store the pooled state at that width;
+"int8" and "fp8" store codes with f32 group scales and decode through
+``selective_state_step_q``.  The step math is f32 in every case.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import state_quant
 from repro_torch.kernels import conv1d as _conv_k
 from repro_torch.kernels import decode_step as _step_k
 from repro_torch.kernels import selective_scan as _scan_k
@@ -28,7 +29,6 @@ from repro_torch.kernels import selective_scan as _scan_k
 SCAN_IMPLS = ("seq", "assoc", "chunked", "chunked_seq", "pallas")
 CONV_IMPLS = ("xla", "pallas")
 STEP_IMPLS = ("auto", "fused", "pallas", "xla")
-_STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def resolve_step_impl(name: str) -> str:
@@ -43,13 +43,7 @@ def resolve_step_impl(name: str) -> str:
 
 def storage_dtype(state_dtype: str) -> torch.dtype:
     """Torch dtype the pooled recurrent state is stored in."""
-    if state_dtype in ("int8", "fp8"):
-        raise NotImplementedError(
-            f"state_dtype={state_dtype!r} (quantized state and its decode "
-            "kernel) is not ported yet: ROADMAP K2")
-    if state_dtype not in _STORAGE:
-        raise KeyError(f"unknown state dtype {state_dtype!r}")
-    return _STORAGE[state_dtype]
+    return state_quant.storage_dtype(state_dtype)
 
 
 def selective_scan(x, dt, A, B, C, D=None, z=None, h0=None,
@@ -69,8 +63,19 @@ def causal_conv1d(x, w, b=None, x_prev=None, impl: str = "pallas"):
 
 def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
                          impl: str = "fused", exp_impl: str = "exact",
-                         silu_impl: str = "exact"):
+                         silu_impl: str = "exact", a_scale=None):
     resolve_step_impl(impl)
     return _step_k.selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=D,
                                         z_t=z_t, exp_impl=exp_impl,
-                                        silu_impl=silu_impl)
+                                        silu_impl=silu_impl, a_scale=a_scale)
+
+
+def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
+                           z_t=None, state_dtype: str = "int8",
+                           impl: str = "fused", exp_impl: str = "exact",
+                           silu_impl: str = "exact", a_scale=None):
+    resolve_step_impl(impl)
+    return _step_k.selective_state_step_q(
+        hq, h_scale, x_t, dt_t, A, B_t, C_t, D=D, z_t=z_t,
+        state_dtype=state_dtype, exp_impl=exp_impl, silu_impl=silu_impl,
+        a_scale=a_scale)

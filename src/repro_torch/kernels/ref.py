@@ -18,7 +18,7 @@ import collections
 
 import torch
 
-from repro_torch.core import approx
+from repro_torch.core import approx, state_quant, weight_quant
 
 CALLS: collections.Counter = collections.Counter()
 
@@ -58,13 +58,23 @@ def selective_scan(x, dt, A, B, C, D=None, z=None, h0=None,
 
 
 def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
-                         exp_impl: str = "exact", silu_impl: str = "exact"):
+                         exp_impl: str = "exact", silu_impl: str = "exact",
+                         a_scale=None):
     """One decode step (``repro/kernels/ref.py:86``).  h (b, d, n) f32;
-    x_t, dt_t (b, d); B_t, C_t (b, n).  Returns (y (b, d) in x_t.dtype,
-    h_new (b, d, n) f32)."""
+    x_t, dt_t (b, d); B_t, C_t (b, n).  ``a_scale`` (d,) marks A as int8
+    codes, dequantized first with ``weight_quant.dequantize_rows`` (as
+    ``repro/core/selective_scan.py:205`` does on its XLA path).  Returns
+    (y (b, d) in x_t.dtype, h_new (b, d, n) f32)."""
     CALLS["selective_state_step"] += 1
+    return _step(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl,
+                 a_scale)
+
+
+def _step(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl, a_scale):
     exp = approx.get_exp(exp_impl)
     silu = approx.get_silu(silu_impl)
+    if a_scale is not None:
+        A = weight_quant.dequantize_rows(A, a_scale)
     xf, dtf = x_t.float(), dt_t.float()
     dA = exp(dtf[..., None] * A.float())
     dBx = (dtf * xf)[..., None] * B_t.float()[:, None, :]
@@ -75,6 +85,24 @@ def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
     if z_t is not None:
         y = y * silu(z_t.float())
     return y.to(x_t.dtype), h
+
+
+def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
+                           z_t=None, state_dtype: str = "int8",
+                           exp_impl: str = "exact",
+                           silu_impl: str = "exact", a_scale=None):
+    """Quantized-state decode step (``repro/kernels/ref.py:104``): hq
+    (b, d, n) int8/fp8 payload and h_scale (b, g) f32 group scales are
+    dequantized, stepped in f32 and requantized with the running-absmax
+    update; the f32 state exists only in between.  Returns
+    (y (b, d), hq_new, scale_new (b, g))."""
+    CALLS["selective_state_step_q"] += 1
+    h = state_quant.dequantize_h(hq, h_scale)
+    y, h_new = _step(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl,
+                     a_scale)
+    hq_new, scale_new = state_quant.quantize_h(h_new, state_dtype,
+                                               prev_scale=h_scale)
+    return y, hq_new, scale_new
 
 
 def causal_conv1d(x, w, b=None, x_prev=None):

@@ -5,6 +5,8 @@ over a synthetic request stream (port of ``repro/launch/serve.py``).
       --requests 8 --max-new 32                 # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba-130m \
       --smoke --device cpu                      # plain versions, CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba-130m \
+      --smoke --device cpu --state-dtype int8   # int8 pooled state
 """
 import argparse
 import dataclasses
@@ -32,7 +34,8 @@ def main(argv=None):
                     help="sample from the k highest logits (0 = off)")
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 = off)")
-    ap.add_argument("--state-dtype", default=None, choices=["f32", "bf16"],
+    ap.add_argument("--state-dtype", default=None,
+                    choices=["f32", "bf16", "int8", "fp8"],
                     help="pooled decode-state storage dtype")
     args = ap.parse_args(argv)
 

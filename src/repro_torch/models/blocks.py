@@ -3,10 +3,10 @@
 tied unembedding.
 
 Parameters are plain tensors in nested dicts laid out as ``repro``'s
-(dense weights are ``(d_in, d_out)``), so ``bridge.py`` maps one tree
-onto the other leaf for leaf.  Compute dtype follows cfg.dtype; norms
-and logits are f32.  The GEMMs are ``torch.matmul``, as ``repro`` leaves
-them to XLA.
+(dense weights are ``(d_in, d_out)``, int8 weights carry a ``w_scale``
+sibling), so ``bridge.py`` maps one tree onto the other leaf for leaf.
+Compute dtype follows cfg.dtype; norms and logits are f32.  The GEMMs
+are ``torch.matmul``, as ``repro`` leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -19,7 +19,13 @@ def dense_init(gen, d_in, d_out, scale=None):
 
 
 def dense(p, x, compute_dtype=None):
+    """x @ w (+ b).  An int8 ``w`` is dequantized with its per-output-
+    channel ``w_scale`` (``w.float() * w_scale``, as
+    ``repro/models/blocks.py:45`` does) before the cast to the compute
+    dtype."""
     w = p["w"]
+    if "w_scale" in p:
+        w = w.float() * p["w_scale"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)

@@ -1,5 +1,6 @@
 """Mamba block (Gu & Dao 2023): the port of ``repro/models/mamba.py``
-(block apply :103, step :131, state init :280) with f32 weights.
+(block apply :103, step :131, state init :280), with f32 or int8
+weights and f32, bf16, int8 or fp8 pooled state.
 
 Per block: in_proj -> [x | z] -> causal depthwise conv (CUDA kernel) ->
 SiLU -> x_proj -> (dt, B, C) -> softplus(dt_proj) -> selective scan at
@@ -8,6 +9,12 @@ prefill / fused decode step per token (CUDA kernels) -> out_proj.
 x_in and z are views of one in_proj output, and dt_low, B and C views
 of one x_proj output (as ``jnp.split`` gives in repro); the kernels take
 their row strides, so no copy is made.
+
+With int8 weights (``A_q``/``A_scale`` in place of ``A_log``) the decode
+step hands the codes and scales to the kernel, which dequantizes A
+itself; prefill dequantizes A up front with the same multiply.  With an
+int8/fp8 state the step runs the quantized-state kernel, and prefill
+quantizes its final state from a cold start.
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import approx
+from repro_torch.core import approx, state_quant, weight_quant
 from repro_torch.kernels import ops
 from repro_torch.models import blocks
 
@@ -60,13 +67,33 @@ def _ssm_inputs(cfg, p, x_a):
     return dt, B, C
 
 
+def _a_and_scale(p):
+    """A as the step consumes it: (A, a_scale).  f32 weights recompute
+    A = -exp(A_log) and carry no scale; int8 weights give the stored
+    codes and their per-channel scales, dequantized where consumed."""
+    if "A_q" in p:
+        return p["A_q"], p["A_scale"]
+    return -torch.exp(p["A_log"]), None
+
+
 def read_state_h(cfg, state):
-    """The stored state as the f32 the scan and step take (a cast for a
-    bf16 pool, the tensor itself for an f32 one)."""
+    """The stored state as the f32 the scan and step take: a cast for an
+    f32/bf16 pool, a dequantization with the group scales
+    (``state["h_scale"]``) for an int8/fp8 one."""
+    if state_quant.is_quantized(cfg.state_dtype):
+        return state_quant.dequantize_h(state["h"], state["h_scale"])
     return state["h"].float()
 
 
-def write_state_h(cfg, h):
+def write_state_h(cfg, h, prev_state=None):
+    """The {"h"} (+ "h_scale") leaves storing the f32 state ``h``.
+    ``prev_state`` gives the previous scales to the running-absmax
+    update; None is a cold start (prefill)."""
+    if state_quant.is_quantized(cfg.state_dtype):
+        prev = None if prev_state is None else prev_state["h_scale"]
+        q, scale = state_quant.quantize_h(h, cfg.state_dtype,
+                                          prev_scale=prev)
+        return {"h": q, "h_scale": scale}
     return {"h": h.to(ops.storage_dtype(cfg.state_dtype))}
 
 
@@ -80,14 +107,19 @@ def mamba_block_apply(cfg, p, x, state=None):
                                       x_prev=conv_state, impl=cfg.conv_impl)
     x_a = silu(x_c)
     dt, B, C = _ssm_inputs(cfg, p, x_a)
-    A = -torch.exp(p["A_log"])
+    A, a_scale = _a_and_scale(p)
+    if a_scale is not None:
+        # prefill is compute-bound: dequantize A up front, with the
+        # multiply the decode kernels run in their dequant phase
+        A = weight_quant.dequantize_rows(A, a_scale)
     h0 = None if state is None else read_state_h(cfg, state)
     y, h_last = ops.selective_scan(x_a, dt, A, B, C, D=p["D"], z=z, h0=h0,
                                    impl=cfg.scan_impl,
                                    exp_impl=cfg.exp_impl,
                                    silu_impl=cfg.silu_impl)
     out = blocks.dense(p["out_proj"], y, x.dtype)
-    return out, {**write_state_h(cfg, h_last), "conv": new_conv}
+    return out, {**write_state_h(cfg, h_last, prev_state=state),
+                 "conv": new_conv}
 
 
 def mamba_block_step(cfg, p, x_t, state):
@@ -101,19 +133,35 @@ def mamba_block_step(cfg, p, x_t, state):
                                       impl=cfg.conv_impl)
     x_a = silu(x_c)
     dt, B, C = _ssm_inputs(cfg, p, x_a)
-    A = -torch.exp(p["A_log"])
+    A, a_scale = _a_and_scale(p)
+    if state_quant.is_quantized(cfg.state_dtype):
+        # dequant on read and requant on write stay inside the kernel:
+        # the pooled h never reaches device memory at f32
+        y, hq, scale = ops.selective_state_step_q(
+            state["h"], state["h_scale"], x_a[:, 0], dt[:, 0], A, B[:, 0],
+            C[:, 0], D=p["D"], z_t=z[:, 0], state_dtype=cfg.state_dtype,
+            impl=cfg.step_impl, exp_impl=cfg.exp_impl,
+            silu_impl=cfg.silu_impl, a_scale=a_scale)
+        out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
+        return out, {"h": hq, "h_scale": scale, "conv": new_conv}
     y, h = ops.selective_state_step(
         read_state_h(cfg, state), x_a[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
         D=p["D"], z_t=z[:, 0], impl=cfg.step_impl, exp_impl=cfg.exp_impl,
-        silu_impl=cfg.silu_impl)
+        silu_impl=cfg.silu_impl, a_scale=a_scale)
     out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
     return out, {**write_state_h(cfg, h), "conv": new_conv}
 
 
 def mamba_state_init(cfg, batch, dtype, device):
     di, n, k = cfg.d_inner, cfg.d_state, cfg.d_conv
-    return {
+    out = {
         "h": torch.zeros(batch, di, n, dtype=ops.storage_dtype(
             cfg.state_dtype), device=device),
         "conv": torch.zeros(batch, k - 1, di, dtype=dtype, device=device),
     }
+    if state_quant.is_quantized(cfg.state_dtype):
+        # zero scales decode the zero state exactly; the first write
+        # (prefill quantize or step requant) sets real scales
+        out["h_scale"] = torch.zeros(batch, state_quant.n_groups(di),
+                                     dtype=torch.float32, device=device)
+    return out

@@ -5,12 +5,14 @@ Pre-norm residual stack of Mamba blocks with tied embeddings.  ``repro``
 stacks the layer parameters on a leading L axis for ``lax.scan``; the
 port keeps one dict per layer in a list (``p["layers"][l]``) and loops
 in Python, while the decode cache keeps ``repro``'s stacked layout:
-h (L, b, di, n), conv (L, b, k-1, di), pos (b,) int32.
+h (L, b, di, n), conv (L, b, k-1, di), pos (b,) int32, and with an
+int8/fp8 state the group scales h_scale (L, b, g) f32.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import state_quant
 from repro_torch.kernels import ops
 from repro_torch.models import blocks, mamba
 
@@ -52,26 +54,43 @@ def forward(cfg, p, batch):
     return _logits(cfg, p, h), {}
 
 
+def _quantized(cfg):
+    return state_quant.is_quantized(cfg.state_dtype)
+
+
+def _state_keys(cfg):
+    return ("h", "h_scale", "conv") if _quantized(cfg) else ("h", "conv")
+
+
 def init_cache(cfg, batch, max_seq, dtype, device):
     L, di, n, k = cfg.n_layers, cfg.d_inner, cfg.d_state, cfg.d_conv
-    return {
+    out = {
         "h": torch.zeros(L, batch, di, n,
                          dtype=ops.storage_dtype(cfg.state_dtype),
                          device=device),
         "conv": torch.zeros(L, batch, k - 1, di, dtype=dtype, device=device),
         "pos": torch.zeros(batch, dtype=torch.int32, device=device),
     }
+    if _quantized(cfg):
+        # per-slot, per-layer, per-channel-group scales: every slot
+        # operation moves them with their payload
+        out["h_scale"] = torch.zeros(L, batch, state_quant.n_groups(di),
+                                     dtype=torch.float32, device=device)
+    return out
 
 
 def cache_slot_axes(cfg):
     """Batch/slot axis index per cache leaf (layout matches init_cache)."""
-    return {"h": 1, "conv": 1, "pos": 0}
+    ax = {"h": 1, "conv": 1, "pos": 0}
+    if _quantized(cfg):
+        ax["h_scale"] = 1
+    return ax
 
 
-def _stack(states, pos):
-    return {"h": torch.stack([s["h"] for s in states]),
-            "conv": torch.stack([s["conv"] for s in states]),
-            "pos": pos}
+def _stack(cfg, states, pos):
+    out = {k: torch.stack([s[k] for s in states]) for k in _state_keys(cfg)}
+    out["pos"] = pos
+    return out
 
 
 def prefill(cfg, p, cache, batch):
@@ -85,7 +104,7 @@ def prefill(cfg, p, cache, batch):
         states.append(ns)
     pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
                      device=tokens.device)
-    return _logits(cfg, p, h), _stack(states, pos)
+    return _logits(cfg, p, h), _stack(cfg, states, pos)
 
 
 def decode_step(cfg, p, cache, batch):
@@ -93,7 +112,7 @@ def decode_step(cfg, p, cache, batch):
     h = blocks.embed_apply(cfg, p["embed"], batch["tokens"], _dtype(cfg))
     states = []
     for l, lp in enumerate(p["layers"]):
-        state = {"h": cache["h"][l], "conv": cache["conv"][l]}
+        state = {k: cache[k][l] for k in _state_keys(cfg)}
         h, ns = _layer_apply(cfg, lp, h, state=state, step=True)
         states.append(ns)
-    return _logits(cfg, p, h), _stack(states, cache["pos"] + 1)
+    return _logits(cfg, p, h), _stack(cfg, states, cache["pos"] + 1)

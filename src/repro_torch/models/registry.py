@@ -3,6 +3,7 @@ counts — the port of ``repro/models/registry.py`` for the mamba family.
 Other families raise ``NotImplementedError`` (ROADMAP A9-A11).
 
   init_params(cfg, seed, device) -> param tree (nested dicts of tensors)
+  quantize_params(cfg, params) -> the int8 + scale tree (weight_dtype)
   forward / prefill / decode_step(cfg, params, ...) -> (logits, ...)
   init_cache(cfg, batch, max_seq, dtype, device) -> decode cache
   gather_slots / scatter_slots / mask_slots -> the serving engine's
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import weight_quant
 from repro_torch.models import mamba_lm
 
 _FAMILIES = {"mamba": mamba_lm}
@@ -51,9 +53,18 @@ def tree_to(tree, device):
 
 def init_params(cfg, seed: int = 0, device="cpu"):
     """Weights made from ``seed`` with a CPU ``torch.Generator``, then
-    moved: the same seed gives the same weights on every device."""
+    moved: the same seed gives the same weights on every device.
+    Quantized when cfg.weight_dtype is "int8"."""
     gen = torch.Generator().manual_seed(seed)
-    return tree_to(family(cfg).init(cfg, gen), device)
+    return tree_to(quantize_params(cfg, family(cfg).init(cfg, gen)), device)
+
+
+def quantize_params(cfg, params):
+    """Quantize an f32 param tree per cfg.weight_dtype (unchanged for
+    "f32"): the int8 + scale tree the decode path serves from."""
+    if not weight_quant.is_quantized(cfg.weight_dtype):
+        return params
+    return weight_quant.quantize_tree(params)
 
 
 def init_cache(cfg, batch, max_seq, dtype=None, device="cpu"):
@@ -69,10 +80,18 @@ def cache_slot_axes(cfg):
     return family(cfg).cache_slot_axes(cfg)
 
 
+def _bits(t):
+    """``t`` itself, or for an fp8 leaf its bytes (a dtype view, no
+    copy): slot copies and selects move codes, and PyTorch's CPU
+    ``index_copy_`` has no fp8 kernel."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
 def gather_slots(cfg, cache, slot_ids):
     """Sub-cache of ``slot_ids`` (int64 tensor (m,)), a copy."""
     axes = cache_slot_axes(cfg)
-    return {k: v.index_select(axes[k], slot_ids) for k, v in cache.items()}
+    return {k: _bits(v).index_select(axes[k], slot_ids).view(v.dtype)
+            for k, v in cache.items()}
 
 
 def scatter_slots(cfg, pool_cache, sub_cache, slot_ids):
@@ -81,7 +100,8 @@ def scatter_slots(cfg, pool_cache, sub_cache, slot_ids):
     copied, unlike repro's functional ``.at[].set`` — and returned."""
     axes = cache_slot_axes(cfg)
     for k, dst in pool_cache.items():
-        dst.index_copy_(axes[k], slot_ids, sub_cache[k].to(dst.dtype))
+        _bits(dst).index_copy_(axes[k], slot_ids,
+                               _bits(sub_cache[k].to(dst.dtype)))
     return pool_cache
 
 
@@ -94,7 +114,8 @@ def mask_slots(cfg, old_cache, new_cache, active):
         shape = [1] * old.dim()
         shape[axes[k]] = -1
         out[k] = torch.where(active.reshape(shape),
-                             new_cache[k].to(old.dtype), old)
+                             _bits(new_cache[k].to(old.dtype)),
+                             _bits(old)).view(old.dtype)
     return out
 
 

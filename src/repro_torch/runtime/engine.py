@@ -15,11 +15,17 @@ slot with queued work).  Tokens chain on the device through the burst
 and the host syncs once at its end.  PyTorch runs eagerly, so there is
 no compile to share between engines.
 
-Not ported yet (ROADMAP A8, K2, K3, A13): speculative decoding
-(``draft``), the prefix cache, tensor-parallel serving (``mesh``),
-best-of-n (``n > 1``), int8 weights, quantized state, the megakernel and
-infinite-stream sessions.  The first five raise ``NotImplementedError``
-here; quantized state and the megakernel raise in ``kernels/ops.py``.
+``weight_dtype="int8"`` quantizes the handed-in f32 tree for decode
+(the decode-bandwidth lever) and keeps the f32 tree as the prefill
+master (``prefill_params``), as ``repro``'s engine does; both live on
+the device.  ``state_dtype`` "int8"/"fp8" stores the pooled state as
+codes with f32 group scales.
+
+Not ported yet (ROADMAP A8, K3, A13): speculative decoding (``draft``),
+the prefix cache, tensor-parallel serving (``mesh``), best-of-n
+(``n > 1``), the megakernel and infinite-stream sessions.  The first
+four raise ``NotImplementedError`` here; the megakernel raises in
+``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import weight_quant
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.runtime import metrics as metrics_lib
@@ -60,7 +67,8 @@ class EngineConfig:
     sched_quantum: int = 8
     # overrides of the model config (None keeps cfg's setting):
     # step_impl auto | fused | pallas | xla all run the fused step
-    # kernel; state_dtype "f32" | "bf16"
+    # kernel; state_dtype "f32" | "bf16" | "int8" | "fp8"; weight_dtype
+    # "f32" | "int8" (int8 quantizes the handed-in f32 tree for decode)
     step_impl: Optional[str] = None
     state_dtype: Optional[str] = None
     weight_dtype: Optional[str] = None
@@ -111,11 +119,6 @@ class Engine:
                 raise NotImplementedError(
                     f"EngineConfig.{name} is not ported to repro_torch yet "
                     "(ROADMAP A8/A13)")
-        weight_dtype = ecfg.weight_dtype or cfg.weight_dtype
-        if weight_dtype != "f32":
-            raise NotImplementedError(
-                f"weight_dtype={weight_dtype!r} is not ported yet "
-                "(ROADMAP K2: int8 weights and the int8-A decode step)")
         if ecfg.step_impl is not None:
             cfg = dataclasses.replace(cfg, step_impl=ecfg.step_impl)
         if ecfg.state_dtype is not None:
@@ -123,8 +126,21 @@ class Engine:
         ops.resolve_step_impl(cfg.step_impl)      # raises on megakernel
         ecfg.default_params.validate()
         self.device = resolve_device(ecfg.device)
+        prefill_params = params
+        if ecfg.weight_dtype is not None:
+            already = weight_quant.is_quantized(cfg.weight_dtype)
+            cfg = dataclasses.replace(cfg, weight_dtype=ecfg.weight_dtype)
+            if weight_quant.is_quantized(cfg.weight_dtype) and not already:
+                # decode streams the int8 tree; the compute-bound prefill
+                # stays exact on the caller's f32 master (a tree handed
+                # in already quantized has no master: prefill then
+                # dequantizes its codes)
+                params = registry.quantize_params(cfg, params)
         self.cfg = cfg
         self.params = registry.tree_to(params, self.device)
+        self.prefill_params = (self.params if prefill_params is params
+                               else registry.tree_to(prefill_params,
+                                                     self.device))
         self.ecfg = ecfg
         self.pool = SlotStatePool(cfg, ecfg.n_slots, ecfg.max_seq,
                                   device=self.device)
@@ -275,7 +291,7 @@ class Engine:
         req.t_admit = t0
         tokens = torch.as_tensor(req.prompt[None], dtype=torch.int64,
                                  device=self.device)
-        logits, sub = registry.prefill(self.cfg, self.params,
+        logits, sub = registry.prefill(self.cfg, self.prefill_params,
                                        self.pool.fresh, {"tokens": tokens})
         self.pool.admit(slot, sub)
         last = logits[:, -1, :]

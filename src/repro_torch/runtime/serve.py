@@ -26,7 +26,8 @@ class ServeConfig:
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
-    # pooled recurrent-state storage dtype override: "f32" | "bf16"
+    # pooled recurrent-state storage dtype override:
+    # "f32" | "bf16" | "int8" | "fp8"
     state_dtype: Optional[str] = None
     device: str = "cuda"
 

@@ -8,7 +8,9 @@ per in-flight sequence: admission scatters a prefilled state into a free
 slot, eviction scatters the init state back, and the decode batch never
 changes shape.  The pool's tensors are updated in place (``index_copy_``)
 where ``repro`` rebinds functional copies, which keeps one pool's worth of
-memory.
+memory.  An int8/fp8 state's group scales (``h_scale``) are a cache leaf
+like any other, so every slot operation moves them with their payload and
+an evicted slot gets zero scales back.
 """
 from __future__ import annotations
 
@@ -104,6 +106,13 @@ class SlotStatePool:
             torch.as_tensor(active, device=self.device))
 
     def state_bytes_per_slot(self) -> int:
-        """Device bytes one slot occupies across every cache leaf."""
+        """Device bytes one slot occupies across every cache leaf:
+        quantized payloads at their storage width, their f32 scales
+        included."""
         return sum(t.numel() * t.element_size()
                    for t in self.cache.values()) // self.n_slots
+
+    def slots_per_gb(self) -> float:
+        """Slot capacity per GiB of decode-state memory (the capacity
+        axis cfg.state_dtype multiplies)."""
+        return (1 << 30) / max(1, self.state_bytes_per_slot())

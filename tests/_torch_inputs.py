@@ -54,3 +54,51 @@ def scan_call(fn, t, **kw):
     """Call a scan (wrapper or plain version) on a to_torch() dict."""
     return fn(t["x"], t["dt"], t["A"], t["B"], t["C"], D=t["D"], z=t["z"],
               h0=t["h0"], **kw)
+
+
+def q_step_tensors(b, d, n, state_dtype, seed=0, a8=False, dtype="float32",
+                   device="cpu"):
+    """A quantized-state decode step's inputs as tensors: step_arrays with
+    h stored as codes + group scales by the port's quantize_h (slot 0 a
+    fresh slot: zero codes, zero scales) and, with ``a8``, A as int8 codes
+    + per-row scales.  Returns (hq, h_scale, x_t, dt_t, A, B_t, C_t) and
+    dict(D=, z_t=, a_scale=)."""
+    from repro_torch.core import state_quant, weight_quant
+    t = to_torch(step_arrays(b, d, n, seed=seed), dtype)
+    hq, h_scale = state_quant.quantize_h(t["h"] * 4.0, state_dtype)
+    hq[0] = 0
+    h_scale[0] = 0.0
+    A, a_scale = t["A"], None
+    if a8:
+        A, a_scale = weight_quant.quantize_rows(A)
+    args = tuple(v.to(device) for v in (hq, h_scale, t["x_t"], t["dt_t"], A,
+                                        t["B_t"], t["C_t"]))
+    kw = dict(D=t["D"].to(device), z_t=t["z_t"].to(device),
+              a_scale=None if a_scale is None else a_scale.to(device))
+    return args, kw
+
+
+def code_ordinals(q):
+    """Storage codes as integers in value order, so adjacent codes differ
+    by 1: int8 as they are, e4m3 by sign and magnitude bits (+0 and -0
+    both 0)."""
+    if q.dtype == torch.int8:
+        return q.to(torch.int32)
+    bits = q.view(torch.uint8).to(torch.int32)
+    mag = bits & 0x7F
+    return torch.where(bits >= 0x80, -mag, mag)
+
+
+def assert_q_close(got, want, y_tol, label=""):
+    """The repro tolerances for a quantized-state step between two
+    implementations: y within ``y_tol``, scales to rtol 1e-6, payloads
+    within one code (FMA contraction can move a value that sits on a
+    rounding boundary)."""
+    (y1, q1, s1), (y0, q0, s0) = got, want
+    close(y1.cpu(), np.asarray(y0.cpu().float()), y_tol)
+    np.testing.assert_allclose(s1.cpu().numpy(), s0.cpu().numpy(),
+                               rtol=1e-6, atol=0, err_msg=label)
+    assert q1.dtype == q0.dtype and q1.shape == q0.shape, label
+    diff = (code_ordinals(q1.cpu()) - code_ordinals(q0.cpu())).abs()
+    apart = int(diff.max())
+    assert apart <= 1, f"{label}: payloads {apart} codes apart"

@@ -7,13 +7,15 @@ itself.  The file imports no JAX, so it runs on the machine with the card:
 import pytest
 import torch
 
+from repro_torch.core import weight_quant
 from repro_torch.kernels import conv1d as tconv
 from repro_torch.kernels import decode_step as tstep
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
-from _torch_inputs import (VARIANTS, close, np_input, scan_arrays,
-                           scan_call, step_arrays, to_torch)
+from _torch_inputs import (VARIANTS, assert_q_close, close, np_input,
+                           q_step_tensors, scan_arrays, scan_call,
+                           step_arrays, to_torch)
 
 
 @pytest.fixture
@@ -65,3 +67,91 @@ def test_cuda_step_matches_plain(cuda, dtype, tol, exp_impl, silu_impl):
     torch.cuda.synchronize()
     close(y1.cpu(), y0.cpu().float().numpy(), tol)
     close(h1.cpu(), h0.cpu().numpy(), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("exp_impl,silu_impl", VARIANTS)
+def test_cuda_step_int8_a_matches_plain(cuda, dtype, tol, exp_impl,
+                                        silu_impl):
+    """K1's int8-A variant: A as int8 codes + per-row scales."""
+    s = to_torch(step_arrays(4, 1536, 16, seed=19), dtype, cuda)
+    A_q, a_scale = weight_quant.quantize_rows(s["A"])
+    kw = dict(D=s["D"], z_t=s["z_t"], exp_impl=exp_impl, silu_impl=silu_impl,
+              a_scale=a_scale)
+    args = (s["h"], s["x_t"], s["dt_t"], A_q, s["B_t"], s["C_t"])
+    n0 = (tstep.launches, tstep.launches_int8a)
+    y1, h1 = tstep.selective_state_step(*args, **kw)
+    y0, h0 = ref.selective_state_step(*args, **kw)
+    torch.cuda.synchronize()
+    assert (tstep.launches, tstep.launches_int8a) == (n0[0], n0[1] + 1)
+    close(y1.cpu(), y0.cpu().float().numpy(), tol)
+    close(h1.cpu(), h0.cpu().numpy(), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("a8", [False, True], ids=["f32_A", "int8_A"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("d", [1536, 1100])
+def test_cuda_step_q_matches_plain(cuda, state_dtype, a8, dtype, tol, d):
+    """K2 at 4 slots: 3 channel groups at d=1536, a ragged third at
+    d=1100; slot 0 is a fresh slot (zero codes and scale)."""
+    for exp_impl, silu_impl in VARIANTS:
+        args, kw = q_step_tensors(4, d, 16, state_dtype, seed=d, a8=a8,
+                                  dtype=dtype, device=cuda)
+        kw.update(exp_impl=exp_impl, silu_impl=silu_impl)
+        n0 = tstep.launches_q
+        got = tstep.selective_state_step_q(*args, state_dtype=state_dtype,
+                                           **kw)
+        want = ref.selective_state_step_q(*args, state_dtype=state_dtype,
+                                          **kw)
+        torch.cuda.synchronize()
+        assert tstep.launches_q == n0 + 1
+        assert_q_close(got, want, tol, f"{exp_impl}/{silu_impl}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["int8", "fp8"])
+def test_cuda_step_q_encodes_as_torch(cuda, state_dtype):
+    """The kernel's encode against torch's on values spanning the whole
+    code range, rounding ties included: from a fresh slot with dt = 1 and
+    B = 1 the new state is x itself, and with max |x| = qmax its scale is
+    exactly 1, so the payload must be torch's encoding of x bit for bit
+    (int8: round half to even and clip; fp8: e4m3 round to nearest even)."""
+    from repro_torch.core import state_quant
+    x = encode_sweep(state_dtype, 4, 1536).to(cuda)
+    ones = torch.ones_like(x)
+    A = -torch.ones(1536, 16, device=cuda)
+    hq = torch.zeros(4, 1536, 16, device=cuda).to(
+        state_quant.storage_dtype(state_dtype))
+    h_scale = torch.zeros(4, 3, device=cuda)
+    B = torch.ones(4, 16, device=cuda)
+    _, q, scale = tstep.selective_state_step_q(
+        hq, h_scale, x, ones, A, B, B, state_dtype=state_dtype)
+    torch.cuda.synchronize()
+    assert bool((scale == 1.0).all())
+    want = state_quant.encode(x[..., None].expand(4, 1536, 16),
+                              state_dtype)
+    assert torch.equal(q.view(torch.uint8), want.view(torch.uint8))
+
+
+def encode_sweep(state_dtype, slots, d):
+    """(slots, d) f32 values over [-qmax, qmax]: every code, every tie
+    between neighbouring codes, and seeded values between (d a multiple
+    of the channel group)."""
+    from repro_torch.core import state_quant
+    qm = state_quant.qmax(state_dtype)
+    if state_dtype == "int8":
+        codes = torch.arange(-127, 128, dtype=torch.float32)
+    else:
+        codes = torch.arange(256, dtype=torch.uint8).view(
+            torch.float8_e4m3fn).float()
+        codes = codes[torch.isfinite(codes)].unique() + 0.0   # no -0
+    ties = (codes[1:] + codes[:-1]) / 2
+    fill = (torch.rand(slots * d, generator=torch.Generator().manual_seed(0))
+            * 2 - 1) * qm
+    vals = torch.cat([codes, ties, fill])[:slots * d].reshape(slots, d)
+    # every (slot, group) holds qmax, so every scale is exactly 1
+    vals[:, state_quant.D_BLOCK - 1::state_quant.D_BLOCK] = qm
+    return vals

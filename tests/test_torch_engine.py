@@ -1,8 +1,9 @@
 """The port's serving stack on the CPU: Engine greedy streams against
-repro's Engine on the same (bridged) weights, the slot pool's byte
-count and hygiene, sampling against repro's filter and logprob math,
-the request lifecycle (stops, cancel, streams, priority), Server and
-the CLI, and what the port refuses because it is not ported yet."""
+repro's Engine on the same (bridged) weights, with f32 and with
+quantized state and weights, the slot pool's byte count and hygiene,
+sampling against repro's filter and logprob math, the request lifecycle
+(stops, cancel, streams, priority), Server and the CLI, and what the
+port refuses because it is not ported yet."""
 import dataclasses
 
 import jax
@@ -19,6 +20,7 @@ from repro.runtime import sampling as jsampling
 from repro.runtime.state_pool import SlotStatePool as JPool
 from repro_torch import bridge, resolve_device
 from repro_torch import configs as tconfigs
+from repro_torch.core import state_quant
 from repro_torch.kernels import ref
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import registry as tregistry
@@ -97,13 +99,108 @@ def test_engine_greedy_streams_equal_repros(model):
                                atol=1e-4)
 
 
+def _first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+@pytest.mark.parametrize("state_dtype,weight_dtype",
+                         [("int8", "int8"), ("fp8", None)],
+                         ids=["int8_state_int8_weights", "fp8_state"])
+def test_quantized_engine_greedy_streams_equal_repros(model, state_dtype,
+                                                      weight_dtype):
+    """The slot-churn trace of test_engine_greedy_streams_equal_repros
+    with a quantized pool (and int8 weights, quantized by each engine
+    from the same f32 tree): the port's greedy streams are repro's,
+    token for token, and the slot bytes agree."""
+    jcfg, tcfg, jp, tp = model
+    lens, max_news = [3, 5, 9, 4, 7], [6, 3, 8, 5, 4]
+    prompts = _prompts(5, lens)
+    kw = dict(n_slots=2, max_seq=64, state_dtype=state_dtype,
+              weight_dtype=weight_dtype)
+    jeng = jengine.Engine(jcfg, jp, jengine.EngineConfig(**kw))
+    teng = _engine(tcfg, tp, **kw)
+    jreqs = [jeng.submit(p, max_new=m) for p, m in zip(prompts, max_news)]
+    treqs = [teng.submit(p, max_new=m) for p, m in zip(prompts, max_news)]
+    jeng.run()
+    assert len(teng.run()) == 5
+    for j, t, m in zip(jreqs, treqs, max_news):
+        assert t.finished and len(t.tokens) == m
+        assert t.tokens == j.tokens, (
+            f"req {t.req_id} diverged from repro at token "
+            f"{_first_divergence(t.tokens, j.tokens)}")
+    assert teng.pool.state_bytes_per_slot() == \
+        jeng.pool.state_bytes_per_slot() == 14356
+    assert teng.pool.cache["h"].dtype == state_quant.storage_dtype(
+        state_dtype)
+
+
 @pytest.mark.parametrize("state_dtype,want", [("f32", 38916),
-                                              ("bf16", 22532)])
+                                              ("bf16", 22532),
+                                              ("int8", 14356),
+                                              ("fp8", 14356)])
 def test_state_bytes_per_slot_equal_repros(state_dtype, want):
     jcfg, tcfg = _cfgs(state_dtype=state_dtype)
     tpool = SlotStatePool(tcfg, n_slots=3, max_seq=32)
+    jpool = JPool(jcfg, n_slots=3, max_seq=32)
     assert tpool.state_bytes_per_slot() == want
-    assert JPool(jcfg, n_slots=3, max_seq=32).state_bytes_per_slot() == want
+    assert jpool.state_bytes_per_slot() == want
+    assert tpool.slots_per_gb() == pytest.approx(jpool.slots_per_gb())
+
+
+def _same(a, b):
+    """torch.equal; fp8 leaves (no CPU equal kernel) by their bytes."""
+    if a.dtype == torch.float8_e4m3fn:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("state_dtype", ["int8", "fp8"])
+def test_quantized_pool_moves_scales_with_payload(model, state_dtype):
+    """Admission brings the prefill's scales into the slot, a masked
+    commit leaves an inactive slot's payload and scales alone, and
+    eviction gives the slot zero codes and zero scales back."""
+    _, tcfg, _, tp = model
+    tcfg = dataclasses.replace(tcfg, state_dtype=state_dtype)
+    pool = SlotStatePool(tcfg, n_slots=2, max_seq=32)
+    _, sub = tregistry.prefill(tcfg, tp, pool.fresh,
+                               {"tokens": torch.arange(5)[None]})
+    a, b = pool.alloc(), pool.alloc()
+    pool.admit(a, sub)
+    assert bool((pool.read([a])["h_scale"] > 0).all())
+    _, new_cache = tregistry.decode_step(tcfg, tp, pool.cache,
+                                         {"tokens": torch.ones(2, 1).long()})
+    before_b = pool.read([b])
+    pool.commit(new_cache, active=np.array([True, False]))
+    got_b = pool.read([b])
+    for k in before_b:
+        assert _same(got_b[k], before_b[k]), k
+    assert not torch.equal(pool.read([a])["h_scale"], sub["h_scale"])
+    pool.evict(a)
+    got = pool.read([a])
+    assert not bool(got["h_scale"].any())
+    assert not bool(got["h"].view(torch.uint8).any())
+
+
+def test_int8_weights_prefill_from_the_f32_master(model):
+    """weight_dtype="int8" quantizes the handed-in tree for decode and
+    prefills from the f32 master: every first token equals the f32
+    engine's, and the decode tree holds int8 codes."""
+    _, tcfg, _, tp = model
+    prompts = _prompts(31, (4, 6, 9, 5))
+    firsts = {}
+    for wd in ("f32", "int8"):
+        eng = _engine(tcfg, tp, n_slots=2, max_seq=64, weight_dtype=wd)
+        reqs = [eng.submit(p, max_new=3) for p in prompts]
+        eng.run()
+        firsts[wd] = [r.tokens[0] for r in reqs]
+        if wd == "int8":
+            mixer = eng.params["layers"][0]["mixer"]
+            assert mixer["A_q"].dtype == mixer["in_proj"]["w"].dtype \
+                == torch.int8
+            assert "A_log" in eng.prefill_params["layers"][0]["mixer"]
+            assert eng.cfg.weight_dtype == "int8"
+    assert firsts["int8"] == firsts["f32"]
 
 
 def test_engine_eos_evicts_and_backfills(model):
@@ -287,6 +384,9 @@ def test_entry_points_run_on_cuda_unless_asked_for_cpu(model):
                                   "weight_int8", "megakernel",
                                   "int8_state", "fp8_state"])
 def test_unported_features_raise(model, what):
+    """What is not ported raises NotImplementedError; int8 weights and
+    int8/fp8 state, which did before they were ported, now build an
+    engine that serves a request."""
     _, tcfg, _, tp = model
     ecfg = EngineConfig(device=CPU, n_slots=2, max_seq=64)
     if what in ("draft", "prefix_cache", "mesh"):
@@ -302,7 +402,14 @@ def test_unported_features_raise(model, what):
         with pytest.raises(NotImplementedError):
             eng.submit(np.arange(4), tsampling.SamplingParams(n=2))
         return
-    with pytest.raises(NotImplementedError):
+    if what in ("weight_int8", "int8_state", "fp8_state"):
+        eng = Engine(tcfg, tp, ecfg)
+        r = eng.submit(np.arange(4), max_new=3)
+        eng.run()
+        assert r.finished and len(r.tokens) == 3
+        return
+    with pytest.raises(NotImplementedError, match="K3" if what ==
+                       "megakernel" else "not ported"):
         Engine(tcfg, tp, ecfg)
 
 

@@ -192,10 +192,11 @@ def test_ops_dispatch_names_and_unported_impls():
         assert ops.resolve_step_impl(name) == "fused"
     with pytest.raises(NotImplementedError, match="K3"):
         ops.resolve_step_impl("megakernel")
-    for sd in ("int8", "fp8"):
-        with pytest.raises(NotImplementedError, match="K2"):
-            ops.storage_dtype(sd)
+    assert ops.storage_dtype("int8") == torch.int8
+    assert ops.storage_dtype("fp8") == torch.float8_e4m3fn
     assert ops.storage_dtype("bf16") == torch.bfloat16
+    with pytest.raises(KeyError):
+        ops.storage_dtype("int4")
     with pytest.raises(KeyError):
         ops.resolve_step_impl("nope")
     t = to_torch(scan_arrays(1, 3, 16, 16))

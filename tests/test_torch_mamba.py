@@ -1,7 +1,8 @@
 """The port's Mamba LM against repro's on the same weights: repro's
 parameters and caches are bridged as numpy arrays, repro runs its Pallas
 kernels in interpret mode (scan_impl="pallas", conv_impl="pallas",
-step_impl="fused"), the port its plain versions on the CPU.  Also the
+step_impl="fused"), the port its plain versions on the CPU; with f32
+weights and state, and with int8 weights and int8/fp8 state.  Also the
 identities repro pins within itself (prefill + N steps == forward, the
 scan resumes across a split), held in the port."""
 import dataclasses
@@ -13,12 +14,17 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.core import state_quant as jsq
+from repro.core import weight_quant as jwq
 from repro.models import registry as jregistry
 from repro.parallel import sharding
 from repro_torch import bridge
 from repro_torch import configs as tconfigs
+from repro_torch.core import state_quant as tsq
 from repro_torch.kernels import ops
 from repro_torch.models import registry as tregistry
+
+from _torch_inputs import code_ordinals
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -119,6 +125,84 @@ def test_prefill_and_decode_match_repro(weights, exp_impl, silu_impl):
                                    rtol=tol, atol=tol, err_msg=k)
 
 
+@pytest.mark.parametrize("state_dtype,weight_dtype", [
+    ("f32", "int8"), ("int8", "f32"), ("fp8", "f32"), ("int8", "int8")],
+    ids=["int8_weights", "int8_state", "fp8_state", "int8_weights_state"])
+def test_quantized_prefill_and_decode_match_repro(weights, state_dtype,
+                                                  weight_dtype):
+    """Prefill + 3 decode steps in f32 with int8 weights (repro's
+    quantized tree, bridged) and/or an int8/fp8 pool.  Logits at 1e-4 as
+    in f32; the stored state within one code (FMA contraction in XLA can
+    move a value on a rounding boundary), its scales to rtol 1e-5 (they
+    are amaxes of states that already differ by f32 rounding across the
+    layers), the dequantized state at 1e-4 where the codes agree."""
+    tol = 1e-4
+    jcfg, tcfg = _cfgs(state_dtype=state_dtype, weight_dtype=weight_dtype)
+    jw = (jax.tree.map(np.asarray, jwq.quantize_tree(weights))
+          if weight_dtype == "int8" else weights)
+    tp = bridge.params_from_repro(jw)
+    b, lp, steps = 2, 11, 3
+    toks = _tokens(3, b, lp + steps)
+    jcache = sharding.tree_values(jregistry.init_cache(jcfg, b, 32))
+    tcache = tregistry.init_cache(tcfg, b, 32)
+    jl, jcache = jregistry.prefill(jcfg, jw, jcache,
+                                   {"tokens": jnp.asarray(toks[:, :lp])})
+    tl, tcache = tregistry.prefill(tcfg, tp, tcache, {
+        "tokens": torch.from_numpy(toks[:, :lp]).long()})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=tol, atol=tol)
+    for s in range(steps):
+        t = toks[:, lp + s:lp + s + 1]
+        jl, jcache = jregistry.decode_step(jcfg, jw, jcache,
+                                           {"tokens": jnp.asarray(t)})
+        tl, tcache = tregistry.decode_step(tcfg, tp, tcache, {
+            "tokens": torch.from_numpy(t).long()})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=tol,
+                                   atol=tol, err_msg=f"decode step {s}")
+    jc = bridge.cache_from_repro(jax.tree.map(np.asarray, jcache))
+    assert set(jc) == set(tcache)
+    assert tcache["h"].dtype == tsq.storage_dtype(state_dtype)
+    if state_dtype == "f32":
+        np.testing.assert_allclose(tcache["h"], jc["h"], rtol=tol, atol=tol)
+        return
+    assert tcache["h_scale"].shape == (tcfg.n_layers, b,
+                                       tsq.n_groups(tcfg.d_inner))
+    np.testing.assert_allclose(tcache["h_scale"], jc["h_scale"], rtol=1e-5)
+    diff = (code_ordinals(tcache["h"]) - code_ordinals(jc["h"])).abs()
+    assert int(diff.max()) <= 1
+    th = tsq.dequantize_h(tcache["h"], tcache["h_scale"])
+    jh = np.asarray(jsq.dequantize_h(jcache["h"], jcache["h_scale"]))
+    same = (diff == 0).numpy()
+    np.testing.assert_allclose(th.numpy()[same], jh[same], rtol=tol,
+                               atol=tol)
+
+
+def test_bridge_round_trips_quantized_trees(weights):
+    """repro's int8-quantized param tree and an fp8 cache with h_scale,
+    made by repro's prefill, cross the bridge and back bit for bit."""
+    jq = jax.tree.map(np.asarray, jwq.quantize_tree(weights))
+    tp = bridge.params_from_repro(jq)
+    assert tp["layers"][0]["mixer"]["A_q"].dtype == torch.int8
+    back = bridge.params_to_repro(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(jq)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jq)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    jcfg, _ = _cfgs(state_dtype="fp8")
+    jcache = sharding.tree_values(jregistry.init_cache(jcfg, 2, 32))
+    _, jcache = jregistry.prefill(jcfg, weights, jcache, {
+        "tokens": jnp.asarray(_tokens(6, 2, 9))})
+    jcache = jax.tree.map(np.asarray, jcache)
+    tc = bridge.cache_from_repro(jcache)
+    assert tc["h"].dtype == torch.float8_e4m3fn
+    assert tc["h_scale"].dtype == torch.float32
+    out = bridge.cache_to_repro(tc)
+    for k, v in jcache.items():
+        got = out[k].astype(v.dtype) if k == "h" else out[k]
+        assert got.dtype == v.dtype, k
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      v.view(np.uint8), err_msg=k)
+
+
 def test_decode_from_a_bridged_cache(weights):
     """A cache made by repro continues in the port: the bridge carries
     the decode state, not just the weights."""
@@ -181,6 +265,7 @@ def test_bf16_state_pool_and_unported_families():
     _, tcfg = _cfgs(state_dtype="bf16")
     cache = tregistry.init_cache(tcfg, 2, 16)
     assert cache["h"].dtype == torch.bfloat16
+    assert "h_scale" not in cache
     with pytest.raises(NotImplementedError, match="A9"):
         tregistry.init_params(tconfigs.smoke_variant(
             tconfigs.get_config("jamba-v0.1-52b")))
