@@ -16,19 +16,29 @@ Phases, each fatal on failure:
    step with f32 A and with int8 A (K1), and the quantized-state step (K2)
    with int8 and fp8 state, f32 and int8 A, at d 1536 and 1100; K2's
    encoding against torch's over the whole code range; the fp8 slot
-   operations (byte views) against exact fp8 results;
+   operations (byte views) against exact fp8 results; the cross-layer
+   megakernel (K3) at 4 slots in f32 and bf16 with f32 or int8 weights and
+   an f32, bf16, int8 or fp8 state, at full width (24 layers), at
+   mamba-2.8b's widths and at a ragged width (d_model 550) with 2 layers,
+   and one launch repeated bit for bit;
 3. run mamba-130m at full width in f32 (prefill + 8 decode steps) through
-   the kernel path on the card and through the plain path on the CPU, on
-   the same weights, and compare the logits: f32 weights and state, int8
-   weights, int8 weights with int8 state, and fp8 state;
+   the kernel path on the card, per layer and through K3, and through the
+   plain path on the CPU, on the same weights, and compare the logits:
+   f32 weights and state, int8 weights, int8 weights with int8 state, and
+   fp8 state;
 4. serve 9 requests at bf16 (4 slots, prompt lengths 64/127/256/512, 32
-   new tokens, 8 greedy + 1 sampled) three times: f32 weights and state
-   through ``Server``, int8 weights with int8 state and int8 weights with
-   f32 state through ``Engine``; each run checks the launch counts of
-   every kernel, that no plain version ran, and the slot size;
+   new tokens, 8 greedy + 1 sampled) five times: per layer with f32
+   weights and state through ``Server``, int8 weights with int8 state and
+   int8 weights with f32 state through ``Engine``; then through K3 with
+   f32 weights and state through ``Server`` (``step_impl="auto"``, the
+   default path on the card) and int8 weights with int8 state through
+   ``Engine``; each run checks the launch counts of every kernel, that no
+   plain version ran, and the slot size, and a K3 run prints its token
+   agreement with the per-layer run of its setup;
 5. time each kernel on the card (device time from a CUDA graph replay, and
    eager per-call time) beside its bound, its plain version
-   and (for the conv) ``F.conv1d``, then print one JSON line of kernels.
+   and (for the conv) ``F.conv1d``, and the whole decode step through K3
+   against the per-layer one, then print one JSON line of kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
@@ -252,6 +262,149 @@ def check_fp8_slot_ops(dev):
             FAILURES.append(f"fp8 {op}")
 
 
+# K3's activation/weight/state setups and its tolerances against its plain
+# version on the card.  f32: x (the residual stream out), the conv tails
+# and an f32 state to 1e-4, a bf16 state within a bf16 step (8e-3); an
+# int8/fp8 state's codes within one and its scales to 1e-5 relative (the
+# sums run in another order, so a value on a rounding boundary moves one
+# code, and each layer's absmax by f32 ulps).  bf16: a rounding that
+# falls the other way moves what follows by a bf16 step (2^-8), over 24
+# layers by up to 2% of the largest value, and the error of x + y is one
+# of the larger operand, not of the result, so values are held to 2e-2 of
+# themselves plus 2e-2 of the largest value; an int8/fp8 state's scales to
+# 3e-2 relative and its dequantized values as the others, plus one code
+# (1/127 of the largest value for int8, one e4m3 step, 1/8 of the value,
+# for fp8).
+K3_STATES = ("f32", "bf16", "int8", "fp8")
+K3_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (label, d_model, layers, dt_rank): mamba-130m at full depth, mamba-2.8b's
+# widths and a ragged width (d_inner 1100, dt_rank 35: no multiple of 32,
+# a ragged third scale group) at 2 layers
+K3_WIDTHS = (("130m", 768, 24, 48), ("2.8b widths", 2560, 2, 160),
+             ("ragged", 550, 2, 35))
+_PARAMS = {}
+# K3's launch counters (core/dispatch_count.py names) by (weights, state)
+K3_KERNEL = {("f32", "f32"): "mamba_stacked_step",
+             ("int8", "int8"): "mamba_stacked_step_q_int8a"}
+
+
+def k3_params(cfg, weight_dtype, dev):
+    """The decode weights of ``cfg`` (seeded, f32 or int8) on the card with
+    K3's stacked view, made once per width and weight type."""
+    from repro_torch.models import registry
+    key = (cfg.n_layers, cfg.d_model, cfg.dt_rank, weight_dtype)
+    if key not in _PARAMS:
+        import dataclasses
+        c = dataclasses.replace(cfg, weight_dtype=weight_dtype)
+        _PARAMS[key] = registry.stack_params(
+            c, registry.init_params(c, seed=SEED, device=dev))
+    return _PARAMS[key]
+
+
+def k3_inputs(cfg, slots, gen, dev):
+    """x0 (slots, 1, d_model) in cfg.dtype and a stacked state at cfg's
+    state dtype: h (+ h_scale) and conv tails, slot 0 a fresh slot."""
+    from repro_torch.core import state_quant
+    dt = getattr(torch, cfg.dtype)
+    L, di, k = cfg.n_layers, cfg.d_inner, cfg.d_conv
+    x0 = torch.randn(slots, 1, cfg.d_model, generator=gen).to(dev, dt)
+    h = torch.randn(L, slots, di, 16, generator=gen) * 0.5
+    h[:, 0] = 0.0
+    conv = torch.randn(L, slots, k - 1, di, generator=gen).to(dev, dt)
+    h_scale = None
+    if state_quant.is_quantized(cfg.state_dtype):
+        h, h_scale = state_quant.quantize_h(h, cfg.state_dtype)
+        h_scale[:, 0] = 0.0
+        h_scale = h_scale.to(dev)
+    else:
+        h = h.to(state_quant.storage_dtype(cfg.state_dtype))
+    return x0, h.to(dev), h_scale, conv
+
+
+def check_k3(name, cfg, got, want) -> float:
+    """K3 against its plain version (tolerances above K3_STATES); returns
+    x's max abs error."""
+    (x1, h1, s1, c1), (x0, h0, s0, c0) = got, want
+    tol = K3_TOL[cfg.dtype]
+    bf16 = cfg.dtype == "bfloat16"
+
+    def near(tag, a, b, t):
+        at = t * float(b.float().abs().max()) if bf16 else t
+        return check(f"{name} {tag}", a, b, t, at)
+
+    e = near("x", x1, x0, tol)
+    near("conv tail", c1, c0, tol)
+    if cfg.state_dtype == "f32":
+        near("h", h1, h0, tol)
+    elif cfg.state_dtype == "bf16":
+        near("h (bf16 step)", h1, h0, max(tol, 8e-3))
+    else:
+        rel = float(((s1 - s0).abs() / s0.abs().clamp_min(1e-30)).max())
+        codes = int((code_ordinals(h1) - code_ordinals(h0)).abs().max())
+        moved = float((h1.view(torch.uint8) != h0.view(torch.uint8)).float()
+                      .mean())
+        ok = rel <= (3e-2 if bf16 else 1e-5) and (bf16 or codes <= 1)
+        log(f"  {name + ' h':<52} scale rel {rel:.1e} (tol "
+            f"{3e-2 if bf16 else 1e-5:.0e})  codes apart {codes} (tol "
+            f"{'-' if bf16 else 1}, share moved {moved:.1e})  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(name)
+        if bf16:
+            from repro_torch.core import state_quant
+            d1 = state_quant.dequantize_h(h1, s1)
+            d0 = state_quant.dequantize_h(h0, s0)
+            top = float(d0.abs().max())
+            fp8 = cfg.state_dtype == "fp8"
+            check(f"{name} h dequantized", d1, d0,
+                  tol + (0.125 if fp8 else 0.0),
+                  tol * top + (0.0 if fp8 else top / 127))
+    return e
+
+
+def check_megakernel(cfg, dev, serving):
+    """K3 against ref.mamba_stacked_step on the card, 4 slots, every
+    activation x weight x state setup at each of K3_WIDTHS; then one launch
+    repeated, bit for bit."""
+    import dataclasses
+    from repro_torch.kernels import megakernel, ref
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for label, dm, layers, r in K3_WIDTHS:
+        base = dataclasses.replace(cfg, n_layers=layers, d_model=dm,
+                                   dt_rank=r)
+        for wd in ("f32", "int8"):
+            p = k3_params(base, wd, dev)
+            for dtype in ("float32", "bfloat16"):
+                for sd in K3_STATES:
+                    c = dataclasses.replace(base, dtype=dtype,
+                                            weight_dtype=wd, state_dtype=sd)
+                    x0, h, h_scale, conv = k3_inputs(c, 4, gen, dev)
+                    got = megakernel.mamba_stacked_step(
+                        c, x0, p["stack"], h, h_scale, conv)
+                    want = ref.mamba_stacked_step(c, x0, p["stack"].layers,
+                                                  h, h_scale, conv)
+                    torch.cuda.synchronize()
+                    act = "f32" if dtype == "float32" else "bf16"
+                    e = check_k3(f"K3 {label} L={layers} {act} {wd} w "
+                                 f"{sd} state", c, got, want)
+                    if label == "130m" and dtype == "bfloat16" and (
+                            (wd, sd) in (("f32", "f32"), ("int8", "int8"))):
+                        serving[K3_KERNEL[wd, sd]] = e
+    c = dataclasses.replace(cfg, dtype="bfloat16", weight_dtype="int8",
+                            state_dtype="int8")
+    p = k3_params(c, "int8", dev)
+    args = (c, *k3_inputs(c, 4, gen, dev))
+    a = megakernel.mamba_stacked_step(args[0], args[1], p["stack"], *args[2:])
+    b = megakernel.mamba_stacked_step(args[0], args[1], p["stack"], *args[2:])
+    torch.cuda.synchronize()
+    same = all(torch.equal(u.view(torch.uint8), v.view(torch.uint8))
+               for u, v in zip(a, b))
+    log(f"  K3 130m bf16 int8 w int8 state, one launch repeated: "
+        f"{'bitwise equal' if same else 'FAIL'}")
+    if not same:
+        FAILURES.append("K3 repeat")
+
+
 def phase_kernels(cfg, dev):
     """Each kernel against its plain version on the card.  Returns the max
     abs error at the serving configuration (bf16, exact exp and SiLU) per
@@ -337,6 +490,7 @@ def phase_kernels(cfg, dev):
                             serving["decode_step_q"] = e
     check_encoding(dev)
     check_fp8_slot_ops(dev)
+    check_megakernel(cfg, dev, serving)
     return serving
 
 
@@ -358,9 +512,10 @@ MODEL_RUNS = (
 
 
 def phase_model(cfg, dev):
-    """Full-width f32 model: kernel path on the card vs plain path on the
-    CPU, same weights, same tokens (teacher-forced), for each setup of
-    MODEL_RUNS."""
+    """Full-width f32 model: the kernel path on the card, per layer and
+    through K3, against the plain path on the CPU, same weights, same
+    tokens (teacher-forced), for each setup of MODEL_RUNS.  The K3 rows
+    must also agree on every greedy token."""
     import dataclasses
     from repro_torch.core import state_quant
     from repro_torch.data.pipeline import SyntheticLM
@@ -368,70 +523,88 @@ def phase_model(cfg, dev):
     lp, steps = 127, 8
     toks = torch.as_tensor(SyntheticLM(cfg.vocab, lp + steps, seed=2)
                            .batch_at(0, 0, 1, 1)["tokens"], dtype=torch.int64)
+    cpu = torch.device("cpu")
     for wd, sd, tol, why in MODEL_RUNS:
         c = dataclasses.replace(cfg, dtype="float32", weight_dtype=wd,
                                 state_dtype=sd)
         params = registry.init_params(c, seed=SEED)
-        runs = []
-        for where in (dev, torch.device("cpu")):
+        runs = {}
+        for where, impl in ((dev, "fused"), (dev, "megakernel"),
+                            (cpu, "fused")):
+            ci = dataclasses.replace(c, step_impl=impl)
             p = registry.tree_to(params, where)
+            if impl == "megakernel":
+                p = registry.stack_params(ci, p)
             t = toks.to(where)
-            cache = registry.init_cache(c, 1, lp + steps, device=where)
+            cache = registry.init_cache(ci, 1, lp + steps, device=where)
             t0 = time.perf_counter()
-            logits, cache = registry.prefill(c, p, cache,
+            logits, cache = registry.prefill(ci, p, cache,
                                              {"tokens": t[:, :lp]})
             out = [logits[0]]
             for s in range(steps):
                 logits, cache = registry.decode_step(
-                    c, p, cache, {"tokens": t[:, lp + s:lp + s + 1]})
+                    ci, p, cache, {"tokens": t[:, lp + s:lp + s + 1]})
                 out.append(logits[0])
             out = torch.cat(out).cpu()
-            log(f"  {wd} weights, {sd} state, {where.type}: prefill {lp} + "
-                f"{steps} decode steps in {time.perf_counter() - t0:.2f} s")
-            runs.append((out, {k: v.cpu() for k, v in cache.items()}))
-        (lg, cg), (lc, cc) = runs
-        tag = f"model {wd} weights {sd} state"
-        log(f"  {tag}: logits held to {tol:g}: {why}")
-        check(f"{tag} logits (card vs CPU)", lg, lc, tol, tol)
-        if state_quant.is_quantized(sd):
-            hg = state_quant.dequantize_h(cg["h"], cg["h_scale"])
-            hc = state_quant.dequantize_h(cc["h"], cc["h_scale"])
-            same = float((cg["h"].view(torch.uint8) == cc["h"].view(
-                torch.uint8)).float().mean())
-            rel = float(((cg["h_scale"] - cc["h_scale"]).abs()
-                         / cc["h_scale"].clamp_min(1e-30)).max())
-            log(f"  {tag}: final payload codes equal {same:.6f}, "
-                f"scales max rel diff {rel:.3e}, dequantized h max abs "
-                f"diff {float((hg - hc).abs().max()):.3e} (printed)")
-        else:
-            check(f"{tag} final h (card vs CPU)", cg["h"], cc["h"], tol, tol)
-        check(f"{tag} final conv tail (card vs CPU)", cg["conv"], cc["conv"],
-              tol, tol)
-        agree = float((lg.argmax(-1) == lc.argmax(-1)).float().mean())
-        log(f"  greedy token agreement over {lg.shape[0]} positions: "
-            f"{agree:.4f}")
+            log(f"  {wd} weights, {sd} state, {where.type} {impl}: prefill "
+                f"{lp} + {steps} decode steps in "
+                f"{time.perf_counter() - t0:.2f} s")
+            runs[where.type, impl] = (out, {k: v.cpu()
+                                            for k, v in cache.items()})
+        lc, cc = runs["cpu", "fused"]
+        log(f"  model {wd} weights {sd} state: logits held to {tol:g}: {why}")
+        for impl, suffix in (("fused", ""), ("megakernel", " K3")):
+            lg, cg = runs["cuda", impl]
+            tag = f"model {wd} weights {sd} state{suffix}"
+            check(f"{tag} logits (card vs CPU)", lg, lc, tol, tol)
+            if state_quant.is_quantized(sd):
+                hg = state_quant.dequantize_h(cg["h"], cg["h_scale"])
+                hc = state_quant.dequantize_h(cc["h"], cc["h_scale"])
+                same = float((cg["h"].view(torch.uint8) == cc["h"].view(
+                    torch.uint8)).float().mean())
+                rel = float(((cg["h_scale"] - cc["h_scale"]).abs()
+                             / cc["h_scale"].clamp_min(1e-30)).max())
+                log(f"  {tag}: final payload codes equal {same:.6f}, "
+                    f"scales max rel diff {rel:.3e}, dequantized h max abs "
+                    f"diff {float((hg - hc).abs().max()):.3e} (printed)")
+            else:
+                check(f"{tag} final h (card vs CPU)", cg["h"], cc["h"], tol,
+                      tol)
+            check(f"{tag} final conv tail (card vs CPU)", cg["conv"],
+                  cc["conv"], tol, tol)
+            agree = float((lg.argmax(-1) == lc.argmax(-1)).float().mean())
+            ok = impl == "fused" or agree == 1.0
+            log(f"  {tag}: greedy token agreement over {lg.shape[0]} "
+                f"positions: {agree:.4f}"
+                f"{'' if impl == 'fused' else '  (must be 1) '}"
+                f"{'' if impl == 'fused' else ('ok' if ok else 'FAIL')}")
+            if not ok:
+                FAILURES.append(f"{tag} greedy agreement")
 
 
-# (weights, state, expected state_bytes_per_slot, step kernel served):
-# each run of phase 4; bytes per slot at mamba-130m, 24 layers: h
-# 24 x 1536 x 16 x 4 (f32) or x 1 (int8) + h_scale 24 x 3 x 4 (int8) +
-# conv 24 x 3 x 1536 x 2 (bf16) + pos 4
-SERVE_RUNS = (("f32", "f32", 2580484, "decode_step"),
-              ("int8", "int8", 811300, "decode_step_q"),
-              ("int8", "f32", 2580484, "decode_step_int8a"))
-STEP_COUNTERS = {"decode_step": "launches",
-                 "decode_step_int8a": "launches_int8a",
-                 "decode_step_q": "launches_q"}
+# (weights, state, expected state_bytes_per_slot, decode kernel served,
+# step_impl): each run of phase 4; bytes per slot at mamba-130m, 24
+# layers: h 24 x 1536 x 16 x 4 (f32) or x 1 (int8) + h_scale 24 x 3 x 4
+# (int8) + conv 24 x 3 x 1536 x 2 (bf16) + pos 4.  The f32 runs go through
+# Server (whose ServeConfig has no weight or step switch, as in repro), so
+# their step_impl is the model config's: "auto" is K3 on the card.
+SERVE_RUNS = (("f32", "f32", 2580484, "decode_step", "fused"),
+              ("int8", "int8", 811300, "decode_step_q", "fused"),
+              ("int8", "f32", 2580484, "decode_step_int8a", "fused"),
+              ("f32", "f32", 2580484, "mamba_stacked_step", "auto"),
+              ("int8", "int8", 811300, "mamba_stacked_step_q_int8a",
+               "megakernel"))
 
 
 def phase_serve(cfg, dev, card, weight_dtype, state_dtype, want_spb,
-                served_step):
-    """bf16 serving with launch counts: the f32 setup through
-    ``Server`` (whose ``ServeConfig`` has no weight switch, as in repro),
-    the others through ``Engine``; the kernel counts are set to 0 just
-    before the measured run and read just after."""
+                served, step_impl):
+    """bf16 serving with launch counts: the f32 setup through ``Server``,
+    the others through ``Engine``; every kernel count is set to 0 just
+    before the measured run and read just after.  Returns the counts and
+    the requests' tokens."""
+    import dataclasses
+    from repro_torch.core import dispatch_count
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import conv1d, decode_step, ref, selective_scan
     from repro_torch.models import registry
     from repro_torch.runtime.engine import Engine, EngineConfig
     from repro_torch.runtime.metrics import ServeStats
@@ -441,13 +614,14 @@ def phase_serve(cfg, dev, card, weight_dtype, state_dtype, want_spb,
     max_seq = max(lens) + max_new + 8
     params = registry.init_params(cfg, seed=SEED)
     if weight_dtype == "f32" and state_dtype == "f32":
-        srv = Server(cfg, params, ServeConfig(batch_slots=4, max_seq=max_seq,
-                                              device="cuda"))
+        srv = Server(dataclasses.replace(cfg, step_impl=step_impl), params,
+                     ServeConfig(batch_slots=4, max_seq=max_seq,
+                                 device="cuda"))
         eng = srv.engine
     else:
         eng = Engine(cfg, params, EngineConfig(
             n_slots=4, max_seq=max_seq, weight_dtype=weight_dtype,
-            state_dtype=state_dtype, device="cuda"))
+            state_dtype=state_dtype, step_impl=step_impl, device="cuda"))
     warm = SyntheticLM(cfg.vocab, 16, seed=3).batch_at(0, 0, 1, 2)["tokens"]
     for row in warm:                               # cuBLAS and library init
         eng.submit(row, max_new=4)
@@ -455,39 +629,37 @@ def phase_serve(cfg, dev, card, weight_dtype, state_dtype, want_spb,
     eng.stats = ServeStats()
     prompts = [SyntheticLM(cfg.vocab, L, seed=4).batch_at(0, 0, 1, 2)
                ["tokens"][i] for L in lens for i in range(2)]
-    selective_scan.launches = conv1d.launches = 0
-    for attr in STEP_COUNTERS.values():
-        setattr(decode_step, attr, 0)
-    ref.CALLS.clear()
+    dispatch_count.reset()
     torch.cuda.synchronize()
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
     reqs.append(eng.submit(prompts[3], SamplingParams(
         temperature=0.8, top_k=40, seed=1234, max_new=max_new)))
     eng.run()
     torch.cuda.synchronize()
-    counts = {"selective_scan": selective_scan.launches,
-              "causal_conv1d": conv1d.launches}
-    counts.update({k: getattr(decode_step, a)
-                   for k, a in STEP_COUNTERS.items()})
+    snap = dispatch_count.snapshot()
+    counts = {k: snap[k] for k in dispatch_count.COUNTERS}
     s = eng.stats
     L = cfg.n_layers
-    want = {"selective_scan": L * s.prefill_calls,
-            "causal_conv1d": L * (s.prefill_calls + s.decode_steps)}
-    want.update({k: L * s.decode_steps if k == served_step else 0
-                 for k in STEP_COUNTERS})
-    log(f"  {weight_dtype} weights, {state_dtype} state: admissions "
-        f"{s.prefill_calls}, pooled decode steps {s.decode_steps}")
+    per_layer = step_impl == "fused"
+    want = {k: 0 for k in counts}
+    want["selective_scan"] = L * s.prefill_calls
+    want["causal_conv1d"] = L * (s.prefill_calls
+                                 + (s.decode_steps if per_layer else 0))
+    want[served] = (L if per_layer else 1) * s.decode_steps
+    log(f"  {weight_dtype} weights, {state_dtype} state, step_impl "
+        f"{step_impl!r}: admissions {s.prefill_calls}, pooled decode steps "
+        f"{s.decode_steps}")
     for name in counts:
         ok = counts[name] == want[name] and (counts[name] > 0) == (
             want[name] > 0)
-        log(f"  launches {name:<18} {counts[name]:>6} (expected "
+        log(f"  launches {name:<26} {counts[name]:>6} (expected "
             f"{want[name]})  {'ok' if ok else 'FAIL'}")
         if not ok:
             FAILURES.append(f"launch count {name} ({weight_dtype} weights, "
-                            f"{state_dtype} state)")
+                            f"{state_dtype} state, {step_impl})")
     if s.decode_steps == 0:
         FAILURES.append("no decode step ran")
-    plain = sum(ref.CALLS.values())
+    plain = sum(v for k, v in snap.items() if k.startswith("plain "))
     log(f"  plain-version calls during serving: {plain}  "
         f"{'ok' if plain == 0 else 'FAIL'}")
     if plain:
@@ -505,13 +677,13 @@ def phase_serve(cfg, dev, card, weight_dtype, state_dtype, want_spb,
     if not good:
         FAILURES.append("serve outputs")
     smry = s.summary()
-    log(f"  serve bf16, {weight_dtype} weights, {state_dtype} state on "
-        f"{card}: {smry['useful_tokens']} tokens in {smry['wall_s']:.3f} s "
-        f"= {smry['tokens_per_s']:.1f} tok/s; TTFT mean "
-        f"{smry['ttft_mean_s'] * 1e3:.1f} ms, p95 "
+    log(f"  serve bf16, {weight_dtype} weights, {state_dtype} state, "
+        f"{step_impl} on {card}: {smry['useful_tokens']} tokens in "
+        f"{smry['wall_s']:.3f} s = {smry['tokens_per_s']:.1f} tok/s; TTFT "
+        f"mean {smry['ttft_mean_s'] * 1e3:.1f} ms, p95 "
         f"{smry['ttft_p95_s'] * 1e3:.1f} ms; TPOT mean "
         f"{smry['tpot_mean_s'] * 1e3:.2f} ms")
-    return counts
+    return counts, [r.tokens for r in reqs]
 
 
 def time_ms(fn, iters):
@@ -591,22 +763,65 @@ def conv_work(b, L, d, k, in_bytes):
     return nbytes, 2 * k * b * L * d + b * L * d
 
 
+def device_time(fn, reps):
+    """(ms, method): the device time of one call from a CUDA graph replay
+    ("graph"), or, where stream capture refuses the call, from CUDA events
+    around back-to-back calls ("events", which holds the host's launch
+    cost too where that exceeds the device work)."""
+    try:
+        return device_ms(fn, reps), "graph"
+    except RuntimeError as e:
+        log(f"  stream capture refused ({str(e).splitlines()[0][:120]}): "
+            f"timed with events")
+        torch.cuda.synchronize()
+        return time_ms(fn, 10 * reps), "events"
+
+
 def measure(name, shape, kernel, plain, library, work, reps):
-    """One timing row: the kernel's device time (CUDA graph replay) and
-    eager per-call time, its plain version's and the library call's
-    device times, and the bound from ``work`` = (bytes, operations)."""
+    """One timing row: the kernel's device time (CUDA graph replay, or
+    events where capture is refused: ``timing`` says which) and eager
+    per-call time, its plain version's and the library call's device
+    times, and the bound from ``work`` = (bytes, operations)."""
     bms, by = bound_ms(*work)
-    row = dict(shape=shape, ms=device_ms(kernel, reps),
+    ms, how = device_time(kernel, reps)
+    row = dict(shape=shape, ms=ms, timing=how,
                eager_ms=time_ms(kernel, 10 * reps),
-               plain_ms=device_ms(plain, 1 if reps <= 10 else 10),
+               plain_ms=device_time(plain, 1 if reps <= 10 else 10)[0],
                bound_ms=bms, bound_by=by,
                library_ms=None if library is None else device_ms(library,
                                                                  reps))
     lib_txt = "-" if library is None else f"{row['library_ms']:.4f}"
-    log(f"  {name:<15} {row['ms']:.4f} ms (eager {row['eager_ms']:.4f})  bound "
-        f"{bms:.4f} ms ({by})  plain {row['plain_ms']:.4f} ms  library "
-        f"{lib_txt} ms  [{shape}]")
+    log(f"  {name:<15} {row['ms']:.4f} ms ({how}; eager "
+        f"{row['eager_ms']:.4f})  bound {bms:.4f} ms ({by})  plain "
+        f"{row['plain_ms']:.4f} ms  library {lib_txt} ms  [{shape}]")
     return row
+
+
+def k3_work(cfg, b, int8, state_dtype, act_bytes):
+    """Bytes and operations of one K3 call: every layer's weights read once
+    at their storage width (int8 codes and their f32 scales), the state in
+    and out (payload and scales), the conv tails in and out, x in and out;
+    per layer and slot two operations per dense weight, 13 per state
+    element (the step's 7 with the A dequant or exp, the quantized state's
+    dequant, |h|, max, divide and rounding), the conv's 2 per tap and
+    channel, 12 per channel (softplus, D skip, the SiLUs and gate) and 4
+    per d_model entry (the norm and the residual add)."""
+    from repro_torch.core import state_quant
+    L, dm, di, n, r, k = (cfg.n_layers, cfg.d_model, cfg.d_inner,
+                          cfg.d_state, cfg.dt_rank, cfg.d_conv)
+    nx = r + 2 * n
+    dense = dm * 2 * di + di * nx + r * di + di * dm
+    wb = 1 if int8 else 4
+    layer = (dense + di * n) * wb + (k * di + 3 * di + dm) * 4
+    if int8:
+        layer += (2 * di + nx + di + dm + di) * 4
+    sb = {"f32": 4, "bf16": 2, "int8": 1, "fp8": 1}[state_dtype]
+    state = 2 * b * di * n * sb + 2 * b * (k - 1) * di * act_bytes
+    if state_quant.is_quantized(state_dtype):
+        state += 2 * b * state_quant.n_groups(di) * 4
+    nbytes = L * (layer + state) + 2 * b * dm * act_bytes
+    ops = L * b * (2 * dense + 13 * di * n + 2 * k * di + 12 * di + 4 * dm)
+    return nbytes, ops
 
 
 def phase_timing(cfg, dev, counts, errs):
@@ -677,6 +892,42 @@ def phase_timing(cfg, dev, counts, errs):
             lambda: ref.selective_state_step_q(*argsq, **kwq), None,
             q_step_work(4, d, n, 2), 50))
 
+    # K3 at 4 slots, full width, bf16, as served in phase 4; then the
+    # whole decode step (embed -> K3 -> norm_f -> unembed) against the
+    # per-layer fused one on the same weights and cache
+    import dataclasses
+    from repro_torch.kernels import megakernel
+    from repro_torch.models import registry
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for (wd, sd), name in K3_KERNEL.items():
+        c = dataclasses.replace(cfg, dtype="bfloat16", weight_dtype=wd,
+                                state_dtype=sd)
+        p = k3_params(c, wd, dev)
+        x0, h, h_scale, conv = k3_inputs(c, 4, gen, dev)
+        lc = megakernel.launch_config(c, torch.bfloat16, wd == "int8", dev)
+        shape = (f"slots=4 L=24 d_model=768 bf16, {wd} weights, {sd} state; "
+                 f"grid {lc['grid']} x 512, {lc['smem_bytes']} B shared")
+        row = measure(
+            name, shape,
+            lambda: megakernel.mamba_stacked_step(c, x0, p["stack"], h,
+                                                  h_scale, conv),
+            lambda: ref.mamba_stacked_step(c, x0, p["stack"].layers, h,
+                                           h_scale, conv), None,
+            k3_work(c, 4, wd == "int8", sd, 2), 5)
+        cache = registry.init_cache(c, 4, 64, device=dev)
+        batch = {"tokens": torch.arange(4, device=dev)[:, None]}
+        for impl in ("megakernel", "fused"):
+            ci = dataclasses.replace(c, step_impl=impl)
+            step = (lambda ci=ci: registry.decode_step(ci, p, cache, batch))
+            ms, how = device_time(step, 5)
+            eager = time_ms(step, 20)
+            tag = "whole_step" if impl == "megakernel" else "fused_step"
+            row[tag + "_ms"], row[tag + "_timing"] = ms, how
+            row[tag + "_eager_ms"] = eager
+            log(f"  decode step at 4 slots, {wd} weights, {sd} state, "
+                f"{impl}: {ms:.4f} ms device ({how}), {eager:.4f} ms eager")
+        rows[name] = [row]
+
     meta = {
         "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                            "src/repro/kernels/selective_scan.py:43"),
@@ -688,6 +939,11 @@ def phase_timing(cfg, dev, counts, errs):
                               "src/repro/kernels/decode_step.py:223"),
         "decode_step_q": ("src/repro_torch/csrc/decode_step_q.cu",
                           "src/repro/kernels/decode_step.py:234"),
+        "mamba_stacked_step": ("src/repro_torch/csrc/megakernel_mamba.cu",
+                               "src/repro/kernels/decode_step.py:413"),
+        "mamba_stacked_step_q_int8a": (
+            "src/repro_torch/csrc/megakernel_mamba.cu",
+            "src/repro/kernels/decode_step.py:413"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
@@ -734,13 +990,24 @@ def main() -> int:
     # the launches reported per kernel: the scan and conv from the first
     # run, each step variant from the run that serves it
     counts = {}
-    for i, (wd, sd, spb, served) in enumerate(SERVE_RUNS):
+    streams = {}
+    for i, (wd, sd, spb, served, impl) in enumerate(SERVE_RUNS):
         log(f"== phase 4.{i + 1}: serve mamba-130m bf16, {wd} weights, "
-            f"{sd} state")
-        run = phase_serve(cfg, dev, card, wd, sd, spb, served)
+            f"{sd} state, step_impl {impl!r}")
+        run, streams[wd, sd, impl] = phase_serve(cfg, dev, card, wd, sd,
+                                                 spb, served, impl)
         if i == 0:
             counts.update(run)
         counts[served] = run[served]
+        if impl != "fused":
+            fused = streams[wd, sd, "fused"]
+            mega = streams[wd, sd, impl]
+            same = sum(a == b for f, m in zip(fused, mega)
+                       for a, b in zip(f, m))
+            total = sum(len(f) for f in fused)
+            log(f"  token agreement with the per-layer run of this setup: "
+                f"{same}/{total} = {same / total:.4f} (printed; greedy "
+                f"streams in bf16 diverge after the first differing token)")
         if not phase_ok():
             return 1
     log("== phase 5: kernel timing (CUDA events)")

@@ -11,6 +11,12 @@ time.  Run from the repository root on a machine with a CUDA card:
     python3 scripts/torch_serve_profile.py [--requests 4 --prompt-len 127]
         [--max-new 32 --slots 4 --seed 0 --trace build/serve_trace.json]
         [--weight-dtype f32|int8 --state-dtype f32|bf16|int8|fp8]
+        [--step-impl auto|megakernel|fused]
+
+``--step-impl`` picks the decode path: "megakernel" is one launch of the
+cross-layer kernel per token, "fused" the per-layer conv and step
+kernels, "auto" (the default) what an engine on the card takes, the
+megakernel.
 """
 import argparse
 import dataclasses
@@ -63,6 +69,8 @@ def main(argv=None) -> int:
     ap.add_argument("--weight-dtype", default="f32", choices=["f32", "int8"])
     ap.add_argument("--state-dtype", default="f32",
                     choices=["f32", "bf16", "int8", "fp8"])
+    ap.add_argument("--step-impl", default="auto",
+                    choices=["auto", "megakernel", "fused"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
@@ -77,7 +85,7 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(configs.get_config(args.arch),
                               scan_impl="pallas", conv_impl="pallas",
-                              step_impl="fused")
+                              step_impl=args.step_impl)
     engine = Engine(cfg, registry.init_params(cfg, seed=args.seed),
                     EngineConfig(n_slots=args.slots,
                                  max_seq=args.prompt_len + args.max_new + 8,
@@ -101,7 +109,8 @@ def main(argv=None) -> int:
     wall_us = t_traced * 1e6
     print(f"card: {card()}")
     print(f"{cfg.name} bf16, {args.weight_dtype} weights, "
-          f"{args.state_dtype} state, {args.requests} requests x prompt "
+          f"{args.state_dtype} state, step_impl {args.step_impl}, "
+          f"{args.requests} requests x prompt "
           f"{args.prompt_len} + {args.max_new} new, {args.slots} slots")
     print(f"untraced: {n_plain} tokens in {t_plain:.4f} s = "
           f"{n_plain / t_plain:.1f} tok/s")

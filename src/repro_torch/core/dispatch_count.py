@@ -1,0 +1,63 @@
+"""Kernel launches per call, from the kernel wrappers' own counters.
+
+The port's counterpart of ``repro/core/dispatch_count.py``, which counts
+``pallas_call`` equations in a traced jaxpr.  PyTorch runs eagerly, so
+here the call is made once and the counters are read around it: on the
+card each wrapper adds one to its count where it launches its kernel; on
+the CPU the wrappers take the plain versions, which count their entries
+in ``kernels.ref.CALLS``.  The megakernel path (K3) is one launch per
+decoded token.  The per-layer fused path is two per layer: ``repro``'s
+pin is n_layers because its default conv is XLA, while in the port the
+conv is a kernel (K5) under every ``conv_impl``, beside the step kernel.
+"""
+from __future__ import annotations
+
+import collections
+
+from repro_torch.kernels import conv1d, decode_step, megakernel, ref
+from repro_torch.kernels import selective_scan
+
+#: every kernel launch counter: name -> (wrapper module, attribute)
+COUNTERS = {
+    "selective_scan": (selective_scan, "launches"),
+    "causal_conv1d": (conv1d, "launches"),
+    "decode_step": (decode_step, "launches"),
+    "decode_step_int8a": (decode_step, "launches_int8a"),
+    "decode_step_q": (decode_step, "launches_q"),
+    "mamba_stacked_step": (megakernel, "launches"),
+    "mamba_stacked_step_int8a": (megakernel, "launches_int8a"),
+    "mamba_stacked_step_q": (megakernel, "launches_q"),
+    "mamba_stacked_step_q_int8a": (megakernel, "launches_q_int8a"),
+}
+
+
+def snapshot() -> collections.Counter:
+    """Every kernel's launch count by name, and every plain version's
+    entries as ``"plain " + name``."""
+    out = collections.Counter({name: getattr(mod, attr)
+                               for name, (mod, attr) in COUNTERS.items()})
+    out.update({"plain " + k: v for k, v in ref.CALLS.items()})
+    return out
+
+
+def reset() -> None:
+    """Set every launch count and every plain-version count to 0."""
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+    ref.CALLS.clear()
+
+
+def launch_counts(fn, *args, **kwargs) -> collections.Counter:
+    """What one call ``fn(*args, **kwargs)`` launched, by name (kernels
+    on the card, ``"plain ..."`` entries on the CPU)."""
+    before = snapshot()
+    fn(*args, **kwargs)
+    after = snapshot()
+    after.subtract(before)
+    return +after
+
+
+def count_launches(fn, *args, **kwargs) -> int:
+    """The number of kernel launches (on the card) or plain-version
+    entries (on the CPU) one call of ``fn`` makes."""
+    return sum(launch_counts(fn, *args, **kwargs).values())

@@ -4,13 +4,17 @@
 //
 // The nonlinearities are a runtime switch on each kernel (one uniform branch
 // per call site); the numbering of the switches and of the activation and
-// state storage types matches repro_torch/kernels/_lib.py.
+// state storage types matches repro_torch/kernels/_lib.py.  The quantized
+// state's codes and its running-absmax scale update (state_quant.encode and
+// update_scale) live here too, so every kernel that writes an int8/fp8
+// state encodes it with the same bits.
 // fast_exp's multiply-add uses __fmul_rn/__fadd_rn so nvcc cannot contract
 // it into an FMA: the int32 it truncates then equals the one the plain
 // PyTorch version computes, bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,7 +23,7 @@ namespace marca {
 enum ExpImpl { EXP_EXACT = 0, EXP_OURS = 1, EXP_FAST = 2 };
 enum SiluImpl { SILU_EXACT = 0, SILU_OURS = 1, SILU_PAPER = 2 };
 enum DType { DT_F32 = 0, DT_BF16 = 1 };
-enum StateDType { SD_INT8 = 0, SD_FP8 = 1 };
+enum StateDType { SD_INT8 = 0, SD_FP8 = 1, SD_F32 = 2, SD_BF16 = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -34,6 +38,12 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float v) {
   return __float2bfloat16_rn(v);
+}
+
+// the value a torch tensor of type T holds after .to(T): rounding to bf16 and
+// back, or nothing for f32
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
 }
 
 // ---------------------------------------------------------------------------
@@ -106,28 +116,35 @@ __device__ __forceinline__ float s6_state_update(float h, float dt, float x,
   return apply_exp(dt * a, exp_impl) * h + (dt * x) * b;
 }
 
-// A[c][s] as the cell consumes it: f32 weights as stored, or int8 codes
-// times their per-channel scale with one rounded multiply -- the multiply
-// of repro/core/weight_quant.py dequantize_rows, so every path sees
-// bit-identical A values (__fmul_rn keeps nvcc from fusing it onward).
-__device__ __forceinline__ float load_a(const float* A, const float*,
+// A weight entry as a kernel consumes it: f32 weights as stored, or int8
+// codes times their scale (A's per channel, a dense matrix's per output
+// column) with one rounded multiply -- the multiply of
+// repro_torch/core/weight_quant.py dequantize_rows / dequantize_w, so every
+// path sees bit-identical values (__fmul_rn keeps nvcc from fusing it
+// onward).
+__device__ __forceinline__ float load_w(const float* W, const float*,
                                         int64_t idx, int) {
-  return A[idx];
+  return W[idx];
 }
-__device__ __forceinline__ float load_a(const int8_t* A,
-                                        const float* a_scale, int64_t idx,
-                                        int c) {
-  return __fmul_rn((float)A[idx], a_scale[c]);
+__device__ __forceinline__ float load_w(const int8_t* W, const float* scale,
+                                        int64_t idx, int c) {
+  return __fmul_rn((float)W[idx], scale[c]);
 }
 
-// y_d = sum_n C_n h_nd: butterfly over the kN lanes of the channel's group
+// sum of v over a group of kN consecutive lanes: a butterfly, so the order
+// is fixed and every lane of the group gets the sum
 template <int kN>
-__device__ __forceinline__ float s6_contract(float h, float c) {
-  float v = h * c;
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int off = kN / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// y_d = sum_n C_n h_nd over the kN lanes of the channel's group
+template <int kN>
+__device__ __forceinline__ float s6_contract(float h, float c) {
+  return group_sum<kN>(h * c);
 }
 
 __device__ __forceinline__ float s6_gate(float y, float x, const float* D,
@@ -136,6 +153,51 @@ __device__ __forceinline__ float s6_gate(float y, float x, const float* D,
   if (D != nullptr) y += D[ch] * x;
   if (has_z) y *= apply_silu(z, silu_impl);
   return y;
+}
+
+// ---------------------------------------------------------------------------
+// Quantized state storage (repro_torch/core/state_quant.py): codes and the
+// decayed running-absmax scale update, with the rounded operations torch
+// runs in f32 (__fmul_rn/__fdiv_rn keep nvcc from contracting them), a true
+// division per value (never a multiply by the reciprocal), rintf (half to
+// even, as torch.round) for int8 and __nv_fp8_e4m3 (round to nearest even,
+// as .to(float8_e4m3fn)) for fp8.
+// ---------------------------------------------------------------------------
+constexpr int kScaleGroup = 512;    // state_quant.D_BLOCK
+constexpr float kEmaDecay = 0.99f;  // state_quant.EMA_DECAY
+constexpr float kEpsAmax = 1e-30f;  // state_quant.EPS_AMAX
+
+template <typename TQ>
+struct Codes;
+
+template <>
+struct Codes<int8_t> {
+  static constexpr float kMax = 127.0f;
+  static __device__ __forceinline__ float decode(int8_t q) {
+    return (float)q;
+  }
+  static __device__ __forceinline__ int8_t encode(float v) {
+    return (int8_t)(int)fminf(fmaxf(rintf(v), -127.0f), 127.0f);
+  }
+};
+
+template <>
+struct Codes<__nv_fp8_e4m3> {
+  static constexpr float kMax = 448.0f;
+  static __device__ __forceinline__ float decode(__nv_fp8_e4m3 q) {
+    return static_cast<float>(q);
+  }
+  static __device__ __forceinline__ __nv_fp8_e4m3 encode(float v) {
+    return __nv_fp8_e4m3(v);
+  }
+};
+
+// state_quant.update_scale: the group's new scale from this step's absmax
+// and the scale it was stored with (0 for a fresh slot)
+__device__ __forceinline__ float update_scale(float amax, float s_in,
+                                              float qmax) {
+  const float m = fmaxf(amax, __fmul_rn(kEmaDecay, __fmul_rn(s_in, qmax)));
+  return __fdiv_rn(fmaxf(m, kEpsAmax), qmax);
 }
 
 }  // namespace marca

@@ -21,7 +21,7 @@
 // inactive slots stays with the caller, as in repro.  Row strides for x,
 // dt, z, B and C let the block pass its strided views without a copy.
 // The A type is a template parameter beside the activation type: with
-// int8 A each thread dequantizes its own entry (load_a in common.cuh), so
+// int8 A each thread dequantizes its own entry (load_w in common.cuh), so
 // A crosses device memory at one byte per entry and the f32-A path is
 // unchanged.
 #include "common.cuh"
@@ -51,7 +51,7 @@ decode_step_kernel(const float* __restrict__ h, const T* __restrict__ x,
   const float xv = to_f32(x[slot * sx + c]);
   const float dtv = to_f32(dt[slot * sdt + c]);
   const float hv = s6_state_update(
-      h[hidx], dtv, xv, load_a(A, a_scale, (int64_t)c * kStepN + s, c),
+      h[hidx], dtv, xv, load_w(A, a_scale, (int64_t)c * kStepN + s, c),
       to_f32(B[slot * sB + s]), exp_impl);
   float yv = s6_contract<kStepN>(hv, to_f32(C[slot * sC + s]));
   if (!valid) return;

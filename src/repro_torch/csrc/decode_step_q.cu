@@ -24,52 +24,21 @@
 // shared-memory max over the 16 warps, so the requantization is local to
 // the block (scale blocking == channel blocking, as on the TPU) and the
 // f32 state never reaches device memory.
-// One thread computes s_out with the rounded operations of
-// state_quant.update_scale; the block then encodes with a true division
-// (never a multiply by the reciprocal): rintf (half to even, as jnp.round)
-// for int8, __nv_fp8_e4m3 (round to nearest even, as astype) for fp8.
+// One thread computes s_out with update_scale and the block encodes with
+// Codes<TQ> (both in common.cuh, shared with the megakernel).
 // Channels past d in the ragged last group shadow the last channel in the
 // shuffles and write nothing; the TPU kernel's zero padding gives the same
 // absmax.  At mamba-130m and 4 slots the grid is 12 blocks: splitting a
 // group over a thread-block cluster is later work.
-#include <cuda_fp8.h>
-
 #include "common.cuh"
 
 namespace marca {
 
-constexpr int kQN = 16;                        // d_state
-constexpr int kQGroup = 512;                   // state_quant.D_BLOCK
+constexpr int kQN = 16;                         // d_state
+constexpr int kQGroup = kScaleGroup;            // state_quant.D_BLOCK
 constexpr int kQThreads = 512;
-constexpr int kQPerPass = kQThreads / kQN;     // 32 channels per pass
-constexpr int kQPasses = kQGroup / kQPerPass;  // 16 passes per group
-constexpr float kEmaDecay = 0.99f;             // state_quant.EMA_DECAY
-constexpr float kEpsAmax = 1e-30f;             // state_quant.EPS_AMAX
-
-template <typename TQ>
-struct Codes;
-
-template <>
-struct Codes<int8_t> {
-  static constexpr float kMax = 127.0f;
-  static __device__ __forceinline__ float decode(int8_t q) {
-    return (float)q;
-  }
-  static __device__ __forceinline__ int8_t encode(float v) {
-    return (int8_t)(int)fminf(fmaxf(rintf(v), -127.0f), 127.0f);
-  }
-};
-
-template <>
-struct Codes<__nv_fp8_e4m3> {
-  static constexpr float kMax = 448.0f;
-  static __device__ __forceinline__ float decode(__nv_fp8_e4m3 q) {
-    return static_cast<float>(q);
-  }
-  static __device__ __forceinline__ __nv_fp8_e4m3 encode(float v) {
-    return __nv_fp8_e4m3(v);
-  }
-};
+constexpr int kQPerPass = kQThreads / kQN;      // 32 channels per pass
+constexpr int kQPasses = kQGroup / kQPerPass;   // 16 passes per group
 
 struct QStepArgs {
   const void* hq;
@@ -130,7 +99,7 @@ decode_step_q_kernel(const QStepArgs a) {
     const float xv = to_f32(x[slot * a.sx + c]);
     const float dtv = to_f32(dt[slot * a.sdt + c]);
     const float h1 = s6_state_update(
-        h, dtv, xv, load_a(A, a.a_scale, (int64_t)c * kQN + s, c), bv,
+        h, dtv, xv, load_w(A, a.a_scale, (int64_t)c * kQN + s, c), bv,
         a.exp_impl);
     const float zv = has_z ? to_f32(z[slot * a.sz + c]) : 0.0f;
     yo[p] = s6_gate(s6_contract<kQN>(h1, cv), xv, a.D, c, has_z, zv,
@@ -151,11 +120,9 @@ decode_step_q_kernel(const QStepArgs a) {
   if ((threadIdx.x & 31) == 0) warp_amax[threadIdx.x >> 5] = amax;
   __syncthreads();
   if (threadIdx.x == 0) {
-    const float qm = Codes<TQ>::kMax;
     float m = warp_amax[0];
     for (int w = 1; w < kQThreads / 32; ++w) m = fmaxf(m, warp_amax[w]);
-    m = fmaxf(m, __fmul_rn(kEmaDecay, __fmul_rn(s_in, qm)));
-    const float so = __fdiv_rn(fmaxf(m, kEpsAmax), qm);
+    const float so = update_scale(m, s_in, Codes<TQ>::kMax);
     a.scale_new[(int64_t)slot * a.g + grp] = so;
     s_out_shared = so;
   }

@@ -1,0 +1,579 @@
+// Cross-layer Mamba decode megakernel (K3) for Hopper, sm_90a.
+//
+// Replaces: repro/kernels/decode_step.py:413 stacked_layer_launch
+// (pallas_call at :488) with the mamba body of repro/models/mamba_lm.py:160
+// ("marca_megakernel_mamba"): ONE launch runs every layer of a decode step
+// for the whole slot pool,
+//
+//   for l in layers:  x = x + mamba_block_megastep(rmsnorm(x))
+//
+// with the chain of repro_torch/models/mamba.py mamba_block_megastep: norm
+// -> in_proj -> [x | z] -> conv over the tail + bias -> SiLU -> x_proj ->
+// (dt_low, B, C) -> dt_proj + bias + softplus -> S6 step (exp_impl) -> D
+// skip and SiLU(z) gate -> out_proj -> residual.  Embed, the final norm and
+// the tied unembed stay in PyTorch, as repro keeps them in XLA.
+//
+// Bound on this card: bytes.  A decode step at a few slots reads every
+// weight of every layer once (mamba-130m: 3.77 M per layer, 362 MB in f32,
+// 92 MB in int8) and the pooled state in and out; the arithmetic is two
+// operations per weight and slot.  At 4 slots the f32 model takes at least
+// 114 us at 3.35 TB/s, the int8 model with an int8 state 29 us.
+//
+// Design, simple and right first: one persistent cooperative kernel with as
+// many blocks of 512 threads as can be co-resident (the C entry point sizes
+// the grid from cudaOccupancyMaxActiveBlocksPerMultiprocessor and launches
+// with cudaLaunchCooperativeKernel), the layer loop inside, and a grid
+// barrier (cooperative_groups grid.sync()) wherever the next phase needs a
+// whole vector.  Per layer:
+//   A   every block with work recomputes the RMS norm of the residual
+//       stream x for its slots (staged in shared memory), then computes
+//       in_proj column tiles; the x half's epilogue runs the conv over the
+//       tail + bias and SiLU and writes the new tail; z is stored.  barrier
+//   B   x_proj column tiles -> dt_low, B, C.                       barrier
+//   C   one block per (slot, 32 channels): dt_proj (the 16 lanes of a
+//       channel split the dt_rank dot) + bias + softplus, the S6 step with
+//       one lane per state (as decode_step.cu), D skip and gate.  An
+//       f32/bf16 state is written here; an int8/fp8 state's f32 values and
+//       each chunk's absmax go to scratch.                         barrier
+//   C2  (int8/fp8 state) each chunk takes its 512-channel group's absmax
+//       from the 16 chunks' partials, updates the scale and encodes, with
+//       K2's arithmetic (common.cuh).                              barrier
+//   D   out_proj column tiles and the residual add x + y.          barrier
+// A column tile is TJ adjacent output columns, TJ a power of two the host
+// picks so the tiles cover the grid; the block's 16 warps split the rows
+// of the reduction, lanes TJ apart take different rows, and the partial
+// sums combine by a shuffle butterfly and then over the warps in one fixed
+// order.  No float atomics anywhere: the same inputs give the same bits.
+// Weights are read as stored: f32, or int8 codes times their scale with one
+// rounded multiply (load_w), then rounded to the compute type -- the values
+// blocks.dense and weight_quant.dequantize_rows give.  Every rounding point
+// of the per-layer path is kept: the norm, each dense output, the conv and
+// SiLU outputs, softplus, y and x + y round to the compute type.  Slots are
+// taken kSlots at a time; more slots re-read a tile's weights, mostly from
+// L1 and L2.  The phases read their per-layer weights through a table of
+// device pointers (one row per layer) that the wrapper builds once per
+// engine, so the weights stay where the parameter tree holds them.
+// Left for later: wgmma tiles fed by TMA, fewer barriers (B and C could
+// merge, and C2 go, with a thread-block cluster per scale group), weights
+// kept resident in shared memory across tokens.
+#include <cooperative_groups.h>
+
+#include <mutex>
+#include <vector>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace marca {
+
+constexpr int kMThreads = 512;
+constexpr int kMWarps = kMThreads / 32;
+constexpr int kMN = 16;                                // d_state
+constexpr int kChunk = kMThreads / kMN;                // 32 channels / item
+constexpr int kChunksPerGroup = kScaleGroup / kChunk;  // 16
+constexpr int kSlots = 4;                              // slots per pass
+constexpr float kNormEps = 1e-5f;                      // blocks.apply_norm
+constexpr float kSoftplusThreshold = 20.0f;            // F.softplus
+
+// Columns of the per-layer weight table (repro_torch/kernels/megakernel.py
+// TABLE_COLUMNS); a scale column is 0 for f32 weights.
+enum WeightColumn {
+  W_NORM = 0, W_IN = 1, W_IN_SCALE = 2, W_CONV = 3, W_CONV_B = 4, W_X = 5,
+  W_X_SCALE = 6, W_DT = 7, W_DT_SCALE = 8, W_DT_BIAS = 9, W_A = 10,
+  W_A_SCALE = 11, W_D = 12, W_OUT = 13, W_OUT_SCALE = 14, W_COLUMNS = 16
+};
+
+struct MegaArgs {
+  const int64_t* table;  // (L, W_COLUMNS) device pointers
+  const void* x0;        // (b, dm) compute type: the embedded tokens
+  void* x;               // (b, dm) compute type: the residual stream out
+  const void* h;         // (L, b, di, 16) state storage type
+  const float* h_scale;  // (L, b, g) for an int8/fp8 state
+  const void* conv;      // (L, b, k-1, di) compute type
+  void* h_out;
+  float* h_scale_out;
+  void* conv_out;
+  float* scratch;
+  int L, b, dm, di, R, k, nx, g, nchunks;
+  int tj_in, tj_x, tj_out;
+  int state_dtype, exp_impl, silu_impl;
+};
+
+template <typename P>
+__device__ __forceinline__ const P* column(const int64_t* row, int c) {
+  return reinterpret_cast<const P*>(row[c]);
+}
+
+// The residual rows s0 .. s0+nb-1 normalised into shared memory, xs[si][i]
+// (blocks.apply_norm with rmsnorm: x * rsqrt(mean(x^2) + eps) * scale,
+// rounded to the compute type).
+template <typename T>
+__device__ void stage_norm(float* xs, float* redn, const T* src,
+                           const float* scale, int s0, int nb, int dm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float ss[kSlots];
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) ss[si] = 0.0f;
+  for (int i = threadIdx.x; i < dm; i += kMThreads) {
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si) {
+      if (si < nb) {
+        const float v = to_f32(src[(int64_t)(s0 + si) * dm + i]);
+        xs[si * dm + i] = v;
+        ss[si] += v * v;
+      }
+    }
+  }
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) {
+    const float v = group_sum<32>(ss[si]);
+    if (lane == 0) redn[warp * kSlots + si] = v;
+  }
+  __syncthreads();
+  float r[kSlots];
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) {
+    float tot = 0.0f;
+    for (int w = 0; w < kMWarps; ++w) tot += redn[w * kSlots + si];
+    r[si] = rsqrtf(tot / (float)dm + kNormEps);
+  }
+  for (int i = threadIdx.x; i < dm; i += kMThreads) {
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si)
+      if (si < nb) xs[si * dm + i] = round_to<T>(xs[si * dm + i] * r[si] *
+                                                 scale[i]);
+  }
+  __syncthreads();
+}
+
+// rows s0 .. s0+nb-1 of a (b, K) scratch vector into shared memory
+__device__ void stage_rows(float* xs, const float* src, int s0, int nb,
+                           int K) {
+  for (int i = threadIdx.x; i < nb * K; i += kMThreads)
+    xs[i] = src[(int64_t)s0 * K + i];
+  __syncthreads();
+}
+
+// out[si][j] = sum_i xs[si][i] * w(i, j) for the column tiles this block
+// takes; epi(si, j, sum) gets each unrounded f32 sum once.  W is (K, N),
+// row-major, as blocks.dense stores it.  Each thread loads kBatch of its
+// rows before it uses any, so that many loads are in flight at once (the
+// phase is bound by memory latency, not by the bytes); the sum still runs
+// over the rows in ascending order.
+constexpr int kBatch = 8;
+
+template <typename T, typename TW, typename Epi>
+__device__ void gemv_tiles(const float* xs, int nb, int K, const TW* W,
+                           const float* wscale, int N, int tj, float* red,
+                           Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int jj = lane & (tj - 1);
+  const int p = warp * (32 / tj) + lane / tj;
+  const int P = kMThreads / tj;
+  const int ntiles = (N + tj - 1) / tj;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int j = min(t * tj + jj, N - 1);
+    float acc[kSlots];
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si) acc[si] = 0.0f;
+    for (int i0 = p; i0 < K; i0 += kBatch * P) {
+      TW w[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * P;
+        w[u] = i < K ? W[(int64_t)i * N + j] : TW(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * P;
+        if (i < K) {
+          const float wv = round_to<T>(load_w(&w[u], wscale, 0, j));
+#pragma unroll
+          for (int si = 0; si < kSlots; ++si) acc[si] += xs[si * K + i] * wv;
+        }
+      }
+    }
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si) {
+      float v = acc[si];
+      for (int off = 16; off >= tj; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < tj) red[(warp * kSlots + si) * 32 + lane] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < nb * tj) {
+      const int si = threadIdx.x / tj, c = threadIdx.x % tj;
+      float s = 0.0f;
+      for (int w = 0; w < kMWarps; ++w) s += red[(w * kSlots + si) * 32 + c];
+      if (t * tj + c < N) epi(si, t * tj + c, s);
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ bool quantized(int state_dtype) {
+  return state_dtype == SD_INT8 || state_dtype == SD_FP8;
+}
+
+// phase C: dt, the S6 step, D skip and gate for (slot, 32-channel) items
+template <typename T, typename TW>
+__device__ void phase_step(const MegaArgs& a, const int64_t* wt, int l,
+                           float* warp_max) {
+  const TW* Wdt = column<TW>(wt, W_DT);
+  const float* dt_scale = column<float>(wt, W_DT_SCALE);
+  const float* dt_bias = column<float>(wt, W_DT_BIAS);
+  const TW* Aw = column<TW>(wt, W_A);
+  const float* a_scale = column<float>(wt, W_A_SCALE);
+  const float* Dv = column<float>(wt, W_D);
+  const int64_t bdi = (int64_t)a.b * a.di;
+  const float* xa = a.scratch;
+  const float* zb = xa + bdi;
+  const float* dbc = zb + bdi;
+  float* yb = a.scratch + 2 * bdi + (int64_t)a.b * a.nx;
+  float* amax = yb + bdi;
+  float* hb = amax + (int64_t)a.b * a.nchunks;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cl = threadIdx.x / kMN, st = threadIdx.x % kMN;
+  for (int it = blockIdx.x; it < a.b * a.nchunks; it += gridDim.x) {
+    const int s = it / a.nchunks, chunk = it % a.nchunks;
+    const int ch = chunk * kChunk + cl;
+    const bool valid = ch < a.di;
+    const int c = valid ? ch : a.di - 1;  // shadow lanes join the shuffles
+    const float* row = dbc + (int64_t)s * a.nx;
+    // every load first (none depends on another), then the arithmetic:
+    // one memory latency per item instead of one per dependent step
+    const int64_t ls = (int64_t)l * a.b + s;
+    const int64_t hidx = (ls * a.di + c) * kMN + st;
+    float hv;
+    if (a.state_dtype == SD_F32) {
+      hv = static_cast<const float*>(a.h)[hidx];
+    } else if (a.state_dtype == SD_BF16) {
+      hv = to_f32(static_cast<const __nv_bfloat16*>(a.h)[hidx]);
+    } else {
+      hv = a.state_dtype == SD_INT8
+               ? Codes<int8_t>::decode(static_cast<const int8_t*>(a.h)[hidx])
+               : Codes<__nv_fp8_e4m3>::decode(
+                     static_cast<const __nv_fp8_e4m3*>(a.h)[hidx]);
+      hv = __fmul_rn(hv, a.h_scale[ls * a.g + c / kScaleGroup]);
+    }
+    // A: int8 codes times their row scale, or -exp(A_log) for f32 weights
+    const float aw = load_w(Aw, a_scale, (int64_t)c * kMN + st, c);
+    const float xv = xa[(int64_t)s * a.di + c];
+    const float zv = zb[(int64_t)s * a.di + c];
+    const float bv = row[a.R + st], cv = row[a.R + kMN + st];
+    const float bias = dt_bias[c];
+    constexpr int kDtRows = 4;  // dt_rank rows per lane loaded at once
+    float part = 0.0f;
+    for (int r0 = st; r0 < a.R; r0 += kDtRows * kMN) {
+      float wv[kDtRows], lo[kDtRows];
+#pragma unroll
+      for (int u = 0; u < kDtRows; ++u) {
+        const int r = min(r0 + u * kMN, a.R - 1);
+        wv[u] = load_w(Wdt, dt_scale, (int64_t)r * a.di + c, c);
+        lo[u] = row[r];
+      }
+#pragma unroll
+      for (int u = 0; u < kDtRows; ++u)
+        if (r0 + u * kMN < a.R) part += lo[u] * round_to<T>(wv[u]);
+    }
+    const float dt_raw = round_to<T>(group_sum<kMN>(part));
+    const float pre = dt_raw + bias;
+    const float dtv =
+        round_to<T>(pre > kSoftplusThreshold ? pre : log1pf(expf(pre)));
+    const float av = sizeof(TW) == 1 ? aw : -expf(aw);
+    const float h1 = s6_state_update(hv, dtv, xv, av, bv, a.exp_impl);
+    float yv = s6_contract<kMN>(h1, cv);
+    yv = s6_gate(yv, xv, Dv, c, true, zv, a.silu_impl);
+    if (valid && st == 0) yb[(int64_t)s * a.di + ch] = round_to<T>(yv);
+    if (a.state_dtype == SD_F32) {
+      if (valid) static_cast<float*>(a.h_out)[hidx] = h1;
+    } else if (a.state_dtype == SD_BF16) {
+      if (valid)
+        static_cast<__nv_bfloat16*>(a.h_out)[hidx] = from_f32<__nv_bfloat16>(h1);
+    } else {
+      if (valid) hb[((int64_t)s * a.di + ch) * kMN + st] = h1;
+      float m = valid ? fabsf(h1) : 0.0f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) warp_max[warp] = m;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float mm = warp_max[0];
+        for (int w = 1; w < kMWarps; ++w) mm = fmaxf(mm, warp_max[w]);
+        amax[(int64_t)s * a.nchunks + chunk] = mm;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// phase C2: the group scale from the chunks' absmax, then the encode
+template <typename TQ>
+__device__ void phase_requant(const MegaArgs& a, int l) {
+  const int64_t bdi = (int64_t)a.b * a.di;
+  const float* amax = a.scratch + 3 * bdi + (int64_t)a.b * a.nx;
+  const float* hb = amax + (int64_t)a.b * a.nchunks;
+  TQ* h_out = static_cast<TQ*>(a.h_out);
+  const int cl = threadIdx.x / kMN, st = threadIdx.x % kMN;
+  for (int it = blockIdx.x; it < a.b * a.nchunks; it += gridDim.x) {
+    const int s = it / a.nchunks, chunk = it % a.nchunks;
+    const int grp = chunk / kChunksPerGroup;
+    const int first = grp * kChunksPerGroup;
+    const int last = min(first + kChunksPerGroup, a.nchunks);
+    float m = 0.0f;
+    for (int q = first; q < last; ++q)
+      m = fmaxf(m, amax[(int64_t)s * a.nchunks + q]);
+    const int64_t ls = (int64_t)l * a.b + s;
+    const float so = update_scale(m, a.h_scale[ls * a.g + grp],
+                                  Codes<TQ>::kMax);
+    if (chunk == first && threadIdx.x == 0) a.h_scale_out[ls * a.g + grp] = so;
+    const int ch = chunk * kChunk + cl;
+    if (ch < a.di)
+      h_out[(ls * a.di + ch) * kMN + st] = Codes<TQ>::encode(
+          __fdiv_rn(hb[((int64_t)s * a.di + ch) * kMN + st], so));
+  }
+}
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kMThreads)
+mamba_megakernel(const MegaArgs a) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int kmax = max(a.dm, a.di);
+  float* xs = smem;                           // kSlots * kmax
+  float* red = xs + kSlots * kmax;            // kMWarps * kSlots * 32
+  float* redn = red + kMWarps * kSlots * 32;  // kMWarps * kSlots
+  const int64_t bdi = (int64_t)a.b * a.di;
+  float* xa = a.scratch;
+  float* zb = xa + bdi;
+  float* dbc = zb + bdi;
+  float* yb = dbc + (int64_t)a.b * a.nx;
+  const T* x0 = static_cast<const T*>(a.x0);
+  T* x = static_cast<T*>(a.x);
+  const T* conv = static_cast<const T*>(a.conv);
+  T* conv_out = static_cast<T*>(a.conv_out);
+  const int k1 = a.k - 1;
+
+  for (int l = 0; l < a.L; ++l) {
+    const int64_t* wt = a.table + (int64_t)l * W_COLUMNS;
+    const T* xsrc = l == 0 ? x0 : x;
+
+    // A: norm -> in_proj -> conv + SiLU | z
+    if (blockIdx.x < (2 * a.di + a.tj_in - 1) / a.tj_in) {
+      const float* conv_w = column<float>(wt, W_CONV);
+      const float* conv_b = column<float>(wt, W_CONV_B);
+      for (int s0 = 0; s0 < a.b; s0 += kSlots) {
+        const int nb = min(kSlots, a.b - s0);
+        stage_norm<T>(xs, redn, xsrc, column<float>(wt, W_NORM), s0, nb,
+                      a.dm);
+        gemv_tiles<T, TW>(
+            xs, nb, a.dm, column<TW>(wt, W_IN), column<float>(wt, W_IN_SCALE),
+            2 * a.di, a.tj_in, red, [&](int si, int j, float sum) {
+              const int s = s0 + si;
+              const float v = round_to<T>(sum);
+              if (j >= a.di) {
+                zb[(int64_t)s * a.di + j - a.di] = v;
+                return;
+              }
+              // the conv over the tail (causal_conv1d at L = 1) + bias
+              const int64_t tail = ((int64_t)l * a.b + s) * k1 * a.di + j;
+              float acc = 0.0f;
+              for (int t = 0; t < k1; ++t)
+                acc += to_f32(conv[tail + (int64_t)t * a.di]) *
+                       conv_w[(int64_t)t * a.di + j];
+              acc += v * conv_w[(int64_t)k1 * a.di + j];
+              acc += conv_b[j];
+              const float xc = round_to<T>(acc);
+              xa[(int64_t)s * a.di + j] = round_to<T>(apply_silu(xc,
+                                                                 a.silu_impl));
+              for (int t = 0; t + 1 < k1; ++t)
+                conv_out[tail + (int64_t)t * a.di] =
+                    conv[tail + (int64_t)(t + 1) * a.di];
+              if (k1 > 0) conv_out[tail + (int64_t)(k1 - 1) * a.di] =
+                  from_f32<T>(v);
+            });
+      }
+    }
+    grid.sync();
+
+    // B: x_proj -> (dt_low, B, C)
+    if (blockIdx.x < (a.nx + a.tj_x - 1) / a.tj_x) {
+      for (int s0 = 0; s0 < a.b; s0 += kSlots) {
+        const int nb = min(kSlots, a.b - s0);
+        stage_rows(xs, xa, s0, nb, a.di);
+        gemv_tiles<T, TW>(xs, nb, a.di, column<TW>(wt, W_X),
+                          column<float>(wt, W_X_SCALE), a.nx, a.tj_x, red,
+                          [&](int si, int j, float sum) {
+                            dbc[(int64_t)(s0 + si) * a.nx + j] =
+                                round_to<T>(sum);
+                          });
+      }
+    }
+    grid.sync();
+
+    // C (+ C2): dt, the S6 step, gate; the state written or requantized
+    phase_step<T, TW>(a, wt, l, redn);
+    grid.sync();
+    if (quantized(a.state_dtype)) {
+      if (a.state_dtype == SD_INT8)
+        phase_requant<int8_t>(a, l);
+      else
+        phase_requant<__nv_fp8_e4m3>(a, l);
+      grid.sync();
+    }
+
+    // D: out_proj, residual
+    if (blockIdx.x < (a.dm + a.tj_out - 1) / a.tj_out) {
+      for (int s0 = 0; s0 < a.b; s0 += kSlots) {
+        const int nb = min(kSlots, a.b - s0);
+        stage_rows(xs, yb, s0, nb, a.di);
+        gemv_tiles<T, TW>(
+            xs, nb, a.di, column<TW>(wt, W_OUT),
+            column<float>(wt, W_OUT_SCALE), a.dm, a.tj_out, red,
+            [&](int si, int j, float sum) {
+              const int64_t i = (int64_t)(s0 + si) * a.dm + j;
+              x[i] = from_f32<T>(to_f32(xsrc[i]) + round_to<T>(sum));
+            });
+      }
+    }
+    if (l + 1 < a.L) grid.sync();
+  }
+}
+
+// Shared memory of one block: the staged rows, the tile reduction and the
+// norm / absmax partials.
+size_t smem_bytes(int dm, int di) {
+  const int kmax = dm > di ? dm : di;
+  return sizeof(float) * ((size_t)kSlots * kmax + kMWarps * kSlots * 32 +
+                          kMWarps * kSlots);
+}
+
+// scratch floats: x_a, z, (dt_low|B|C), y, chunk absmax, f32 state values
+int64_t scratch_floats(int b, int di, int nx, int nchunks) {
+  return (int64_t)b * (3 * (int64_t)di + nx + nchunks + (int64_t)di * kMN);
+}
+
+// the widest tile (<= 32 columns) that still gives every block one
+int pick_tj(int n, int grid) {
+  int tj = 32;
+  while (tj > 1 && (n + tj - 1) / tj < grid) tj >>= 1;
+  return tj;
+}
+
+using KernelFn = void (*)(const MegaArgs);
+
+KernelFn pick(int dtype, int weight_dtype) {
+  using bf = __nv_bfloat16;
+  if (dtype == DT_F32 && weight_dtype == 0) return mamba_megakernel<float, float>;
+  if (dtype == DT_F32 && weight_dtype == 1) return mamba_megakernel<float, int8_t>;
+  if (dtype == DT_BF16 && weight_dtype == 0) return mamba_megakernel<bf, float>;
+  if (dtype == DT_BF16 && weight_dtype == 1) return mamba_megakernel<bf, int8_t>;
+  return nullptr;
+}
+
+// blocks per SM, grid and shared memory of a launch; 0 or an error code.
+// The answers are kept per (kernel, device, shared memory), and so is the
+// largest shared memory a kernel was opened to, so a launch after the
+// first makes no attribute or occupancy query (none inside a CUDA graph
+// capture either).
+int configure(KernelFn fn, int dm, int di, int* per_sm, int* grid,
+              size_t* smem) {
+  struct Entry { KernelFn fn; int dev; size_t smem; int per_sm, grid; };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  *smem = smem_bytes(dm, di);
+  int dev, sms, coop;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t opened = 0;
+  for (const Entry& x : seen) {
+    if (x.fn != fn || x.dev != dev) continue;
+    if (x.smem == *smem) {
+      *per_sm = x.per_sm;
+      *grid = x.grid;
+      return 0;
+    }
+    opened = x.smem > opened ? x.smem : opened;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && *smem > opened)
+    e = cudaFuncSetAttribute((const void*)fn,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kMThreads,
+                                                      *smem);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop || *per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *grid = *per_sm * sms;
+  seen.push_back({fn, dev, *smem, *per_sm, *grid});
+  return 0;
+}
+
+}  // namespace marca
+
+// The launch configuration K3 would use on the current device: out[0]
+// blocks per SM, out[1] the grid, out[2] dynamic shared memory bytes.
+// weight_dtype 0 is f32, 1 int8.
+extern "C" int marca_mamba_stacked_grid(int d_model, int d_inner, int dtype,
+                                        int weight_dtype, int* out) {
+  using namespace marca;
+  const KernelFn fn = pick(dtype, weight_dtype);
+  if (fn == nullptr || d_model < 1 || d_inner < 1) return cudaErrorInvalidValue;
+  int per_sm = 0, grid = 0;
+  size_t smem = 0;
+  const int rc = configure(fn, d_model, d_inner, &per_sm, &grid, &smem);
+  if (rc != 0) return rc;
+  out[0] = per_sm;
+  out[1] = grid;
+  out[2] = (int)smem;
+  return 0;
+}
+
+// One decode step of the whole Mamba stack.  table: (L, 16) int64 device
+// pointers per layer (megakernel.py TABLE_COLUMNS); x0, x_out (slots,
+// d_model) in the compute type; h, h_out (L, slots, d_inner, 16) in the
+// state type; h_scale, h_scale_out (L, slots, g) f32 for an int8/fp8 state
+// (else null); conv, conv_out (L, slots, d_conv-1, d_inner) in the compute
+// type; scratch at least scratch_floats() f32.  Returns 0 or a CUDA error;
+// a grid that cannot be co-resident is cudaErrorCooperativeLaunchTooLarge.
+extern "C" int marca_mamba_stacked_step(
+    const void* table, const void* x0, void* x_out, const void* h,
+    const void* h_scale, const void* conv, void* h_out, void* h_scale_out,
+    void* conv_out, void* scratch, int64_t scratch_len, int L, int slots,
+    int d_model, int d_inner, int d_state, int dt_rank, int d_conv,
+    int dtype, int weight_dtype, int state_dtype, int exp_impl,
+    int silu_impl, void* stream) {
+  using namespace marca;
+  const KernelFn fn = pick(dtype, weight_dtype);
+  const bool quant = state_dtype == SD_INT8 || state_dtype == SD_FP8;
+  const int g = (d_inner + kScaleGroup - 1) / kScaleGroup;
+  const int nchunks = (d_inner + kChunk - 1) / kChunk;
+  const int nx = dt_rank + 2 * kMN;
+  if (fn == nullptr || d_state != kMN || L < 1 || slots < 1 || d_model < 1 ||
+      d_inner < 1 || dt_rank < 1 || d_conv < 1 || state_dtype < SD_INT8 ||
+      state_dtype > SD_BF16 || (quant && (h_scale == nullptr ||
+                                          h_scale_out == nullptr)) ||
+      scratch_len < scratch_floats(slots, d_inner, nx, nchunks))
+    return cudaErrorInvalidValue;
+  int per_sm = 0, grid = 0;
+  size_t smem = 0;
+  const int rc = configure(fn, d_model, d_inner, &per_sm, &grid, &smem);
+  if (rc != 0) return rc;
+  MegaArgs a{(const int64_t*)table, x0, x_out, h, (const float*)h_scale,
+             conv, h_out, (float*)h_scale_out, conv_out, (float*)scratch,
+             L, slots, d_model, d_inner, dt_rank, d_conv, nx, g, nchunks,
+             pick_tj(2 * d_inner, grid), pick_tj(nx, grid),
+             pick_tj(d_model, grid), state_dtype, exp_impl, silu_impl};
+  void* params[] = {(void*)&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)fn, dim3(grid), dim3(kMThreads), params, smem,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

@@ -10,8 +10,14 @@ accepted so that one config describes both packages:
 * ``scan_impl``: seq | assoc | chunked | chunked_seq | pallas — all run
   the scan kernel (``pallas`` is the name this slice is configured with);
 * ``conv_impl``: xla | pallas — both run the conv kernel;
-* ``step_impl``: auto | fused | pallas | xla resolve to "fused", the
-  per-layer decode-step kernel; "megakernel" is ROADMAP K3 and raises.
+* ``step_impl``: "megakernel" runs the whole layer stack of a decode
+  token in one launch of the cross-layer kernel (K3,
+  ``kernels/megakernel.py``); fused | pallas | xla run the per-layer
+  decode-step kernel; "auto" is the megakernel for a model on the card
+  and "fused" on the CPU, as ``repro`` takes the megakernel where Pallas
+  compiles natively.  Per-layer call sites resolve a megakernel config
+  to "fused" (``resolve_cell_impl``).  ``repro``'s ``REPRO_STEP_IMPL``
+  override of "auto" is not ported.
 
 ``state_dtype`` "f32" and "bf16" store the pooled state at that width;
 "int8" and "fp8" store codes with f32 group scales and decode through
@@ -28,16 +34,25 @@ from repro_torch.kernels import selective_scan as _scan_k
 
 SCAN_IMPLS = ("seq", "assoc", "chunked", "chunked_seq", "pallas")
 CONV_IMPLS = ("xla", "pallas")
-STEP_IMPLS = ("auto", "fused", "pallas", "xla")
+STEP_IMPLS = ("auto", "megakernel", "fused", "pallas", "xla")
 
 
-def resolve_step_impl(name: str) -> str:
-    if name == "megakernel":
-        raise NotImplementedError(
-            "step_impl='megakernel' (the cross-layer decode kernel) is not "
-            "ported yet: ROADMAP K3")
+def resolve_step_impl(name: str, device="cpu") -> str:
+    """cfg.step_impl for a decode step of a model on ``device``:
+    "megakernel" or "fused" (``repro/core/selective_scan.py:149``)."""
     if name not in STEP_IMPLS:
         raise KeyError(f"unknown step impl {name!r}")
+    if name == "auto":
+        return ("megakernel" if torch.device(device).type == "cuda"
+                else "fused")
+    return "megakernel" if name == "megakernel" else "fused"
+
+
+def resolve_cell_impl(name: str, device="cpu") -> str:
+    """cfg.step_impl at a per-layer call site (one block's step): the
+    megakernel is a whole-stack launch, so there it runs the per-layer
+    fused kernel (``repro/core/selective_scan.py:176``)."""
+    resolve_step_impl(name, device)
     return "fused"
 
 
@@ -64,7 +79,7 @@ def causal_conv1d(x, w, b=None, x_prev=None, impl: str = "pallas"):
 def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
                          impl: str = "fused", exp_impl: str = "exact",
                          silu_impl: str = "exact", a_scale=None):
-    resolve_step_impl(impl)
+    resolve_cell_impl(impl, x_t.device)
     return _step_k.selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=D,
                                         z_t=z_t, exp_impl=exp_impl,
                                         silu_impl=silu_impl, a_scale=a_scale)
@@ -74,7 +89,7 @@ def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
                            z_t=None, state_dtype: str = "int8",
                            impl: str = "fused", exp_impl: str = "exact",
                            silu_impl: str = "exact", a_scale=None):
-    resolve_step_impl(impl)
+    resolve_cell_impl(impl, x_t.device)
     return _step_k.selective_state_step_q(
         hq, h_scale, x_t, dt_t, A, B_t, C_t, D=D, z_t=z_t,
         state_dtype=state_dtype, exp_impl=exp_impl, silu_impl=silu_impl,

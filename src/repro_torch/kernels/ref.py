@@ -10,7 +10,10 @@ Layouts are ``repro``'s public ones (``repro/kernels/ref.py``): h is
 ``(b, d, n)`` and the conv state is ``(b, k-1, d)``.
 
 ``CALLS`` counts entries into each plain version, so a run on the card
-can show that the serving path never took one.
+can show that the serving path never took one.  Each version counts
+only its own entry: the plain K3 (``mamba_stacked_step``) runs the conv
+and the step through the uncounted bodies ``conv_math``, ``step_math``
+and ``step_q_math``, as the TPU kernel runs them inline.
 """
 from __future__ import annotations
 
@@ -66,11 +69,13 @@ def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
     ``repro/core/selective_scan.py:205`` does on its XLA path).  Returns
     (y (b, d) in x_t.dtype, h_new (b, d, n) f32)."""
     CALLS["selective_state_step"] += 1
-    return _step(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl,
-                 a_scale)
+    return step_math(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl,
+                     a_scale)
 
 
-def _step(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl, a_scale):
+def step_math(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl,
+              a_scale):
+    """The body of ``selective_state_step``, uncounted."""
     exp = approx.get_exp(exp_impl)
     silu = approx.get_silu(silu_impl)
     if a_scale is not None:
@@ -97,9 +102,16 @@ def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
     update; the f32 state exists only in between.  Returns
     (y (b, d), hq_new, scale_new (b, g))."""
     CALLS["selective_state_step_q"] += 1
+    return step_q_math(hq, h_scale, x_t, dt_t, A, B_t, C_t, D, z_t,
+                       state_dtype, exp_impl, silu_impl, a_scale)
+
+
+def step_q_math(hq, h_scale, x_t, dt_t, A, B_t, C_t, D, z_t, state_dtype,
+                exp_impl, silu_impl, a_scale):
+    """The body of ``selective_state_step_q``, uncounted."""
     h = state_quant.dequantize_h(hq, h_scale)
-    y, h_new = _step(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl, silu_impl,
-                     a_scale)
+    y, h_new = step_math(h, x_t, dt_t, A, B_t, C_t, D, z_t, exp_impl,
+                         silu_impl, a_scale)
     hq_new, scale_new = state_quant.quantize_h(h_new, state_dtype,
                                                prev_scale=h_scale)
     return y, hq_new, scale_new
@@ -110,6 +122,11 @@ def causal_conv1d(x, w, b=None, x_prev=None):
     w (k, d); b (d,)|None; x_prev (b, k-1, d)|None.  Returns
     (y (b, L, d) in x.dtype, new_state (b, k-1, d))."""
     CALLS["causal_conv1d"] += 1
+    return conv_math(x, w, b, x_prev)
+
+
+def conv_math(x, w, b=None, x_prev=None):
+    """The body of ``causal_conv1d``, uncounted."""
     bsz, L, d = x.shape
     k = w.shape[0]
     if x_prev is None:
@@ -121,3 +138,34 @@ def causal_conv1d(x, w, b=None, x_prev=None):
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype), xp[:, L:, :]
+
+
+def mamba_stacked_step(cfg, x0, layers, h, h_scale, conv):
+    """The whole Mamba layer stack for one decode token
+    (``repro/models/mamba_lm.py:140`` ``stacked_step``'s kernel, the
+    mamba body of ``repro/kernels/decode_step.py:413``): for each layer
+    l, norm -> ``mamba.mamba_block_megastep`` -> residual, on the
+    stacked state.
+
+    x0 (b, 1, d_model) in cfg.dtype; ``layers`` the per-layer param
+    dicts ({"norm", "mixer"}); h (L, b, d_inner, n) in the state's
+    storage dtype, h_scale (L, b, g) f32 for an int8/fp8 state (else
+    None), conv (L, b, k-1, d_inner).  Returns (x (b, 1, d_model), h,
+    h_scale or None, conv), the state stacked again."""
+    from repro_torch.models import blocks, mamba   # models import kernels
+    CALLS["mamba_stacked_step"] += 1
+    x = x0
+    hs, ss, cs = [], [], []
+    for l, lp in enumerate(layers):
+        state = {"h": h[l], "conv": conv[l]}
+        if h_scale is not None:
+            state["h_scale"] = h_scale[l]
+        xn = blocks.apply_norm(cfg, lp["norm"], x)
+        y, ns = mamba.mamba_block_megastep(cfg, lp["mixer"], xn, state)
+        x = x + y
+        hs.append(ns["h"])
+        cs.append(ns["conv"])
+        if h_scale is not None:
+            ss.append(ns["h_scale"])
+    return (x, torch.stack(hs), torch.stack(ss) if ss else None,
+            torch.stack(cs))

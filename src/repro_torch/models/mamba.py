@@ -1,6 +1,6 @@
 """Mamba block (Gu & Dao 2023): the port of ``repro/models/mamba.py``
-(block apply :103, step :131, state init :280), with f32 or int8
-weights and f32, bf16, int8 or fp8 pooled state.
+(block apply :103, step :131, megastep :173, state init :280), with f32
+or int8 weights and f32, bf16, int8 or fp8 pooled state.
 
 Per block: in_proj -> [x | z] -> causal depthwise conv (CUDA kernel) ->
 SiLU -> x_proj -> (dt, B, C) -> softplus(dt_proj) -> selective scan at
@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import approx, state_quant, weight_quant
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import blocks
 
 
@@ -150,6 +150,35 @@ def mamba_block_step(cfg, p, x_t, state):
         silu_impl=cfg.silu_impl, a_scale=a_scale)
     out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
     return out, {**write_state_h(cfg, h), "conv": new_conv}
+
+
+def mamba_block_megastep(cfg, p, x_t, state):
+    """``mamba_block_step`` as the body of the cross-layer megakernel's
+    plain version (``kernels.ref.mamba_stacked_step``): the same
+    signature and the same values, bit for bit on the CPU, with the conv
+    tail and the S6 step run inline through the plain versions' uncounted
+    bodies, as ``repro``'s megastep runs its reference conv and cell
+    inside the launch.  K3 (``csrc/megakernel_mamba.cu``) computes this
+    chain on the card."""
+    silu = approx.get_silu(cfg.silu_impl)
+    x_in, z = _project(cfg, p, x_t)                       # (b, 1, di)
+    x_c, new_conv = ref.conv_math(x_in, p["conv_w"], p["conv_b"],
+                                  x_prev=state["conv"])
+    x_a = silu(x_c)
+    dt, B, C = _ssm_inputs(cfg, p, x_a)
+    A, a_scale = _a_and_scale(p)
+    step = (x_a[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], p["D"], z[:, 0])
+    if state_quant.is_quantized(cfg.state_dtype):
+        y, hq, scale = ref.step_q_math(
+            state["h"], state["h_scale"], *step, cfg.state_dtype,
+            cfg.exp_impl, cfg.silu_impl, a_scale)
+        new_state = {"h": hq, "h_scale": scale}
+    else:
+        y, h = ref.step_math(read_state_h(cfg, state), *step, cfg.exp_impl,
+                             cfg.silu_impl, a_scale)
+        new_state = write_state_h(cfg, h)
+    out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
+    return out, {**new_state, "conv": new_conv}
 
 
 def mamba_state_init(cfg, batch, dtype, device):

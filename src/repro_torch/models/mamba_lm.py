@@ -7,13 +7,19 @@ port keeps one dict per layer in a list (``p["layers"][l]``) and loops
 in Python, while the decode cache keeps ``repro``'s stacked layout:
 h (L, b, di, n), conv (L, b, k-1, di), pos (b,) int32, and with an
 int8/fp8 state the group scales h_scale (L, b, g) f32.
+
+A decode step runs per layer (``step_impl`` "fused": two kernel launches
+per layer, the conv and the step) or as one launch of the cross-layer
+kernel K3 for the whole stack (``stacked_step``, "megakernel", which
+reads the layers through ``p["stack"]`` from
+``registry.stack_params``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import state_quant
-from repro_torch.kernels import ops
+from repro_torch.kernels import megakernel, ops
 from repro_torch.models import blocks, mamba
 
 
@@ -107,8 +113,30 @@ def prefill(cfg, p, cache, batch):
     return _logits(cfg, p, h), _stack(cfg, states, pos)
 
 
+def stacked_step(cfg, p, cache, batch):
+    """Single-token decode as ONE kernel launch for the whole stack
+    (``repro/models/mamba_lm.py:140``): embed, K3 over every layer
+    (norm -> ``mamba.mamba_block_megastep`` -> residual, on the stacked
+    cache), then the final norm and the tied unembed in PyTorch."""
+    if "stack" not in p:
+        raise ValueError(
+            "step_impl='megakernel' decodes from the stacked layers: build "
+            "them once with registry.stack_params(cfg, params)")
+    x0 = blocks.embed_apply(cfg, p["embed"], batch["tokens"], _dtype(cfg))
+    x, h, h_scale, conv = megakernel.mamba_stacked_step(
+        cfg, x0, p["stack"], cache["h"], cache.get("h_scale"),
+        cache["conv"])
+    out = {"h": h, "conv": conv, "pos": cache["pos"] + 1}
+    if h_scale is not None:
+        out["h_scale"] = h_scale
+    return _logits(cfg, p, x), out
+
+
 def decode_step(cfg, p, cache, batch):
     """One token for every slot: (logits (b, 1, V), new cache)."""
+    if ops.resolve_step_impl(cfg.step_impl,
+                             batch["tokens"].device) == "megakernel":
+        return stacked_step(cfg, p, cache, batch)
     h = blocks.embed_apply(cfg, p["embed"], batch["tokens"], _dtype(cfg))
     states = []
     for l, lp in enumerate(p["layers"]):

@@ -4,6 +4,8 @@ Other families raise ``NotImplementedError`` (ROADMAP A9-A11).
 
   init_params(cfg, seed, device) -> param tree (nested dicts of tensors)
   quantize_params(cfg, params) -> the int8 + scale tree (weight_dtype)
+  stack_params(cfg, params) -> the tree with the megakernel's stacked
+      view of its layers (built once per engine)
   forward / prefill / decode_step(cfg, params, ...) -> (logits, ...)
   init_cache(cfg, batch, max_seq, dtype, device) -> decode cache
   gather_slots / scatter_slots / mask_slots -> the serving engine's
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import weight_quant
+from repro_torch.kernels import megakernel
 from repro_torch.models import mamba_lm
 
 _FAMILIES = {"mamba": mamba_lm}
@@ -65,6 +68,16 @@ def quantize_params(cfg, params):
     if not weight_quant.is_quantized(cfg.weight_dtype):
         return params
     return weight_quant.quantize_tree(params)
+
+
+def stack_params(cfg, params):
+    """``params`` with ``"stack"``: the layers as the cross-layer decode
+    kernel (K3, ``step_impl="megakernel"``) reads them, a
+    ``megakernel.MambaStack`` over the same tensors (no weight is
+    copied).  ``repro`` holds its layers stacked on a leading L axis; the
+    port keeps per-layer dicts and builds this once per engine, after the
+    tree has moved to its device, never per token."""
+    return {**params, "stack": megakernel.MambaStack(cfg, params["layers"])}
 
 
 def init_cache(cfg, batch, max_seq, dtype=None, device="cpu"):

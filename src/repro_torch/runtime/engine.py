@@ -21,11 +21,16 @@ master (``prefill_params``), as ``repro``'s engine does; both live on
 the device.  ``state_dtype`` "int8"/"fp8" stores the pooled state as
 codes with f32 group scales.
 
-Not ported yet (ROADMAP A8, K3, A13): speculative decoding (``draft``),
+``step_impl="megakernel"`` (and "auto" on the card) decodes each token
+of the pool with one launch of the cross-layer kernel K3; the engine
+builds K3's stacked view of the decode weights once, when it is made
+(``registry.stack_params``).  "fused" (and "auto" on the CPU) runs the
+per-layer conv and step kernels.
+
+Not ported yet (ROADMAP A7, A8, A13): speculative decoding (``draft``),
 the prefix cache, tensor-parallel serving (``mesh``), best-of-n
-(``n > 1``), the megakernel and infinite-stream sessions.  The first
-four raise ``NotImplementedError`` here; the megakernel raises in
-``kernels/ops.py``.
+(``n > 1``) and infinite-stream sessions.  The first four raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -66,9 +71,11 @@ class EngineConfig:
     # sooner than the next certain eviction
     sched_quantum: int = 8
     # overrides of the model config (None keeps cfg's setting):
-    # step_impl auto | fused | pallas | xla all run the fused step
-    # kernel; state_dtype "f32" | "bf16" | "int8" | "fp8"; weight_dtype
-    # "f32" | "int8" (int8 quantizes the handed-in f32 tree for decode)
+    # step_impl megakernel (auto on the card) | fused | pallas | xla
+    # (fused, pallas and xla run the per-layer step kernel; so does auto
+    # on the CPU); state_dtype "f32" | "bf16" | "int8" | "fp8";
+    # weight_dtype "f32" | "int8" (int8 quantizes the handed-in f32 tree
+    # for decode)
     step_impl: Optional[str] = None
     state_dtype: Optional[str] = None
     weight_dtype: Optional[str] = None
@@ -123,9 +130,10 @@ class Engine:
             cfg = dataclasses.replace(cfg, step_impl=ecfg.step_impl)
         if ecfg.state_dtype is not None:
             cfg = dataclasses.replace(cfg, state_dtype=ecfg.state_dtype)
-        ops.resolve_step_impl(cfg.step_impl)      # raises on megakernel
         ecfg.default_params.validate()
         self.device = resolve_device(ecfg.device)
+        stack = ops.resolve_step_impl(cfg.step_impl,
+                                      self.device) == "megakernel"
         prefill_params = params
         if ecfg.weight_dtype is not None:
             already = weight_quant.is_quantized(cfg.weight_dtype)
@@ -141,6 +149,9 @@ class Engine:
         self.prefill_params = (self.params if prefill_params is params
                                else registry.tree_to(prefill_params,
                                                      self.device))
+        if stack:
+            # K3's view of the decode layers: built once, here
+            self.params = registry.stack_params(cfg, self.params)
         self.ecfg = ecfg
         self.pool = SlotStatePool(cfg, ecfg.n_slots, ecfg.max_seq,
                                   device=self.device)

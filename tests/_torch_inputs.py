@@ -102,3 +102,30 @@ def assert_q_close(got, want, y_tol, label=""):
     diff = (code_ordinals(q1.cpu()) - code_ordinals(q0.cpu())).abs()
     apart = int(diff.max())
     assert apart <= 1, f"{label}: payloads {apart} codes apart"
+
+
+def stacked_inputs(cfg, slots, seed=0, device="cpu"):
+    """One K3 call's inputs at cfg's shapes: the weights made from
+    ``seed`` (int8 when cfg.weight_dtype is) with their stacked view, x0
+    (slots, 1, d_model) in cfg.dtype, the stacked state h (+ h_scale for
+    an int8/fp8 state) and conv tail.  Slot 0 is a fresh slot: zero
+    state, zero scales.  Returns (params, x0, h, h_scale or None, conv)."""
+    from repro_torch.core import state_quant
+    from repro_torch.models import registry
+    params = registry.stack_params(
+        cfg, registry.init_params(cfg, seed=seed, device=device))
+    dt = getattr(torch, cfg.dtype)
+    L, di, n, k = cfg.n_layers, cfg.d_inner, cfg.d_state, cfg.d_conv
+    x0 = torch.from_numpy(np_input(seed + 1, slots, 1, cfg.d_model))
+    h = torch.from_numpy(np_input(seed + 2, L, slots, di, n)) * 0.5
+    h[:, 0] = 0.0
+    conv = torch.from_numpy(np_input(seed + 3, L, slots, k - 1, di))
+    h_scale = None
+    if state_quant.is_quantized(cfg.state_dtype):
+        h, h_scale = state_quant.quantize_h(h, cfg.state_dtype)
+        h_scale[:, 0] = 0.0
+        h_scale = h_scale.to(device)
+    else:
+        h = h.to(state_quant.storage_dtype(cfg.state_dtype))
+    return (params, x0.to(device, dt), h.to(device), h_scale,
+            conv.to(device, dt))

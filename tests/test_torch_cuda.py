@@ -13,9 +13,9 @@ from repro_torch.kernels import decode_step as tstep
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
-from _torch_inputs import (VARIANTS, assert_q_close, close, np_input,
-                           q_step_tensors, scan_arrays, scan_call,
-                           step_arrays, to_torch)
+from _torch_inputs import (VARIANTS, assert_q_close, close, code_ordinals,
+                           np_input, q_step_tensors, scan_arrays, scan_call,
+                           stacked_inputs, step_arrays, to_torch)
 
 
 @pytest.fixture
@@ -155,3 +155,131 @@ def encode_sweep(state_dtype, slots, d):
     # every (slot, group) holds qmax, so every scale is exactly 1
     vals[:, state_quant.D_BLOCK - 1::state_quant.D_BLOCK] = qm
     return vals
+
+
+# ---------------------------------------------------------------------------
+# K3, the cross-layer megakernel, against its plain version
+# ---------------------------------------------------------------------------
+
+def _mega_cfg(d_model, n_layers, dtype, weight_dtype, state_dtype,
+              exp_impl="exact", silu_impl="exact"):
+    """mamba-130m's structure at another width: d_model 64 (the smoke
+    width) or 550 (d_inner 1100 and dt_rank 35: no multiple of 32 and a
+    ragged third scale group)."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(
+        configs.get_config("mamba-130m"), n_layers=n_layers,
+        d_model=d_model, dt_rank=-(-d_model // 16), vocab=64, dtype=dtype,
+        weight_dtype=weight_dtype, state_dtype=state_dtype,
+        exp_impl=exp_impl, silu_impl=silu_impl)
+
+
+def _mega_close(cfg, got, want, tol, label):
+    """K3 against its plain version.  f32: x, the conv tail and an f32
+    state within ``tol``, a bf16 state within a bf16 step (8e-3), an
+    int8/fp8 state within one code with its scales to 1e-5 relative (the
+    sums over d_inner run in another order, so a value on a rounding
+    boundary moves one code, and a group's absmax by a few f32 ulps over
+    the layers).  bf16: a rounding that falls the other way moves what
+    follows by a bf16 step, and the error of x + y is one of the larger
+    operand, so values are held to ``tol`` of themselves plus ``tol`` of
+    the largest value; an int8/fp8 state's scales to 3e-2 and its
+    dequantized values as the others plus one code (1/127 of the largest
+    value for int8, one e4m3 step, 1/8 of the value, for fp8)."""
+    (x1, h1, s1, c1), (x0, h0, s0, c0) = got, want
+    bf16 = cfg.dtype == "bfloat16"
+
+    def near(a, b, t):
+        b = b.cpu().float()
+        at = t * float(b.abs().max()) if bf16 else t
+        torch.testing.assert_close(a.cpu().float(), b, rtol=t, atol=at,
+                                   msg=lambda m: f"{label}: {m}")
+
+    near(x1, x0, tol)
+    near(c1, c0, tol)
+    if cfg.state_dtype == "f32":
+        near(h1, h0, tol)
+    elif cfg.state_dtype == "bf16":
+        near(h1, h0, max(tol, 8e-3))
+    elif bf16:
+        from repro_torch.core import state_quant
+        rel = ((s1 - s0).abs() / s0.abs().clamp_min(1e-30)).max()
+        assert float(rel) <= 3e-2, f"{label}: scales {float(rel):.2e}"
+        d1 = state_quant.dequantize_h(h1, s1).cpu()
+        d0 = state_quant.dequantize_h(h0, s0).cpu()
+        top = float(d0.abs().max())
+        fp8 = cfg.state_dtype == "fp8"
+        torch.testing.assert_close(
+            d1, d0, rtol=tol + (0.125 if fp8 else 0.0),
+            atol=tol * top + (0.0 if fp8 else top / 127),
+            msg=lambda m: f"{label}: {m}")
+    else:
+        rel = ((s1 - s0).abs() / s0.abs().clamp_min(1e-30)).max()
+        assert float(rel) <= 1e-5, f"{label}: scales {float(rel):.2e}"
+        apart = (code_ordinals(h1.cpu()) - code_ordinals(h0.cpu())).abs()
+        assert int(apart.max()) <= 1, f"{label}: codes {int(apart.max())}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("weight_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("d_model,slots", [(64, 3), (550, 6)])
+def test_cuda_megakernel_matches_plain(cuda, state_dtype, weight_dtype,
+                                       dtype, tol, d_model, slots):
+    """K3 at 2-4 layers against ref.mamba_stacked_step on the card; 6
+    slots take two passes of the kernel's 4-slot staging."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.kernels import megakernel
+    cfg = _mega_cfg(d_model, 4 if d_model == 64 else 2, dtype,
+                    weight_dtype, state_dtype)
+    p, x0, h, h_scale, conv = stacked_inputs(cfg, slots, seed=d_model,
+                                             device=cuda)
+    counts = dispatch_count.launch_counts(
+        megakernel.mamba_stacked_step, cfg, x0, p["stack"], h, h_scale,
+        conv)
+    assert sum(counts.values()) == 1 and not any(
+        k.startswith("plain") for k in counts), counts
+    got = megakernel.mamba_stacked_step(cfg, x0, p["stack"], h, h_scale,
+                                        conv)
+    want = ref.mamba_stacked_step(cfg, x0, p["stack"].layers, h, h_scale,
+                                  conv)
+    torch.cuda.synchronize()
+    _mega_close(cfg, got, want, tol, f"{dtype} {weight_dtype} "
+                f"{state_dtype}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exp_impl,silu_impl", VARIANTS[1:])
+def test_cuda_megakernel_approx_variants(cuda, exp_impl, silu_impl):
+    """MARCA's fast exp and piecewise SiLU inside K3, f32 (they run in
+    the S6 step, the conv epilogue's SiLU and the gate)."""
+    from repro_torch.kernels import megakernel
+    for sd in ("f32", "int8"):
+        cfg = _mega_cfg(64, 3, "float32", "f32", sd, exp_impl, silu_impl)
+        p, x0, h, h_scale, conv = stacked_inputs(cfg, 4, seed=5,
+                                                 device=cuda)
+        got = megakernel.mamba_stacked_step(cfg, x0, p["stack"], h,
+                                            h_scale, conv)
+        want = ref.mamba_stacked_step(cfg, x0, p["stack"].layers, h,
+                                      h_scale, conv)
+        torch.cuda.synchronize()
+        _mega_close(cfg, got, want, 1e-4, f"{exp_impl}/{silu_impl} {sd}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["f32", "int8"])
+def test_cuda_megakernel_repeats_bitwise(cuda, state_dtype):
+    """No float atomics and sums in a fixed order: the same inputs give
+    the same bits, launch after launch."""
+    from repro_torch.kernels import megakernel
+    cfg = _mega_cfg(550, 2, "bfloat16", "int8", state_dtype)
+    p, x0, h, h_scale, conv = stacked_inputs(cfg, 5, seed=1, device=cuda)
+    a = megakernel.mamba_stacked_step(cfg, x0, p["stack"], h, h_scale, conv)
+    b = megakernel.mamba_stacked_step(cfg, x0, p["stack"], h, h_scale, conv)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert (u is None and v is None) or torch.equal(
+            u.view(torch.uint8), v.view(torch.uint8))

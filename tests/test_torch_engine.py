@@ -384,9 +384,9 @@ def test_entry_points_run_on_cuda_unless_asked_for_cpu(model):
                                   "weight_int8", "megakernel",
                                   "int8_state", "fp8_state"])
 def test_unported_features_raise(model, what):
-    """What is not ported raises NotImplementedError; int8 weights and
-    int8/fp8 state, which did before they were ported, now build an
-    engine that serves a request."""
+    """What is not ported raises NotImplementedError; int8 weights,
+    int8/fp8 state and the megakernel, which did before they were
+    ported, now build an engine that serves a request."""
     _, tcfg, _, tp = model
     ecfg = EngineConfig(device=CPU, n_slots=2, max_seq=64)
     if what in ("draft", "prefix_cache", "mesh"):
@@ -402,14 +402,13 @@ def test_unported_features_raise(model, what):
         with pytest.raises(NotImplementedError):
             eng.submit(np.arange(4), tsampling.SamplingParams(n=2))
         return
-    if what in ("weight_int8", "int8_state", "fp8_state"):
+    if what in ("weight_int8", "int8_state", "fp8_state", "megakernel"):
         eng = Engine(tcfg, tp, ecfg)
         r = eng.submit(np.arange(4), max_new=3)
         eng.run()
         assert r.finished and len(r.tokens) == 3
         return
-    with pytest.raises(NotImplementedError, match="K3" if what ==
-                       "megakernel" else "not ported"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         Engine(tcfg, tp, ecfg)
 
 

@@ -190,8 +190,8 @@ def test_ops_dispatch_names_and_unported_impls():
     assert ops.resolve_step_impl("auto") == "fused"
     for name in ("fused", "pallas", "xla"):
         assert ops.resolve_step_impl(name) == "fused"
-    with pytest.raises(NotImplementedError, match="K3"):
-        ops.resolve_step_impl("megakernel")
+    # the cross-layer megakernel (K3) is ported: it resolves, never raises
+    assert ops.resolve_step_impl("megakernel") == "megakernel"
     assert ops.storage_dtype("int8") == torch.int8
     assert ops.storage_dtype("fp8") == torch.float8_e4m3fn
     assert ops.storage_dtype("bf16") == torch.bfloat16
