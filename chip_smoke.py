@@ -38,7 +38,31 @@ Phases, each fatal on failure:
 5. time each kernel on the card (device time from a CUDA graph replay, and
    eager per-call time) beside its bound, its plain version
    and (for the conv) ``F.conv1d``, and the whole decode step through K3
-   against the per-layer one, then print one JSON line of kernels.
+   against the per-layer one;
+
+then the same for jamba-v0.1-52b at full width (d_model 4096, 16
+experts) with its depth cut from 32 layers to one group of 8, whose
+weights (53 GB in f32) are drawn on the card from a seeded CUDA
+generator:
+
+2j. the flash attention kernel (K7) against its plain version at b=1,
+   32 query and 8 KV heads of 128, L 64/127/512 and a suffix case, f32
+   and bf16; K3's jamba instance (mamba block + MLP per position) at
+   full width, 4 slots, one and four positions, f32 and bf16, f32 or
+   int8 weights, f32, int8 or fp8 state, its inputs made by the card
+   tests' builder (``tests/_torch_inputs.py``); one launch repeated bit
+   for bit;
+3j. the dense variant (n_experts 0, 8 layers) in f32, prefill 127 + 8
+   decode steps, on the card per layer and through K3 against the CPU,
+   f32 and int8 weights with int8 state and int8 KV;
+4j. serve the 16-expert model three times with mamba's traffic and
+   phase 4's checks: per layer (f32) and through K3 (``"auto"``, f32)
+   via ``Server``, through K3 via ``Engine`` (int8 weights, int8 state,
+   int8 KV);
+5j. time K7 beside SDPA and its bound, K3-jamba, and the whole jamba
+   decode step through K3 against the per-layer one;
+
+and print one JSON line of every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
@@ -494,28 +518,31 @@ def phase_kernels(cfg, dev):
     return serving
 
 
-# (weights, state, logits tolerance, why): each run of phase 3
+# (weights, state, kv cache, logits tolerance, why): each run of phase 3
 MODEL_RUNS = (
-    ("f32", "f32", 2e-3,
+    ("f32", "f32", "model", 2e-3,
      "f32 throughout; the kernels sum in another order and nvcc contracts "
      "multiply-adds, over 24 layers"),
-    ("int8", "f32", 2e-3,
-     "as f32: the weights are quantized once on the CPU and moved, so both "
-     "paths read the same codes and dequantize with the same multiply"),
-    ("int8", "int8", 2e-2,
+    ("int8", "f32", "model", 2e-3,
+     "as f32: the weights are quantized once and moved, so both paths read "
+     "the same codes and dequantize with the same multiply"),
+    ("int8", "int8", "model", 2e-2,
      "a state value on a rounding boundary may land one code (1/127 of its "
      "group's absmax) apart on the card, and that code feeds every later "
      "step and layer"),
-    ("f32", "fp8", 2e-2,
+    ("f32", "fp8", "model", 2e-2,
      "as int8 state, with e4m3 codes (a step of 1/16 to 1/8 of the value)"),
 )
 
 
-def phase_model(cfg, dev):
-    """Full-width f32 model: the kernel path on the card, per layer and
-    through K3, against the plain path on the CPU, same weights, same
-    tokens (teacher-forced), for each setup of MODEL_RUNS.  The K3 rows
-    must also agree on every greedy token."""
+def phase_model(name, cfg, p32, runs, dev, ssm_state):
+    """A full-width f32 model: the kernel path on the card, per layer and
+    through K3, against the plain path on the CPU, on the same weights
+    (``p32`` quantized per run, then copied to each side) and tokens
+    (teacher-forced): prefill 127 + 8 decode steps, for each (weights,
+    state, kv cache, tolerance, why) of ``runs``.  ``ssm_state(cache)``
+    is the final SSM state compared (mamba: every layer; jamba: position
+    0).  The K3 rows must also agree on every greedy token."""
     import dataclasses
     from repro_torch.core import state_quant
     from repro_torch.data.pipeline import SyntheticLM
@@ -524,15 +551,16 @@ def phase_model(cfg, dev):
     toks = torch.as_tensor(SyntheticLM(cfg.vocab, lp + steps, seed=2)
                            .batch_at(0, 0, 1, 1)["tokens"], dtype=torch.int64)
     cpu = torch.device("cpu")
-    for wd, sd, tol, why in MODEL_RUNS:
+    for wd, sd, kv, tol, why in runs:
         c = dataclasses.replace(cfg, dtype="float32", weight_dtype=wd,
-                                state_dtype=sd)
-        params = registry.init_params(c, seed=SEED)
-        runs = {}
-        for where, impl in ((dev, "fused"), (dev, "megakernel"),
-                            (cpu, "fused")):
+                                state_dtype=sd, kv_cache_dtype=kv)
+        p_dev = registry.tree_to(registry.quantize_params(c, p32), dev)
+        p_cpu = registry.tree_to(p_dev, cpu)
+        out_of = {}
+        for side, where, impl, p in (("card", dev, "fused", p_dev),
+                                     ("card", dev, "megakernel", p_dev),
+                                     ("cpu", cpu, "fused", p_cpu)):
             ci = dataclasses.replace(c, step_impl=impl)
-            p = registry.tree_to(params, where)
             if impl == "megakernel":
                 p = registry.stack_params(ci, p)
             t = toks.to(where)
@@ -546,16 +574,17 @@ def phase_model(cfg, dev):
                     ci, p, cache, {"tokens": t[:, lp + s:lp + s + 1]})
                 out.append(logits[0])
             out = torch.cat(out).cpu()
-            log(f"  {wd} weights, {sd} state, {where.type} {impl}: prefill "
-                f"{lp} + {steps} decode steps in "
+            log(f"  {name} {wd} weights, {sd} state, {kv} kv, {side} "
+                f"{impl}: prefill {lp} + {steps} decode steps in "
                 f"{time.perf_counter() - t0:.2f} s")
-            runs[where.type, impl] = (out, {k: v.cpu()
-                                            for k, v in cache.items()})
-        lc, cc = runs["cpu", "fused"]
-        log(f"  model {wd} weights {sd} state: logits held to {tol:g}: {why}")
+            out_of[side, impl] = (
+                out, ssm_state(registry.tree_to(cache, cpu)))
+        lc, cc = out_of["cpu", "fused"]
+        log(f"  {name} {wd} weights {sd} state {kv} kv: logits held to "
+            f"{tol:g}: {why}")
         for impl, suffix in (("fused", ""), ("megakernel", " K3")):
-            lg, cg = runs["cuda", impl]
-            tag = f"model {wd} weights {sd} state{suffix}"
+            lg, cg = out_of["card", impl]
+            tag = f"{name} {wd} w {sd} state {kv} kv{suffix}"
             check(f"{tag} logits (card vs CPU)", lg, lc, tol, tol)
             if state_quant.is_quantized(sd):
                 hg = state_quant.dequantize_h(cg["h"], cg["h_scale"])
@@ -580,48 +609,61 @@ def phase_model(cfg, dev):
                 f"{'' if impl == 'fused' else ('ok' if ok else 'FAIL')}")
             if not ok:
                 FAILURES.append(f"{tag} greedy agreement")
+        del p_dev, p_cpu, out_of
 
 
-# (weights, state, expected state_bytes_per_slot, decode kernel served,
-# step_impl): each run of phase 4; bytes per slot at mamba-130m, 24
-# layers: h 24 x 1536 x 16 x 4 (f32) or x 1 (int8) + h_scale 24 x 3 x 4
-# (int8) + conv 24 x 3 x 1536 x 2 (bf16) + pos 4.  The f32 runs go through
-# Server (whose ServeConfig has no weight or step switch, as in repro), so
-# their step_impl is the model config's: "auto" is K3 on the card.
-SERVE_RUNS = (("f32", "f32", 2580484, "decode_step", "fused"),
-              ("int8", "int8", 811300, "decode_step_q", "fused"),
-              ("int8", "f32", 2580484, "decode_step_int8a", "fused"),
-              ("f32", "f32", 2580484, "mamba_stacked_step", "auto"),
-              ("int8", "int8", 811300, "mamba_stacked_step_q_int8a",
-               "megakernel"))
+# The launches a served model makes: each of its "ssm" sublayers runs
+# the scan and the prefill conv, each "attn" sublayer K7, once per
+# admission; a decode step runs the conv and step kernels of every SSM
+# sublayer per layer, or through K3 "k3" launches plus the conv and step
+# kernels of the "k3_rest" SSM positions K3 leaves per sublayer
+# (jamba-v0.1's plan: 3 runs, and the 4 MoE positions).
+MAMBA = {"name": "mamba-130m", "ssm": 24, "attn": 0, "k3": 1, "k3_rest": 0}
+SERVE_MAX_SEQ = 576
+
+# (weights, state, kv cache, expected state_bytes_per_slot, the per-layer
+# decode kernel, the K3 kernel or None, step_impl): each run of phase 4;
+# bytes per slot at mamba-130m, 24 layers: h 24 x 1536 x 16 x 4 (f32) or
+# x 1 (int8) + h_scale 24 x 3 x 4 (int8) + conv 24 x 3 x 1536 x 2 (bf16)
+# + pos 4.  The f32 runs go through Server (whose ServeConfig has no
+# weight or step switch, as in repro), so their step_impl is the model
+# config's: "auto" is K3 on the card.
+SERVE_RUNS = (
+    ("f32", "f32", "model", 2580484, "decode_step", None, "fused"),
+    ("int8", "int8", "model", 811300, "decode_step_q", None, "fused"),
+    ("int8", "f32", "model", 2580484, "decode_step_int8a", None, "fused"),
+    ("f32", "f32", "model", 2580484, "decode_step", "mamba_stacked_step",
+     "auto"),
+    ("int8", "int8", "model", 811300, "decode_step_q",
+     "mamba_stacked_step_q_int8a", "megakernel"))
 
 
-def phase_serve(cfg, dev, card, weight_dtype, state_dtype, want_spb,
-                served, step_impl):
-    """bf16 serving with launch counts: the f32 setup through ``Server``,
-    the others through ``Engine``; every kernel count is set to 0 just
-    before the measured run and read just after.  Returns the counts and
-    the requests' tokens."""
+def phase_serve(model, cfg, params, run, dev, card):
+    """bf16 serving of ``model`` with launch counts: 9 requests on 4
+    slots, the f32 setup through ``Server``, the others through
+    ``Engine``; every kernel count is set to 0 just before the measured
+    run and read just after, and held to ``model``'s launches per
+    admission and decode step.  Returns the counts and the requests'
+    tokens."""
     import dataclasses
     from repro_torch.core import dispatch_count
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import registry
     from repro_torch.runtime.engine import Engine, EngineConfig
     from repro_torch.runtime.metrics import ServeStats
     from repro_torch.runtime.sampling import SamplingParams
     from repro_torch.runtime.serve import ServeConfig, Server
+    wd, sd, kv, want_spb, step_k, k3_k, impl = run
+    name = model["name"]
     max_new, lens = 32, (64, 127, 256, 512)
-    max_seq = max(lens) + max_new + 8
-    params = registry.init_params(cfg, seed=SEED)
-    if weight_dtype == "f32" and state_dtype == "f32":
-        srv = Server(dataclasses.replace(cfg, step_impl=step_impl), params,
-                     ServeConfig(batch_slots=4, max_seq=max_seq,
-                                 device="cuda"))
-        eng = srv.engine
+    if (wd, sd, kv) == ("f32", "f32", "model"):
+        eng = Server(dataclasses.replace(cfg, step_impl=impl), params,
+                     ServeConfig(batch_slots=4, max_seq=SERVE_MAX_SEQ,
+                                 device=str(dev))).engine
     else:
         eng = Engine(cfg, params, EngineConfig(
-            n_slots=4, max_seq=max_seq, weight_dtype=weight_dtype,
-            state_dtype=state_dtype, step_impl=step_impl, device="cuda"))
+            n_slots=4, max_seq=SERVE_MAX_SEQ, weight_dtype=wd,
+            state_dtype=sd, kv_cache_dtype=kv, step_impl=impl,
+            device=str(dev)))
     warm = SyntheticLM(cfg.vocab, 16, seed=3).batch_at(0, 0, 1, 2)["tokens"]
     for row in warm:                               # cuBLAS and library init
         eng.submit(row, max_new=4)
@@ -639,51 +681,80 @@ def phase_serve(cfg, dev, card, weight_dtype, state_dtype, want_spb,
     snap = dispatch_count.snapshot()
     counts = {k: snap[k] for k in dispatch_count.COUNTERS}
     s = eng.stats
-    L = cfg.n_layers
-    per_layer = step_impl == "fused"
+    n_step = model["ssm" if k3_k is None else "k3_rest"] * s.decode_steps
     want = {k: 0 for k in counts}
-    want["selective_scan"] = L * s.prefill_calls
-    want["causal_conv1d"] = L * (s.prefill_calls
-                                 + (s.decode_steps if per_layer else 0))
-    want[served] = (L if per_layer else 1) * s.decode_steps
-    log(f"  {weight_dtype} weights, {state_dtype} state, step_impl "
-        f"{step_impl!r}: admissions {s.prefill_calls}, pooled decode steps "
-        f"{s.decode_steps}")
-    for name in counts:
-        ok = counts[name] == want[name] and (counts[name] > 0) == (
-            want[name] > 0)
-        log(f"  launches {name:<26} {counts[name]:>6} (expected "
-            f"{want[name]})  {'ok' if ok else 'FAIL'}")
+    want["selective_scan"] = model["ssm"] * s.prefill_calls
+    want["flash_attention"] = model["attn"] * s.prefill_calls
+    want["causal_conv1d"] = model["ssm"] * s.prefill_calls + n_step
+    want[step_k] = n_step
+    if k3_k:
+        want[k3_k] = model["k3"] * s.decode_steps
+    setup = f"{wd} weights, {sd} state, {kv} kv, step_impl {impl!r}"
+    log(f"  {name}, {setup}: admissions {s.prefill_calls}, pooled decode "
+        f"steps {s.decode_steps}")
+    for k in counts:
+        ok = counts[k] == want[k]
+        log(f"  launches {k:<26} {counts[k]:>6} (expected {want[k]})  "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            FAILURES.append(f"launch count {name} ({weight_dtype} weights, "
-                            f"{state_dtype} state, {step_impl})")
+            FAILURES.append(f"{name} launch count {k} ({setup})")
     if s.decode_steps == 0:
-        FAILURES.append("no decode step ran")
+        FAILURES.append(f"{name}: no decode step ran")
     plain = sum(v for k, v in snap.items() if k.startswith("plain "))
     log(f"  plain-version calls during serving: {plain}  "
         f"{'ok' if plain == 0 else 'FAIL'}")
     if plain:
-        FAILURES.append("plain versions ran on the card")
+        FAILURES.append(f"{name}: plain versions ran on the card")
     spb = eng.pool.state_bytes_per_slot()
     ok = spb == want_spb
     log(f"  state_bytes_per_slot {spb} (expected {want_spb}), slots per GiB "
         f"{eng.pool.slots_per_gb():.1f}  {'ok' if ok else 'FAIL'}")
     if not ok:
-        FAILURES.append(f"state_bytes_per_slot ({state_dtype} state)")
+        FAILURES.append(f"{name} state_bytes_per_slot ({setup})")
     good = all(r.finished and len(r.tokens) == max_new
                and all(0 <= t < cfg.vocab for t in r.tokens) for r in reqs)
     log(f"  9 requests finished with {max_new} in-vocab tokens each: "
         f"{'ok' if good else 'FAIL'}")
     if not good:
-        FAILURES.append("serve outputs")
+        FAILURES.append(f"{name} serve outputs ({setup})")
     smry = s.summary()
-    log(f"  serve bf16, {weight_dtype} weights, {state_dtype} state, "
-        f"{step_impl} on {card}: {smry['useful_tokens']} tokens in "
-        f"{smry['wall_s']:.3f} s = {smry['tokens_per_s']:.1f} tok/s; TTFT "
-        f"mean {smry['ttft_mean_s'] * 1e3:.1f} ms, p95 "
+    log(f"  serve {name} bf16, {setup} on {card}: {smry['useful_tokens']} "
+        f"tokens in {smry['wall_s']:.3f} s = {smry['tokens_per_s']:.1f} "
+        f"tok/s; TTFT mean {smry['ttft_mean_s'] * 1e3:.1f} ms, p95 "
         f"{smry['ttft_p95_s'] * 1e3:.1f} ms; TPOT mean "
-        f"{smry['tpot_mean_s'] * 1e3:.2f} ms")
+        f"{smry['tpot_mean_s'] * 1e3:.2f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return counts, [r.tokens for r in reqs]
+
+
+def phase_serves(num, model, cfg, params, runs, dev, card, counts) -> bool:
+    """Phase ``num``: each serve run of ``runs``.  Keeps in ``counts`` each
+    kernel's launches from the first run that launched it (the run that
+    serves it), prints each K3 run's token agreement with the per-layer
+    run of its setup, and stops at the first failed run."""
+    streams = {}
+    for i, run in enumerate(runs):
+        wd, sd, kv, impl = run[0], run[1], run[2], run[6]
+        log(f"== phase {num}.{i + 1}: serve {model['name']} bf16, {wd} "
+            f"weights, {sd} state, {kv} kv, step_impl {impl!r}")
+        got, streams[wd, sd, kv, impl] = phase_serve(model, cfg, params,
+                                                     run, dev, card)
+        torch.cuda.empty_cache()
+        for k, v in got.items():
+            if v and not counts.get(k):
+                counts[k] = v
+        fused = streams.get((wd, sd, kv, "fused"))
+        if impl != "fused" and fused:
+            mega = streams[wd, sd, kv, impl]
+            same = sum(a == b for f, m in zip(fused, mega)
+                       for a, b in zip(f, m))
+            total = sum(len(f) for f in fused)
+            log(f"  token agreement with the per-layer run of this setup: "
+                f"{same}/{total} = {same / total:.4f} (printed; greedy "
+                f"streams in bf16 diverge after the first differing token)")
+        if not phase_ok():
+            return False
+    return True
 
 
 def time_ms(fn, iters):
@@ -719,10 +790,11 @@ def device_ms(fn, reps):
     return time_ms(graph.replay, 20) / reps
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, flops=F32_FLOPS):
     """Least time for the work: the bytes over the HBM rate against the
-    operations over the f32 peak; returns (ms, "bytes"|"operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    operations over the peak of their type (f32 unless ``flops`` says);
+    returns (ms, "bytes"|"operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -777,12 +849,14 @@ def device_time(fn, reps):
         return time_ms(fn, 10 * reps), "events"
 
 
-def measure(name, shape, kernel, plain, library, work, reps):
+def measure(name, shape, kernel, plain, library, work, reps,
+            flops=F32_FLOPS):
     """One timing row: the kernel's device time (CUDA graph replay, or
     events where capture is refused: ``timing`` says which) and eager
     per-call time, its plain version's and the library call's device
-    times, and the bound from ``work`` = (bytes, operations)."""
-    bms, by = bound_ms(*work)
+    times, and the bound from ``work`` = (bytes, operations) with the
+    operations at ``flops``."""
+    bms, by = bound_ms(*work, flops)
     ms, how = device_time(kernel, reps)
     row = dict(shape=shape, ms=ms, timing=how,
                eager_ms=time_ms(kernel, 10 * reps),
@@ -957,25 +1031,282 @@ def phase_timing(cfg, dev, counts, errs):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Jamba: jamba-v0.1-52b at full width, one group of 8 layers
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+BF16_FLOPS = 989e12
+_JAMBA = {}
+# K3-jamba's launch counters (core/dispatch_count.py names) by (weights,
+# state)
+JAMBA_KERNEL = {("f32", "f32"): "jamba_stacked_run",
+                ("int8", "int8"): "jamba_stacked_run_q_int8a"}
+
+
+def jamba_cfg(**kw):
+    """jamba-v0.1-52b cut from 32 layers to one group of 8 (the 16
+    experts and every width kept), prefill attention through K7."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(JAMBA), n_layers=8,
+                               scan_impl="pallas", conv_impl="pallas",
+                               attn_impl="pallas", **kw)
+
+
+def jamba_params(dense: bool, dev):
+    """The seeded weights of the MoE model (53 GB in f32) or of its dense
+    variant (n_experts 0, 10.9 GB), drawn on the card from a CUDA
+    generator, made once."""
+    from repro_torch.models import registry
+    key = "dense" if dense else "moe"
+    if key not in _JAMBA:
+        cfg = jamba_cfg(n_experts=0) if dense else jamba_cfg()
+        t0 = time.perf_counter()
+        _JAMBA[key] = registry.init_params(cfg, seed=SEED, device=dev,
+                                           draw_device=dev)
+        torch.cuda.synchronize()
+        log(f"  {key} weights: {registry.count_params(cfg)} parameters "
+            f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    return _JAMBA[key]
+
+
+def jamba_free(key):
+    import gc
+    _JAMBA.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shared_inputs():
+    """The card tests' input builders (``tests/_torch_inputs.py``)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_inputs
+    return _torch_inputs
+
+
+def check_jamba_kernels(dev, serving):
+    """K7 against ref.attention and K3's jamba instance against
+    ref.jamba_stacked_run on the card, at jamba-v0.1's widths."""
+    from repro_torch.kernels import flash_attention, megakernel, ref
+    jamba_run_inputs = shared_inputs().jamba_run_inputs
+    gen = torch.Generator().manual_seed(SEED + 5)
+    # K7: b=1, 32 query heads over 8 kv heads of 128, as jamba's prefill;
+    # repro's flash tolerances (2e-5 f32, 3e-2 bf16: the output rounds)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for lq, lk in ((64, 64), (127, 127), (512, 512), (64, 512)):
+            q = torch.randn(1, lq, 32, 128, generator=gen).to(dev, dtype)
+            k = torch.randn(1, lk, 8, 128, generator=gen).to(dev, dtype)
+            v = torch.randn(1, lk, 8, 128, generator=gen).to(dev, dtype)
+            got = flash_attention.flash_attention(q, k, v, causal=True)
+            want = ref.attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            what = "suffix " if lq < lk else ""
+            e = check(f"K7 {tag} {what}lq={lq} lk={lk} hq=32 hkv=8 dh=128",
+                      got, want, tol, tol)
+            if tag == "bf16" and lq == lk == 512:
+                serving["flash_attention"] = e
+    # K3's jamba instance: one position, or four (the length of the dense
+    # plan's first run), each a mamba block + MLP drawn on the card, 4
+    # slots
+    seed = SEED + 100
+    for wd in ("f32", "int8"):
+        for n_pos in (1, 4):
+            for dtype in ("float32", "bfloat16"):
+                for sd in ("f32", "int8", "fp8"):
+                    c = jamba_cfg(n_experts=0, dtype=dtype, weight_dtype=wd,
+                                  state_dtype=sd)
+                    seed += 1
+                    run, x0, states, outs = jamba_run_inputs(
+                        c, n_pos, 4, seed=seed, device=dev)
+                    x1 = megakernel.jamba_stacked_run(c, x0, run, states,
+                                                      outs)
+                    xr, want = ref.jamba_stacked_run(c, x0, run.rows, states)
+                    torch.cuda.synchronize()
+                    act = "f32" if dtype == "float32" else "bf16"
+                    name = (f"K3-jamba {n_pos} pos {act} {wd} w {sd} "
+                            f"state")
+                    for i, (a, b) in enumerate(zip(outs, want)):
+                        e = check_k3(f"{name} [{i}]", c,
+                                     (x1, a["h"], a.get("h_scale"),
+                                      a["conv"]),
+                                     (xr, b["h"], b.get("h_scale"),
+                                      b["conv"]))
+                    if (n_pos == 1 and act == "bf16"
+                            and (wd, sd) in JAMBA_KERNEL):
+                        serving[JAMBA_KERNEL[wd, sd]] = e
+                    del run, states, outs, want
+    c = jamba_cfg(n_experts=0, dtype="bfloat16", weight_dtype="int8",
+                  state_dtype="int8")
+    run, x0, states, outs = jamba_run_inputs(c, 4, 4, seed=seed + 1,
+                                             device=dev)
+    a = megakernel.jamba_stacked_run(c, x0, run, states, outs)
+    first = [{k: v.clone() for k, v in o.items()} for o in outs]
+    b = megakernel.jamba_stacked_run(c, x0, run, states, outs)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b) and all(
+        torch.equal(u[k].view(torch.uint8), v[k].view(torch.uint8))
+        for u, v in zip(first, outs) for k in u)
+    log(f"  K3-jamba 4 pos bf16 int8 w int8 state, one launch repeated: "
+        f"{'bitwise equal' if same else 'FAIL'}")
+    if not same:
+        FAILURES.append("K3-jamba repeat")
+
+
+# (weights, state, kv cache, logits tolerance, why): the dense variant's
+# card-vs-CPU runs
+JAMBA_MODEL_RUNS = (
+    ("f32", "f32", "model", 2e-3,
+     "f32 throughout; the kernels sum in another order and nvcc contracts "
+     "multiply-adds, over 8 layers at d_model 4096"),
+    ("int8", "int8", "int8", 2e-2,
+     "as mamba's int8 state: a value on a rounding boundary may land one "
+     "code apart on the card, and feeds every later step"),
+)
+
+JAMBA_SERVED = {"name": "jamba-v0.1-52b (8 layers)", "ssm": 7, "attn": 1,
+                "k3": 3, "k3_rest": 4}
+# each serve run of jamba's 16-expert model, as SERVE_RUNS; bytes per
+# slot at max_seq 576 from repro's abstract_cache: 7 x (h 8192 x 16 x 4 +
+# conv 3 x 8192 x 2) + k, v 576 x 1024 x 2 + pos 4 (f32 state, bf16 KV),
+# or 7 x (8192 x 16 + 16 x 4 + 49152) + 2 x 576 x (1024 + 4) + 4 (int8)
+JAMBA_SERVE_RUNS = (
+    ("f32", "f32", "model", 6373380, "decode_step", None, "fused"),
+    ("f32", "f32", "model", 6373380, "decode_step", "jamba_stacked_run",
+     "auto"),
+    ("int8", "int8", "int8", 2446276, "decode_step_q",
+     "jamba_stacked_run_q_int8a", "megakernel"),
+)
+
+
+def flash_work(b, lq, lk, hq, hkv, dh, in_bytes):
+    """Bytes (q, k, v in, o out) and operations of one causal call: per
+    (query, key) pair the causal mask keeps and per head, 2 dh for q.k,
+    2 dh for p.v and 4 for the softmax (scale, max, exp, sum)."""
+    nbytes = (2 * b * lq * hq * dh + 2 * b * lk * hkv * dh) * in_bytes
+    pairs = sum(min(lk, i + lk - lq + 1) for i in range(lq))
+    return nbytes, b * hq * pairs * (4 * dh + 4)
+
+
+def jamba_run_work(cfg, n_pos, b, int8, state_dtype, act_bytes):
+    """Bytes and operations of one K3-jamba call: k3_work's mamba layers
+    plus each position's norm2 and MLP (w1, w3, w2 at their storage width,
+    their scales), two operations per MLP weight and slot, 6 per hidden
+    unit (SiLU, product) and 4 per d_model entry (norm2, residual)."""
+    import dataclasses
+    nbytes, ops = k3_work(dataclasses.replace(cfg, n_layers=n_pos), b, int8,
+                          state_dtype, act_bytes)
+    dm, ff = cfg.d_model, cfg.d_ff
+    mlp = 3 * dm * ff
+    nbytes += n_pos * (mlp * (1 if int8 else 4) + dm * 4
+                       + ((2 * ff + dm) * 4 if int8 else 0))
+    ops += n_pos * b * (2 * mlp + 6 * ff + 4 * dm)
+    return nbytes, ops
+
+
+def phase_jamba_timing(dev, counts, errs):
+    """K7 and K3-jamba beside their bounds, K7 beside SDPA, and the whole
+    jamba decode step (MoE, 16 experts) per layer and through K3."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, megakernel, ref
+    from repro_torch.models import registry
+    gen = torch.Generator().manual_seed(SEED + 6)
+    rows = {"flash_attention": []}
+    for L in (512, 127, 64):
+        q = torch.randn(1, L, 32, 128, generator=gen).to(dev, torch.bfloat16)
+        k = torch.randn(1, L, 8, 128, generator=gen).to(dev, torch.bfloat16)
+        v = torch.randn(1, L, 8, 128, generator=gen).to(dev, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row = measure(
+            "flash_attention", f"b=1 L={L} hq=32 hkv=8 dh=128 bf16 "
+            "(prefill)",
+            lambda: flash_attention.flash_attention(q, k, v, causal=True),
+            lambda: ref.attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            flash_work(1, L, L, 32, 8, 128, 2), 20, flops=BF16_FLOPS)
+        rows["flash_attention"].append(row)
+
+    params = jamba_params(False, dev)
+    jamba_run_inputs = shared_inputs().jamba_run_inputs
+    for (wd, sd), name in JAMBA_KERNEL.items():
+        c = jamba_cfg(dtype="bfloat16", weight_dtype=wd, state_dtype=sd,
+                      kv_cache_dtype="int8" if sd == "int8" else "model")
+        p = registry.quantize_params(c, params)
+        run, x0, states, outs = jamba_run_inputs(c, 1, 4, seed=SEED + 6,
+                                                 device=dev)
+        lc = megakernel.launch_config(c, torch.bfloat16, wd == "int8", dev)
+        row = measure(
+            name, f"1 position (mamba + MLP), slots=4, d_model=4096 bf16, "
+            f"{wd} weights, {sd} state; grid {lc['grid']} x 512, "
+            f"{lc['smem_bytes']} B shared",
+            lambda: megakernel.jamba_stacked_run(c, x0, run, states, outs),
+            lambda: ref.jamba_stacked_run(c, x0, run.rows, states), None,
+            jamba_run_work(c, 1, 4, wd == "int8", sd, 2), 5)
+        cache = registry.init_cache(c, 4, 576, device=dev)
+        batch = {"tokens": torch.arange(4, device=dev)[:, None]}
+        for impl in ("megakernel", "fused"):
+            ci = dataclasses.replace(c, step_impl=impl)
+            pi = registry.stack_params(ci, p) if impl == "megakernel" else p
+            step = (lambda ci=ci, pi=pi: registry.decode_step(ci, pi, cache,
+                                                              batch))
+            ms, how = device_time(step, 2)
+            eager = time_ms(step, 5)
+            tag = "whole_step" if impl == "megakernel" else "fused_step"
+            row[tag + "_ms"], row[tag + "_timing"] = ms, how
+            row[tag + "_eager_ms"] = eager
+            log(f"  jamba decode step at 4 slots (MoE, 16 experts), {wd} "
+                f"weights, {sd} state, {impl}: {ms:.4f} ms device ({how}), "
+                f"{eager:.4f} ms eager")
+        rows[name] = [row]
+        del p
+    meta = {
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:27"),
+        "jamba_stacked_run": ("src/repro_torch/csrc/megakernel_mamba.cu",
+                              "src/repro/kernels/decode_step.py:413"),
+        "jamba_stacked_run_q_int8a": (
+            "src/repro_torch/csrc/megakernel_mamba.cu",
+            "src/repro/kernels/decode_step.py:413"),
+    }
+    kernels = []
+    for name, (src, rep) in meta.items():
+        main_row, *more = rows[name]
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": counts[name],
+                 "max_abs_err": errs[name], **main_row}
+        if more:
+            entry["other_shapes"] = more
+        kernels.append(entry)
+    return kernels
+
+
+T_START = time.perf_counter()
+
+
+def phase_ok() -> bool:
+    if FAILURES:
+        log(f"FAILED: {FAILURES}")
+        log(f"total {time.perf_counter() - T_START:.1f} s")
+    return not FAILURES
+
+
 def main() -> int:
+    global T_START
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    import dataclasses
     from repro_torch import configs, resolve_device
+    from repro_torch.models import registry
     dev = resolve_device("cuda")
     card = card_line()
     log(f"card: {card}")
-    cfg = configs.get_config(ARCH)
-    import dataclasses
-    cfg = dataclasses.replace(cfg, scan_impl="pallas", conv_impl="pallas",
-                              step_impl="fused")
-    t_start = time.perf_counter()
-
-    def phase_ok() -> bool:
-        if FAILURES:
-            log(f"FAILED: {FAILURES}")
-            log(f"total {time.perf_counter() - t_start:.1f} s")
-        return not FAILURES
+    cfg = dataclasses.replace(configs.get_config(ARCH), scan_impl="pallas",
+                              conv_impl="pallas", step_impl="fused")
+    T_START = time.perf_counter()
 
     log("== phase 1: build")
     phase_build()
@@ -984,35 +1315,40 @@ def main() -> int:
     if not phase_ok():
         return 1
     log("== phase 3: mamba-130m f32, kernel path (card) vs plain path (CPU)")
-    phase_model(cfg, dev)
+    params = registry.init_params(cfg, seed=SEED)
+    phase_model("mamba-130m", cfg, params, MODEL_RUNS, dev, lambda c: c)
     if not phase_ok():
         return 1
-    # the launches reported per kernel: the scan and conv from the first
-    # run, each step variant from the run that serves it
+    # the launches reported per kernel, from the serve run that serves it
     counts = {}
-    streams = {}
-    for i, (wd, sd, spb, served, impl) in enumerate(SERVE_RUNS):
-        log(f"== phase 4.{i + 1}: serve mamba-130m bf16, {wd} weights, "
-            f"{sd} state, step_impl {impl!r}")
-        run, streams[wd, sd, impl] = phase_serve(cfg, dev, card, wd, sd,
-                                                 spb, served, impl)
-        if i == 0:
-            counts.update(run)
-        counts[served] = run[served]
-        if impl != "fused":
-            fused = streams[wd, sd, "fused"]
-            mega = streams[wd, sd, impl]
-            same = sum(a == b for f, m in zip(fused, mega)
-                       for a, b in zip(f, m))
-            total = sum(len(f) for f in fused)
-            log(f"  token agreement with the per-layer run of this setup: "
-                f"{same}/{total} = {same / total:.4f} (printed; greedy "
-                f"streams in bf16 diverge after the first differing token)")
-        if not phase_ok():
-            return 1
+    if not phase_serves(4, MAMBA, cfg, params, SERVE_RUNS, dev, card,
+                        counts):
+        return 1
     log("== phase 5: kernel timing (CUDA events)")
     kernels = phase_timing(cfg, dev, counts, errs)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    if not phase_ok():
+        return 1
+    # jamba after every mamba phase: the mamba phases run as they did
+    # before jamba was ported, with no 53 GB model or CPU-side model run
+    # ahead of their host-bound serving
+    log("== phase 2j: K7 and K3-jamba vs plain versions, jamba-v0.1 widths")
+    check_jamba_kernels(dev, errs)
+    if not phase_ok():
+        return 1
+    log("== phase 3j: jamba-v0.1-52b dense variant (8 layers) f32, card vs "
+        "CPU")
+    phase_model("dense jamba", jamba_cfg(n_experts=0), jamba_params(True, dev),
+                JAMBA_MODEL_RUNS, dev, lambda c: c["layers"]["pos0"])
+    jamba_free("dense")
+    if not phase_ok():
+        return 1
+    if not phase_serves("4j", JAMBA_SERVED, jamba_cfg(),
+                        jamba_params(False, dev), JAMBA_SERVE_RUNS, dev,
+                        card, counts):
+        return 1
+    log("== phase 5j: jamba kernel and decode-step timing")
+    kernels += phase_jamba_timing(dev, counts, errs)
+    log(f"total {time.perf_counter() - T_START:.1f} s")
     if not phase_ok():
         return 1
     log(json.dumps({"kernels": kernels}))

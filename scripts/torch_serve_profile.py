@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Where the time goes when the PyTorch port serves on the card.
 
-Serves a few greedy requests with ``repro_torch`` (mamba-130m at full
-width, bf16, random weights from a seed, the kernel path) once without
-and once under ``torch.profiler``, then prints the untraced and traced
-throughput (their difference is the tracer's cost), the device busy and
-idle shares of the traced run, and the kernels that took the most device
-time.  Run from the repository root on a machine with a CUDA card:
+Serves a few greedy requests with ``repro_torch`` (``--arch`` at full
+width, mamba-130m by default, bf16, random weights from a seed, the
+kernel path) once without and once under ``torch.profiler``, then prints
+the untraced and traced throughput (their difference is the tracer's
+cost), the device busy and idle shares of the traced run, and the
+kernels that took the most device time.  Run from the repository root
+on a machine with a CUDA card:
 
-    python3 scripts/torch_serve_profile.py [--requests 4 --prompt-len 127]
-        [--max-new 32 --slots 4 --seed 0 --trace build/serve_trace.json]
+    python3 scripts/torch_serve_profile.py [--arch mamba-130m]
+        [--requests 4 --prompt-len 127 --max-new 32 --slots 4 --seed 0]
+        [--trace build/serve_trace.json]
         [--weight-dtype f32|int8 --state-dtype f32|bf16|int8|fp8]
-        [--step-impl auto|megakernel|fused]
+        [--kv-cache-dtype model|int8] [--step-impl auto|megakernel|fused]
 
 ``--step-impl`` picks the decode path: "megakernel" is one launch of the
-cross-layer kernel per token, "fused" the per-layer conv and step
-kernels, "auto" (the default) what an engine on the card takes, the
-megakernel.
+cross-layer kernel per token (for jamba one per pure-SSM run of a
+group), "fused" the per-layer conv and step kernels, "auto" (the
+default) what an engine on the card takes, the megakernel.
+jamba-v0.1-52b (32 layers, 52 B parameters) does not fit one card, so it
+is cut to one group of 8 layers, whose weights (53 GB in f32) are drawn
+on the card from a CUDA generator; prefill attention runs the flash
+kernel.
 """
 import argparse
 import dataclasses
@@ -71,6 +77,8 @@ def main(argv=None) -> int:
                     choices=["f32", "bf16", "int8", "fp8"])
     ap.add_argument("--step-impl", default="auto",
                     choices=["auto", "megakernel", "fused"])
+    ap.add_argument("--kv-cache-dtype", default="model",
+                    choices=["model", "int8"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
@@ -85,12 +93,18 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(configs.get_config(args.arch),
                               scan_impl="pallas", conv_impl="pallas",
-                              step_impl=args.step_impl)
-    engine = Engine(cfg, registry.init_params(cfg, seed=args.seed),
+                              attn_impl="pallas", step_impl=args.step_impl)
+    jamba = cfg.family == "jamba"
+    layers = 8 if jamba else cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = registry.init_params(cfg, seed=args.seed, device="cuda",
+                                  draw_device="cuda" if jamba else "cpu")
+    engine = Engine(cfg, params,
                     EngineConfig(n_slots=args.slots,
                                  max_seq=args.prompt_len + args.max_new + 8,
                                  weight_dtype=args.weight_dtype,
                                  state_dtype=args.state_dtype,
+                                 kv_cache_dtype=args.kv_cache_dtype,
                                  device="cuda"))
     prompts = SyntheticLM(cfg.vocab, args.prompt_len, seed=args.seed + 1) \
         .batch_at(0, 0, 1, args.requests)["tokens"]
@@ -108,8 +122,9 @@ def main(argv=None) -> int:
     busy_us = sum(device_self_us(e) for e in kernels)
     wall_us = t_traced * 1e6
     print(f"card: {card()}")
-    print(f"{cfg.name} bf16, {args.weight_dtype} weights, "
-          f"{args.state_dtype} state, step_impl {args.step_impl}, "
+    print(f"{cfg.name} ({layers} layers) bf16, {args.weight_dtype} weights, "
+          f"{args.state_dtype} state, {args.kv_cache_dtype} kv, step_impl "
+          f"{args.step_impl}, "
           f"{args.requests} requests x prompt "
           f"{args.prompt_len} + {args.max_new} new, {args.slots} slots")
     print(f"untraced: {n_plain} tokens in {t_plain:.4f} s = "

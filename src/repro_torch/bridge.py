@@ -5,7 +5,9 @@ numpy arrays (``np.asarray`` of each leaf of ``sharding.tree_values``),
 so it needs neither JAX nor ``repro``.  The layouts agree leaf for leaf
 except the layer stack: ``repro`` stacks each layer parameter on a
 leading L axis (``p["layers"][name]`` of shape (L, ...)), the port keeps
-a list of per-layer dicts.  Cache trees agree as they are.
+a list of per-layer dicts; jamba's ``p["groups"]["pos{i}"]`` subtrees
+are stacked on a leading group axis there and are a list of per-group
+dicts ``p["groups"][g]["pos{i}"]`` here.  Cache trees agree as they are.
 
 numpy has no bfloat16 or float8_e4m3fn: a ``repro`` array of either
 dtype (ml_dtypes) is widened to float32 on the way in and cast back in
@@ -58,20 +60,29 @@ def _stack(trees):
     return np.stack(trees)
 
 
+#: the keys of the stacked subtree: layers (mamba), groups (jamba)
+_STACKED = ("layers", "groups")
+
+
 def params_from_repro(tree, device="cpu"):
-    """``repro`` param tree (numpy leaves, stacked layers) -> port tree."""
+    """``repro`` param tree (numpy leaves, stacked layers or groups) ->
+    port tree."""
     out = to_torch(tree, device)
-    stacked = out["layers"]
-    n = tree_leaves(stacked)[0].shape[0]
-    out["layers"] = [tree_map(lambda t, i=i: t[i], stacked)
-                     for i in range(n)]
+    for key in _STACKED:
+        if key in out:
+            stacked = out[key]
+            n = tree_leaves(stacked)[0].shape[0]
+            out[key] = [tree_map(lambda t, i=i: t[i], stacked)
+                        for i in range(n)]
     return out
 
 
 def params_to_repro(params):
     """Port param tree -> ``repro``'s layout with numpy leaves."""
-    out = {k: to_numpy(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = _stack([to_numpy(lp) for lp in params["layers"]])
+    out = {k: to_numpy(v) for k, v in params.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key in params:
+            out[key] = _stack([to_numpy(lp) for lp in params[key]])
     return out
 
 

@@ -9,13 +9,20 @@ in ``kernels.ref.CALLS``.  The megakernel path (K3) is one launch per
 decoded token.  The per-layer fused path is two per layer: ``repro``'s
 pin is n_layers because its default conv is XLA, while in the port the
 conv is a kernel (K5) under every ``conv_impl``, beside the step kernel.
+
+Jamba's pins per decoded token (one group of 8, attention at position 4,
+which is plain PyTorch at decode): through K3, one launch per pure-SSM
+run plus the conv and step kernels of each mamba position with MoE --
+3 + 4 x 2 = 11 on the MoE config, 2 on the dense variant -- against
+7 x 2 = 14 per layer; ``repro`` pins 7 and 2 against 7.  A prefill
+launches per group 7 scans, 7 convs and one flash attention (K7).
 """
 from __future__ import annotations
 
 import collections
 
-from repro_torch.kernels import conv1d, decode_step, megakernel, ref
-from repro_torch.kernels import selective_scan
+from repro_torch.kernels import conv1d, decode_step, flash_attention
+from repro_torch.kernels import megakernel, ref, selective_scan
 
 #: every kernel launch counter: name -> (wrapper module, attribute)
 COUNTERS = {
@@ -28,6 +35,11 @@ COUNTERS = {
     "mamba_stacked_step_int8a": (megakernel, "launches_int8a"),
     "mamba_stacked_step_q": (megakernel, "launches_q"),
     "mamba_stacked_step_q_int8a": (megakernel, "launches_q_int8a"),
+    "jamba_stacked_run": (megakernel, "jamba_launches"),
+    "jamba_stacked_run_int8a": (megakernel, "jamba_launches_int8a"),
+    "jamba_stacked_run_q": (megakernel, "jamba_launches_q"),
+    "jamba_stacked_run_q_int8a": (megakernel, "jamba_launches_q_int8a"),
+    "flash_attention": (flash_attention, "launches"),
 }
 
 

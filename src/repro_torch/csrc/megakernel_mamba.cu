@@ -1,11 +1,22 @@
-// Cross-layer Mamba decode megakernel (K3) for Hopper, sm_90a.
+// Cross-layer decode megakernel (K3) for Hopper, sm_90a.
 //
 // Replaces: repro/kernels/decode_step.py:413 stacked_layer_launch
-// (pallas_call at :488) with the mamba body of repro/models/mamba_lm.py:160
-// ("marca_megakernel_mamba"): ONE launch runs every layer of a decode step
-// for the whole slot pool,
+// (pallas_call at :488) with two of its bodies.  The mamba body of
+// repro/models/mamba_lm.py:160 ("marca_megakernel_mamba"): ONE launch runs
+// every layer of a decode step for the whole slot pool,
 //
 //   for l in layers:  x = x + mamba_block_megastep(rmsnorm(x))
+//
+// The jamba body of repro/models/jamba.py:305 ("marca_megakernel_jamba"):
+// one launch runs a run of pure-SSM positions of a group (the kMlp
+// instances), each position
+//
+//   x = x + mamba_block_megastep(rmsnorm1(x));  x = x + mlp(rmsnorm2(x))
+//
+// with mlp the swiglu w2(SiLU(w1 x) * (w3 x)).  Its positions' states live
+// in different cache leaves, so a launch takes one pointer per position
+// and state tensor (StateRows) where the mamba instance takes one stacked
+// tensor each.
 //
 // with the chain of repro_torch/models/mamba.py mamba_block_megastep: norm
 // -> in_proj -> [x | z] -> conv over the tail + bias -> SiLU -> x_proj ->
@@ -17,7 +28,9 @@
 // weight of every layer once (mamba-130m: 3.77 M per layer, 362 MB in f32,
 // 92 MB in int8) and the pooled state in and out; the arithmetic is two
 // operations per weight and slot.  At 4 slots the f32 model takes at least
-// 114 us at 3.35 TB/s, the int8 model with an int8 state 29 us.
+// 114 us at 3.35 TB/s, the int8 model with an int8 state 29 us.  One
+// jamba-v0.1 position (105.3 M mamba and 176.2 M MLP weights) reads 1.126
+// GB in f32: at least 336 us, 84 us in int8.
 //
 // Design, simple and right first: one persistent cooperative kernel with as
 // many blocks of 512 threads as can be co-resident (the C entry point sizes
@@ -39,11 +52,20 @@
 //       from the 16 chunks' partials, updates the scale and encodes, with
 //       K2's arithmetic (common.cuh).                              barrier
 //   D   out_proj column tiles and the residual add x + y.          barrier
-// A column tile is TJ adjacent output columns, TJ a power of two the host
-// picks so the tiles cover the grid; the block's 16 warps split the rows
-// of the reduction, lanes TJ apart take different rows, and the partial
-// sums combine by a shuffle butterfly and then over the warps in one fixed
-// order.  No float atomics anywhere: the same inputs give the same bits.
+// and, with the MLP (kMlp),
+//   E   every block recomputes norm2 of x for its slots, then w1 column
+//       tiles (each sum rounded and kept in a global hidden buffer) and the
+//       same tiles of w3, whose epilogue forms SiLU(w1 x) * (w3 x) in place.
+//       The hidden (d_ff wide: 14336 at jamba-v0.1) is not staged in shared
+//       memory: 4 slots of it are 229 KB; it stays in L2.          barrier
+//   F   w2 column tiles read the hidden rows from global memory, and the
+//       residual add.                                              barrier
+// A column tile is TJ threads across, each taking V adjacent output columns
+// (V = 4 in the jamba instance: one float4 of f32 weights or a char4 of
+// int8 codes per load; 1 in the mamba instance), TJ a power of two picked
+// so the tiles cover the grid; the block's 16 warps split the rows of the reduction, lanes TJ
+// apart take different rows, and the partial sums combine by a shuffle
+// butterfly and then over the warps in one fixed order.  No float atomics anywhere: the same inputs give the same bits.
 // Weights are read as stored: f32, or int8 codes times their scale with one
 // rounded multiply (load_w), then rounded to the compute type -- the values
 // blocks.dense and weight_quant.dequantize_rows give.  Every rounding point
@@ -78,27 +100,74 @@ constexpr float kSoftplusThreshold = 20.0f;            // F.softplus
 
 // Columns of the per-layer weight table (repro_torch/kernels/megakernel.py
 // TABLE_COLUMNS); a scale column is 0 for f32 weights.
+// (MLP_COLUMNS, for the jamba instance: norm2 and the MLP)
 enum WeightColumn {
   W_NORM = 0, W_IN = 1, W_IN_SCALE = 2, W_CONV = 3, W_CONV_B = 4, W_X = 5,
   W_X_SCALE = 6, W_DT = 7, W_DT_SCALE = 8, W_DT_BIAS = 9, W_A = 10,
-  W_A_SCALE = 11, W_D = 12, W_OUT = 13, W_OUT_SCALE = 14, W_COLUMNS = 16
+  W_A_SCALE = 11, W_D = 12, W_OUT = 13, W_OUT_SCALE = 14, W_NORM2 = 15,
+  W_W1 = 16, W_W1_SCALE = 17, W_W3 = 18, W_W3_SCALE = 19, W_W2 = 20,
+  W_W2_SCALE = 21, W_COLUMNS = 24
+};
+
+constexpr int kMaxRows = 8;  // positions of one jamba launch (MAX_RUN)
+
+// One state pointer per position (and tensor) of a jamba launch: each
+// points at (b, ...) of its cache leaf.
+struct StateRows {
+  const void* h[kMaxRows];
+  const float* h_scale[kMaxRows];
+  const void* conv[kMaxRows];
+  void* h_out[kMaxRows];
+  float* h_scale_out[kMaxRows];
+  void* conv_out[kMaxRows];
 };
 
 struct MegaArgs {
   const int64_t* table;  // (L, W_COLUMNS) device pointers
   const void* x0;        // (b, dm) compute type: the embedded tokens
   void* x;               // (b, dm) compute type: the residual stream out
+  // the state: stacked on L (mamba), or per position in rows (jamba)
   const void* h;         // (L, b, di, 16) state storage type
   const float* h_scale;  // (L, b, g) for an int8/fp8 state
   const void* conv;      // (L, b, k-1, di) compute type
   void* h_out;
   float* h_scale_out;
   void* conv_out;
+  StateRows rows;
   float* scratch;
-  int L, b, dm, di, R, k, nx, g, nchunks;
-  int tj_in, tj_x, tj_out;
+  int L, b, dm, di, R, k, nx, g, nchunks, d_ff;
   int state_dtype, exp_impl, silu_impl;
 };
+
+// Position l's state: (b, ...) tensors in and out.
+struct RowState {
+  const void* h;
+  const float* h_scale;
+  const void* conv;
+  void* h_out;
+  float* h_scale_out;
+  void* conv_out;
+};
+
+template <typename T, bool kPerRow>
+__device__ __forceinline__ RowState row_state(const MegaArgs& a, int l) {
+  if constexpr (kPerRow)
+    return {a.rows.h[l], a.rows.h_scale[l], a.rows.conv[l], a.rows.h_out[l],
+            a.rows.h_scale_out[l], a.rows.conv_out[l]};
+  const int64_t eh = a.state_dtype == SD_F32    ? 4
+                     : a.state_dtype == SD_BF16 ? 2
+                                                : 1;
+  const int64_t nh = (int64_t)a.b * a.di * 16 * eh;
+  const int64_t ns = (int64_t)a.b * a.g;
+  const int64_t nc = (int64_t)a.b * (a.k - 1) * a.di;
+  const bool q = a.h_scale != nullptr;
+  return {static_cast<const char*>(a.h) + l * nh,
+          q ? a.h_scale + l * ns : nullptr,
+          static_cast<const T*>(a.conv) + l * nc,
+          static_cast<char*>(a.h_out) + l * nh,
+          q ? a.h_scale_out + l * ns : nullptr,
+          static_cast<T*>(a.conv_out) + l * nc};
+}
 
 template <typename P>
 __device__ __forceinline__ const P* column(const int64_t* row, int c) {
@@ -155,61 +224,144 @@ __device__ void stage_rows(float* xs, const float* src, int s0, int nb,
   __syncthreads();
 }
 
+// the widest tile (<= 32 threads across) that still gives every block one
+__host__ __device__ __forceinline__ int pick_tj(int n, int grid) {
+  int tj = 32;
+  while (tj > 1 && (n + tj - 1) / tj < grid) tj >>= 1;
+  return tj;
+}
+
+// kVec adjacent weight columns one thread of the jamba instance loads at
+// once, where the row length allows: a float4 of f32 weights or a char4 of
+// int8 codes.  Its projections have hundreds of rows a thread, and the
+// wider loads put 2-4 times the bytes in flight.  The mamba instance loads
+// one column a thread: at mamba-130m a thread has 3-24 rows of a weight,
+// and 4 columns a thread (with their 4 times larger tile reduction and
+// code) measured 10-19% slower on an H100 (700 W).
+constexpr int kVec = 4;
+
+template <typename TW, int V> struct WVec;
+template <> struct WVec<float, 1> { using type = float; };
+template <> struct WVec<float, 4> { using type = float4; };
+template <> struct WVec<int8_t, 1> { using type = int8_t; };
+template <> struct WVec<int8_t, 4> { using type = char4; };
+
+__device__ __forceinline__ float lane_of(float v, int) { return v; }
+__device__ __forceinline__ float lane_of(int8_t v, int) { return (float)v; }
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float lane_of(const char4& v, int c) {
+  return (float)(c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w);
+}
+
+// a weight as the dense layer consumes it: f32 as stored, or the int8 code
+// times its column's scale with one rounded multiply (load_w's arithmetic)
+template <typename TW>
+__device__ __forceinline__ float weight_value(float raw, const float* scale,
+                                              int col) {
+  return sizeof(TW) == 1 ? __fmul_rn(raw, scale[col]) : raw;
+}
+
+// columns per thread for an N-column weight, at most kV
+template <int kV>
+__device__ __forceinline__ int gemv_vec(int N) {
+  return kV > 1 && N % kV == 0 ? kV : 1;
+}
+
+// the column tiles of an N-column weight (the blocks with an index below
+// it take part in the phase)
+template <int kV>
+__device__ __forceinline__ int gemv_ntiles(int N) {
+  const int v = gemv_vec<kV>(N);
+  const int tj = pick_tj(N / v, gridDim.x);
+  return (N / v + tj - 1) / tj;
+}
+
 // out[si][j] = sum_i xs[si][i] * w(i, j) for the column tiles this block
 // takes; epi(si, j, sum) gets each unrounded f32 sum once.  W is (K, N),
-// row-major, as blocks.dense stores it.  Each thread loads kBatch of its
-// rows before it uses any, so that many loads are in flight at once (the
-// phase is bound by memory latency, not by the bytes); the sum still runs
-// over the rows in ascending order.
-constexpr int kBatch = 8;
-
-template <typename T, typename TW, typename Epi>
-__device__ void gemv_tiles(const float* xs, int nb, int K, const TW* W,
-                           const float* wscale, int N, int tj, float* red,
-                           Epi epi) {
+// row-major, as blocks.dense stores it; xs may be shared or global memory.
+// A tile is tj threads across, each taking V adjacent columns (gemv_vec:
+// V = 4 in the jamba instance, one 16-byte load of f32 weights or 4 bytes
+// of int8 codes); the block's other threads split the rows.  Each thread loads kB rows of its
+// columns before it uses any, so that many bytes are in flight at once
+// (the phase is bound by memory latency, not by the bytes); the sum still
+// runs over the rows in ascending order.  The same N gives the same tiles
+// and the same epilogue thread for a column, call after call.
+template <typename T, typename TW, int V, typename Epi>
+__device__ void gemv_cols(const float* xs, int nb, int K, const TW* W,
+                          const float* wscale, int N, float* red, Epi epi) {
+  using VT = typename WVec<TW, V>::type;
+  constexpr int kB = (V > 1 && sizeof(TW) == 4) ? 4 : 8;
+  const int tj = pick_tj(N / V, gridDim.x);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int jj = lane & (tj - 1);
   const int p = warp * (32 / tj) + lane / tj;
   const int P = kMThreads / tj;
-  const int ntiles = (N + tj - 1) / tj;
+  const int cols = tj * V;
+  const int ntiles = (N + cols - 1) / cols;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int j = min(t * tj + jj, N - 1);
-    float acc[kSlots];
+    const int j = min(t * cols + jj * V, N - V);
+    float acc[kSlots][V];
 #pragma unroll
-    for (int si = 0; si < kSlots; ++si) acc[si] = 0.0f;
-    for (int i0 = p; i0 < K; i0 += kBatch * P) {
-      TW w[kBatch];
+    for (int si = 0; si < kSlots; ++si)
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
+      for (int c = 0; c < V; ++c) acc[si][c] = 0.0f;
+    for (int i0 = p; i0 < K; i0 += kB * P) {
+      VT w[kB];
+#pragma unroll
+      for (int u = 0; u < kB; ++u) {
         const int i = i0 + u * P;
-        w[u] = i < K ? W[(int64_t)i * N + j] : TW(0);
+        w[u] = i < K ? *reinterpret_cast<const VT*>(W + (int64_t)i * N + j)
+                     : VT{};
       }
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
+      for (int u = 0; u < kB; ++u) {
         const int i = i0 + u * P;
         if (i < K) {
-          const float wv = round_to<T>(load_w(&w[u], wscale, 0, j));
 #pragma unroll
-          for (int si = 0; si < kSlots; ++si) acc[si] += xs[si * K + i] * wv;
+          for (int c = 0; c < V; ++c) {
+            const float wv =
+                round_to<T>(weight_value<TW>(lane_of(w[u], c), wscale, j + c));
+#pragma unroll
+            for (int si = 0; si < kSlots; ++si)
+              acc[si][c] += xs[si * K + i] * wv;
+          }
         }
       }
     }
 #pragma unroll
     for (int si = 0; si < kSlots; ++si) {
-      float v = acc[si];
-      for (int off = 16; off >= tj; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane < tj) red[(warp * kSlots + si) * 32 + lane] = v;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        float v = acc[si][c];
+        for (int off = 16; off >= tj; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane < tj) red[((warp * kSlots + si) * 32 + lane) * V + c] = v;
+      }
     }
     __syncthreads();
-    if (threadIdx.x < nb * tj) {
-      const int si = threadIdx.x / tj, c = threadIdx.x % tj;
+    if (threadIdx.x < nb * cols) {
+      const int si = threadIdx.x / cols, cc = threadIdx.x % cols;
       float s = 0.0f;
-      for (int w = 0; w < kMWarps; ++w) s += red[(w * kSlots + si) * 32 + c];
-      if (t * tj + c < N) epi(si, t * tj + c, s);
+      for (int w = 0; w < kMWarps; ++w)
+        s += red[(w * kSlots + si) * 32 * V + cc];
+      if (t * cols + cc < N) epi(si, t * cols + cc, s);
     }
     __syncthreads();
   }
+}
+
+template <typename T, typename TW, int kV, typename Epi>
+__device__ void gemv_tiles(const float* xs, int nb, int K, const TW* W,
+                           const float* wscale, int N, float* red, Epi epi) {
+  if constexpr (kV > 1) {
+    if (gemv_vec<kV>(N) == kV) {
+      gemv_cols<T, TW, kV>(xs, nb, K, W, wscale, N, red, epi);
+      return;
+    }
+  }
+  gemv_cols<T, TW, 1>(xs, nb, K, W, wscale, N, red, epi);
 }
 
 __device__ __forceinline__ bool quantized(int state_dtype) {
@@ -218,8 +370,8 @@ __device__ __forceinline__ bool quantized(int state_dtype) {
 
 // phase C: dt, the S6 step, D skip and gate for (slot, 32-channel) items
 template <typename T, typename TW>
-__device__ void phase_step(const MegaArgs& a, const int64_t* wt, int l,
-                           float* warp_max) {
+__device__ void phase_step(const MegaArgs& a, const int64_t* wt,
+                           const RowState& rs, float* warp_max) {
   const TW* Wdt = column<TW>(wt, W_DT);
   const float* dt_scale = column<float>(wt, W_DT_SCALE);
   const float* dt_bias = column<float>(wt, W_DT_BIAS);
@@ -243,19 +395,18 @@ __device__ void phase_step(const MegaArgs& a, const int64_t* wt, int l,
     const float* row = dbc + (int64_t)s * a.nx;
     // every load first (none depends on another), then the arithmetic:
     // one memory latency per item instead of one per dependent step
-    const int64_t ls = (int64_t)l * a.b + s;
-    const int64_t hidx = (ls * a.di + c) * kMN + st;
+    const int64_t hidx = ((int64_t)s * a.di + c) * kMN + st;
     float hv;
     if (a.state_dtype == SD_F32) {
-      hv = static_cast<const float*>(a.h)[hidx];
+      hv = static_cast<const float*>(rs.h)[hidx];
     } else if (a.state_dtype == SD_BF16) {
-      hv = to_f32(static_cast<const __nv_bfloat16*>(a.h)[hidx]);
+      hv = to_f32(static_cast<const __nv_bfloat16*>(rs.h)[hidx]);
     } else {
       hv = a.state_dtype == SD_INT8
-               ? Codes<int8_t>::decode(static_cast<const int8_t*>(a.h)[hidx])
+               ? Codes<int8_t>::decode(static_cast<const int8_t*>(rs.h)[hidx])
                : Codes<__nv_fp8_e4m3>::decode(
-                     static_cast<const __nv_fp8_e4m3*>(a.h)[hidx]);
-      hv = __fmul_rn(hv, a.h_scale[ls * a.g + c / kScaleGroup]);
+                     static_cast<const __nv_fp8_e4m3*>(rs.h)[hidx]);
+      hv = __fmul_rn(hv, rs.h_scale[(int64_t)s * a.g + c / kScaleGroup]);
     }
     // A: int8 codes times their row scale, or -exp(A_log) for f32 weights
     const float aw = load_w(Aw, a_scale, (int64_t)c * kMN + st, c);
@@ -287,10 +438,10 @@ __device__ void phase_step(const MegaArgs& a, const int64_t* wt, int l,
     yv = s6_gate(yv, xv, Dv, c, true, zv, a.silu_impl);
     if (valid && st == 0) yb[(int64_t)s * a.di + ch] = round_to<T>(yv);
     if (a.state_dtype == SD_F32) {
-      if (valid) static_cast<float*>(a.h_out)[hidx] = h1;
+      if (valid) static_cast<float*>(rs.h_out)[hidx] = h1;
     } else if (a.state_dtype == SD_BF16) {
       if (valid)
-        static_cast<__nv_bfloat16*>(a.h_out)[hidx] = from_f32<__nv_bfloat16>(h1);
+        static_cast<__nv_bfloat16*>(rs.h_out)[hidx] = from_f32<__nv_bfloat16>(h1);
     } else {
       if (valid) hb[((int64_t)s * a.di + ch) * kMN + st] = h1;
       float m = valid ? fabsf(h1) : 0.0f;
@@ -311,11 +462,11 @@ __device__ void phase_step(const MegaArgs& a, const int64_t* wt, int l,
 
 // phase C2: the group scale from the chunks' absmax, then the encode
 template <typename TQ>
-__device__ void phase_requant(const MegaArgs& a, int l) {
+__device__ void phase_requant(const MegaArgs& a, const RowState& rs) {
   const int64_t bdi = (int64_t)a.b * a.di;
   const float* amax = a.scratch + 3 * bdi + (int64_t)a.b * a.nx;
   const float* hb = amax + (int64_t)a.b * a.nchunks;
-  TQ* h_out = static_cast<TQ*>(a.h_out);
+  TQ* h_out = static_cast<TQ*>(rs.h_out);
   const int cl = threadIdx.x / kMN, st = threadIdx.x % kMN;
   for (int it = blockIdx.x; it < a.b * a.nchunks; it += gridDim.x) {
     const int s = it / a.nchunks, chunk = it % a.nchunks;
@@ -325,52 +476,55 @@ __device__ void phase_requant(const MegaArgs& a, int l) {
     float m = 0.0f;
     for (int q = first; q < last; ++q)
       m = fmaxf(m, amax[(int64_t)s * a.nchunks + q]);
-    const int64_t ls = (int64_t)l * a.b + s;
-    const float so = update_scale(m, a.h_scale[ls * a.g + grp],
-                                  Codes<TQ>::kMax);
-    if (chunk == first && threadIdx.x == 0) a.h_scale_out[ls * a.g + grp] = so;
+    const int64_t sg = (int64_t)s * a.g + grp;
+    const float so = update_scale(m, rs.h_scale[sg], Codes<TQ>::kMax);
+    if (chunk == first && threadIdx.x == 0) rs.h_scale_out[sg] = so;
     const int ch = chunk * kChunk + cl;
     if (ch < a.di)
-      h_out[(ls * a.di + ch) * kMN + st] = Codes<TQ>::encode(
+      h_out[((int64_t)s * a.di + ch) * kMN + st] = Codes<TQ>::encode(
           __fdiv_rn(hb[((int64_t)s * a.di + ch) * kMN + st], so));
   }
 }
 
-template <typename T, typename TW>
+template <typename T, typename TW, bool kMlp>
 __global__ void __launch_bounds__(kMThreads)
 mamba_megakernel(const MegaArgs a) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const int kmax = max(a.dm, a.di);
   float* xs = smem;                           // kSlots * kmax
-  float* red = xs + kSlots * kmax;            // kMWarps * kSlots * 32
-  float* redn = red + kMWarps * kSlots * 32;  // kMWarps * kSlots
+  constexpr int kV = kMlp ? kVec : 1;         // columns a thread, at most
+  float* red = xs + kSlots * kmax;            // kMWarps * kSlots * 32 * kV
+  float* redn = red + kMWarps * kSlots * 32 * kV;  // kMWarps * kSlots
   const int64_t bdi = (int64_t)a.b * a.di;
   float* xa = a.scratch;
   float* zb = xa + bdi;
   float* dbc = zb + bdi;
   float* yb = dbc + (int64_t)a.b * a.nx;
+  // the MLP hidden (b, d_ff), after the f32 state values
+  float* hid = yb + bdi + (int64_t)a.b * a.nchunks + bdi * kMN;
   const T* x0 = static_cast<const T*>(a.x0);
   T* x = static_cast<T*>(a.x);
-  const T* conv = static_cast<const T*>(a.conv);
-  T* conv_out = static_cast<T*>(a.conv_out);
   const int k1 = a.k - 1;
 
   for (int l = 0; l < a.L; ++l) {
     const int64_t* wt = a.table + (int64_t)l * W_COLUMNS;
     const T* xsrc = l == 0 ? x0 : x;
+    const RowState rs = row_state<T, kMlp>(a, l);
+    const T* conv = static_cast<const T*>(rs.conv);
+    T* conv_out = static_cast<T*>(rs.conv_out);
 
     // A: norm -> in_proj -> conv + SiLU | z
-    if (blockIdx.x < (2 * a.di + a.tj_in - 1) / a.tj_in) {
+    if (blockIdx.x < gemv_ntiles<kV>(2 * a.di)) {
       const float* conv_w = column<float>(wt, W_CONV);
       const float* conv_b = column<float>(wt, W_CONV_B);
       for (int s0 = 0; s0 < a.b; s0 += kSlots) {
         const int nb = min(kSlots, a.b - s0);
         stage_norm<T>(xs, redn, xsrc, column<float>(wt, W_NORM), s0, nb,
                       a.dm);
-        gemv_tiles<T, TW>(
+        gemv_tiles<T, TW, kV>(
             xs, nb, a.dm, column<TW>(wt, W_IN), column<float>(wt, W_IN_SCALE),
-            2 * a.di, a.tj_in, red, [&](int si, int j, float sum) {
+            2 * a.di, red, [&](int si, int j, float sum) {
               const int s = s0 + si;
               const float v = round_to<T>(sum);
               if (j >= a.di) {
@@ -378,7 +532,7 @@ mamba_megakernel(const MegaArgs a) {
                 return;
               }
               // the conv over the tail (causal_conv1d at L = 1) + bias
-              const int64_t tail = ((int64_t)l * a.b + s) * k1 * a.di + j;
+              const int64_t tail = (int64_t)s * k1 * a.di + j;
               float acc = 0.0f;
               for (int t = 0; t < k1; ++t)
                 acc += to_f32(conv[tail + (int64_t)t * a.di]) *
@@ -399,12 +553,12 @@ mamba_megakernel(const MegaArgs a) {
     grid.sync();
 
     // B: x_proj -> (dt_low, B, C)
-    if (blockIdx.x < (a.nx + a.tj_x - 1) / a.tj_x) {
+    if (blockIdx.x < gemv_ntiles<kV>(a.nx)) {
       for (int s0 = 0; s0 < a.b; s0 += kSlots) {
         const int nb = min(kSlots, a.b - s0);
         stage_rows(xs, xa, s0, nb, a.di);
-        gemv_tiles<T, TW>(xs, nb, a.di, column<TW>(wt, W_X),
-                          column<float>(wt, W_X_SCALE), a.nx, a.tj_x, red,
+        gemv_tiles<T, TW, kV>(xs, nb, a.di, column<TW>(wt, W_X),
+                          column<float>(wt, W_X_SCALE), a.nx, red,
                           [&](int si, int j, float sum) {
                             dbc[(int64_t)(s0 + si) * a.nx + j] =
                                 round_to<T>(sum);
@@ -414,28 +568,70 @@ mamba_megakernel(const MegaArgs a) {
     grid.sync();
 
     // C (+ C2): dt, the S6 step, gate; the state written or requantized
-    phase_step<T, TW>(a, wt, l, redn);
+    phase_step<T, TW>(a, wt, rs, redn);
     grid.sync();
     if (quantized(a.state_dtype)) {
       if (a.state_dtype == SD_INT8)
-        phase_requant<int8_t>(a, l);
+        phase_requant<int8_t>(a, rs);
       else
-        phase_requant<__nv_fp8_e4m3>(a, l);
+        phase_requant<__nv_fp8_e4m3>(a, rs);
       grid.sync();
     }
 
     // D: out_proj, residual
-    if (blockIdx.x < (a.dm + a.tj_out - 1) / a.tj_out) {
+    if (blockIdx.x < gemv_ntiles<kV>(a.dm)) {
       for (int s0 = 0; s0 < a.b; s0 += kSlots) {
         const int nb = min(kSlots, a.b - s0);
         stage_rows(xs, yb, s0, nb, a.di);
-        gemv_tiles<T, TW>(
+        gemv_tiles<T, TW, kV>(
             xs, nb, a.di, column<TW>(wt, W_OUT),
-            column<float>(wt, W_OUT_SCALE), a.dm, a.tj_out, red,
+            column<float>(wt, W_OUT_SCALE), a.dm, red,
             [&](int si, int j, float sum) {
               const int64_t i = (int64_t)(s0 + si) * a.dm + j;
               x[i] = from_f32<T>(to_f32(xsrc[i]) + round_to<T>(sum));
             });
+      }
+    }
+    if (kMlp) {
+      grid.sync();
+      // E: norm2 -> w1 and w3 -> SiLU(w1 x) * (w3 x), the rounding points
+      // of blocks.mlp_apply: each dense output, SiLU and the product
+      if (blockIdx.x < gemv_ntiles<kV>(a.d_ff)) {
+        for (int s0 = 0; s0 < a.b; s0 += kSlots) {
+          const int nb = min(kSlots, a.b - s0);
+          stage_norm<T>(xs, redn, x, column<float>(wt, W_NORM2), s0, nb,
+                        a.dm);
+          gemv_tiles<T, TW, kV>(xs, nb, a.dm, column<TW>(wt, W_W1),
+                            column<float>(wt, W_W1_SCALE), a.d_ff, red,
+                            [&](int si, int j, float sum) {
+                              hid[(int64_t)(s0 + si) * a.d_ff + j] =
+                                  round_to<T>(sum);
+                            });
+          // the same tiles and epilogue threads as w1's: each thread reads
+          // back only what it wrote
+          gemv_tiles<T, TW, kV>(
+              xs, nb, a.dm, column<TW>(wt, W_W3),
+              column<float>(wt, W_W3_SCALE), a.d_ff, red,
+              [&](int si, int j, float sum) {
+                float* hp = hid + (int64_t)(s0 + si) * a.d_ff + j;
+                const float act = round_to<T>(apply_silu(*hp, a.silu_impl));
+                *hp = round_to<T>(act * round_to<T>(sum));
+              });
+        }
+      }
+      grid.sync();
+      // F: w2 over the hidden rows (read from global memory), residual
+      if (blockIdx.x < gemv_ntiles<kV>(a.dm)) {
+        for (int s0 = 0; s0 < a.b; s0 += kSlots) {
+          const int nb = min(kSlots, a.b - s0);
+          gemv_tiles<T, TW, kV>(
+              hid + (int64_t)s0 * a.d_ff, nb, a.d_ff, column<TW>(wt, W_W2),
+              column<float>(wt, W_W2_SCALE), a.dm, red,
+              [&](int si, int j, float sum) {
+                const int64_t i = (int64_t)(s0 + si) * a.dm + j;
+                x[i] = from_f32<T>(to_f32(x[i]) + round_to<T>(sum));
+              });
+        }
       }
     }
     if (l + 1 < a.L) grid.sync();
@@ -444,33 +640,72 @@ mamba_megakernel(const MegaArgs a) {
 
 // Shared memory of one block: the staged rows, the tile reduction and the
 // norm / absmax partials.
-size_t smem_bytes(int dm, int di) {
+size_t smem_bytes(int dm, int di, int mlp) {
   const int kmax = dm > di ? dm : di;
-  return sizeof(float) * ((size_t)kSlots * kmax + kMWarps * kSlots * 32 +
+  return sizeof(float) * ((size_t)kSlots * kmax +
+                          kMWarps * kSlots * 32 * (mlp ? kVec : 1) +
                           kMWarps * kSlots);
 }
 
 // scratch floats: x_a, z, (dt_low|B|C), y, chunk absmax, f32 state values
-int64_t scratch_floats(int b, int di, int nx, int nchunks) {
-  return (int64_t)b * (3 * (int64_t)di + nx + nchunks + (int64_t)di * kMN);
-}
-
-// the widest tile (<= 32 columns) that still gives every block one
-int pick_tj(int n, int grid) {
-  int tj = 32;
-  while (tj > 1 && (n + tj - 1) / tj < grid) tj >>= 1;
-  return tj;
+// and the MLP hidden (d_ff 0 without one)
+int64_t scratch_floats(int b, int di, int nx, int nchunks, int d_ff) {
+  return (int64_t)b *
+         (3 * (int64_t)di + nx + nchunks + (int64_t)di * kMN + d_ff);
 }
 
 using KernelFn = void (*)(const MegaArgs);
 
-KernelFn pick(int dtype, int weight_dtype) {
+template <bool kMlp>
+KernelFn pick_mlp(int dtype, int weight_dtype) {
   using bf = __nv_bfloat16;
-  if (dtype == DT_F32 && weight_dtype == 0) return mamba_megakernel<float, float>;
-  if (dtype == DT_F32 && weight_dtype == 1) return mamba_megakernel<float, int8_t>;
-  if (dtype == DT_BF16 && weight_dtype == 0) return mamba_megakernel<bf, float>;
-  if (dtype == DT_BF16 && weight_dtype == 1) return mamba_megakernel<bf, int8_t>;
+  if (dtype == DT_F32 && weight_dtype == 0)
+    return mamba_megakernel<float, float, kMlp>;
+  if (dtype == DT_F32 && weight_dtype == 1)
+    return mamba_megakernel<float, int8_t, kMlp>;
+  if (dtype == DT_BF16 && weight_dtype == 0)
+    return mamba_megakernel<bf, float, kMlp>;
+  if (dtype == DT_BF16 && weight_dtype == 1)
+    return mamba_megakernel<bf, int8_t, kMlp>;
   return nullptr;
+}
+
+KernelFn pick(int dtype, int weight_dtype, int mlp) {
+  return mlp ? pick_mlp<true>(dtype, weight_dtype)
+             : pick_mlp<false>(dtype, weight_dtype);
+}
+
+int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
+              size_t* smem);
+
+// Checks the launch, sizes the grid and launches; 0 or a CUDA error.
+int launch(KernelFn fn, MegaArgs& a, int64_t scratch_len, void* stream) {
+  const bool quant = a.state_dtype == SD_INT8 || a.state_dtype == SD_FP8;
+  if (fn == nullptr || a.L < 1 || a.b < 1 || a.dm < 1 || a.di < 1 ||
+      a.R < 1 || a.k < 1 || a.d_ff < 0 || a.state_dtype < SD_INT8 ||
+      a.state_dtype > SD_BF16 ||
+      scratch_len < scratch_floats(a.b, a.di, a.nx, a.nchunks, a.d_ff))
+    return cudaErrorInvalidValue;
+  const bool per_row = a.d_ff > 0;  // the jamba instance
+  for (int l = 0; per_row && l < a.L; ++l)
+    if (a.rows.h[l] == nullptr || a.rows.conv[l] == nullptr ||
+        a.rows.h_out[l] == nullptr || a.rows.conv_out[l] == nullptr ||
+        (quant && (a.rows.h_scale[l] == nullptr ||
+                   a.rows.h_scale_out[l] == nullptr)))
+      return cudaErrorInvalidValue;
+  if (!per_row && quant && (a.h_scale == nullptr || a.h_scale_out == nullptr))
+    return cudaErrorInvalidValue;
+  int per_sm = 0, grid = 0;
+  size_t smem = 0;
+  const int rc = configure(fn, a.dm, a.di, a.d_ff > 0, &per_sm, &grid,
+                           &smem);
+  if (rc != 0) return rc;
+  void* params[] = {(void*)&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)fn, dim3(grid), dim3(kMThreads), params, smem,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // blocks per SM, grid and shared memory of a launch; 0 or an error code.
@@ -478,12 +713,12 @@ KernelFn pick(int dtype, int weight_dtype) {
 // largest shared memory a kernel was opened to, so a launch after the
 // first makes no attribute or occupancy query (none inside a CUDA graph
 // capture either).
-int configure(KernelFn fn, int dm, int di, int* per_sm, int* grid,
+int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
               size_t* smem) {
   struct Entry { KernelFn fn; int dev; size_t smem; int per_sm, grid; };
   static std::mutex mu;
   static std::vector<Entry> seen;
-  *smem = smem_bytes(dm, di);
+  *smem = smem_bytes(dm, di, mlp);
   int dev, sms, coop;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -519,15 +754,16 @@ int configure(KernelFn fn, int dm, int di, int* per_sm, int* grid,
 
 // The launch configuration K3 would use on the current device: out[0]
 // blocks per SM, out[1] the grid, out[2] dynamic shared memory bytes.
-// weight_dtype 0 is f32, 1 int8.
+// weight_dtype 0 is f32, 1 int8; mlp 1 is the jamba instance.
 extern "C" int marca_mamba_stacked_grid(int d_model, int d_inner, int dtype,
-                                        int weight_dtype, int* out) {
+                                        int weight_dtype, int mlp, int* out) {
   using namespace marca;
-  const KernelFn fn = pick(dtype, weight_dtype);
+  const KernelFn fn = pick(dtype, weight_dtype, mlp);
   if (fn == nullptr || d_model < 1 || d_inner < 1) return cudaErrorInvalidValue;
   int per_sm = 0, grid = 0;
   size_t smem = 0;
-  const int rc = configure(fn, d_model, d_inner, &per_sm, &grid, &smem);
+  const int rc = configure(fn, d_model, d_inner, mlp, &per_sm, &grid,
+                           &smem);
   if (rc != 0) return rc;
   out[0] = per_sm;
   out[1] = grid;
@@ -535,7 +771,7 @@ extern "C" int marca_mamba_stacked_grid(int d_model, int d_inner, int dtype,
   return 0;
 }
 
-// One decode step of the whole Mamba stack.  table: (L, 16) int64 device
+// One decode step of the whole Mamba stack.  table: (L, 24) int64 device
 // pointers per layer (megakernel.py TABLE_COLUMNS); x0, x_out (slots,
 // d_model) in the compute type; h, h_out (L, slots, d_inner, 16) in the
 // state type; h_scale, h_scale_out (L, slots, g) f32 for an int8/fp8 state
@@ -550,30 +786,77 @@ extern "C" int marca_mamba_stacked_step(
     int dtype, int weight_dtype, int state_dtype, int exp_impl,
     int silu_impl, void* stream) {
   using namespace marca;
-  const KernelFn fn = pick(dtype, weight_dtype);
-  const bool quant = state_dtype == SD_INT8 || state_dtype == SD_FP8;
-  const int g = (d_inner + kScaleGroup - 1) / kScaleGroup;
-  const int nchunks = (d_inner + kChunk - 1) / kChunk;
-  const int nx = dt_rank + 2 * kMN;
-  if (fn == nullptr || d_state != kMN || L < 1 || slots < 1 || d_model < 1 ||
-      d_inner < 1 || dt_rank < 1 || d_conv < 1 || state_dtype < SD_INT8 ||
-      state_dtype > SD_BF16 || (quant && (h_scale == nullptr ||
-                                          h_scale_out == nullptr)) ||
-      scratch_len < scratch_floats(slots, d_inner, nx, nchunks))
+  if (d_state != kMN) return cudaErrorInvalidValue;
+  MegaArgs a{};
+  a.table = (const int64_t*)table;
+  a.x0 = x0;
+  a.x = x_out;
+  a.h = h;
+  a.h_scale = (const float*)h_scale;
+  a.conv = conv;
+  a.h_out = h_out;
+  a.h_scale_out = (float*)h_scale_out;
+  a.conv_out = conv_out;
+  a.scratch = (float*)scratch;
+  a.L = L;
+  a.b = slots;
+  a.dm = d_model;
+  a.di = d_inner;
+  a.R = dt_rank;
+  a.k = d_conv;
+  a.nx = dt_rank + 2 * kMN;
+  a.g = (d_inner + kScaleGroup - 1) / kScaleGroup;
+  a.nchunks = (d_inner + kChunk - 1) / kChunk;
+  a.d_ff = 0;
+  a.state_dtype = state_dtype;
+  a.exp_impl = exp_impl;
+  a.silu_impl = silu_impl;
+  return launch(pick(dtype, weight_dtype, 0), a, scratch_len, stream);
+}
+
+// One decode token through a run of jamba positions (K3's jamba instance).
+// table: (nrows, 24) int64 device pointers per position (megakernel.py
+// TABLE_COLUMNS + MLP_COLUMNS); x0, x_out (slots, d_model) in the compute
+// type; rows: a host array of 6 x 8 int64 device pointers, the h, h_scale,
+// conv, h_out, h_scale_out and conv_out of each position (h (slots,
+// d_inner, 16) in the state type, h_scale (slots, g) f32 for an int8/fp8
+// state, else 0, conv (slots, d_conv-1, d_inner) in the compute type);
+// scratch at least scratch_floats() f32.  Returns 0 or a CUDA error.
+extern "C" int marca_jamba_stacked_run(
+    const void* table, const void* x0, void* x_out, const int64_t* rows,
+    void* scratch, int64_t scratch_len, int nrows, int slots, int d_model,
+    int d_inner, int d_state, int dt_rank, int d_conv, int d_ff, int dtype,
+    int weight_dtype, int state_dtype, int exp_impl, int silu_impl,
+    void* stream) {
+  using namespace marca;
+  if (d_state != kMN || nrows < 1 || nrows > kMaxRows || d_ff < 1 ||
+      rows == nullptr)
     return cudaErrorInvalidValue;
-  int per_sm = 0, grid = 0;
-  size_t smem = 0;
-  const int rc = configure(fn, d_model, d_inner, &per_sm, &grid, &smem);
-  if (rc != 0) return rc;
-  MegaArgs a{(const int64_t*)table, x0, x_out, h, (const float*)h_scale,
-             conv, h_out, (float*)h_scale_out, conv_out, (float*)scratch,
-             L, slots, d_model, d_inner, dt_rank, d_conv, nx, g, nchunks,
-             pick_tj(2 * d_inner, grid), pick_tj(nx, grid),
-             pick_tj(d_model, grid), state_dtype, exp_impl, silu_impl};
-  void* params[] = {(void*)&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)fn, dim3(grid), dim3(kMThreads), params, smem,
-      static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  MegaArgs a{};
+  a.table = (const int64_t*)table;
+  a.x0 = x0;
+  a.x = x_out;
+  for (int l = 0; l < nrows; ++l) {
+    a.rows.h[l] = (const void*)rows[0 * kMaxRows + l];
+    a.rows.h_scale[l] = (const float*)rows[1 * kMaxRows + l];
+    a.rows.conv[l] = (const void*)rows[2 * kMaxRows + l];
+    a.rows.h_out[l] = (void*)rows[3 * kMaxRows + l];
+    a.rows.h_scale_out[l] = (float*)rows[4 * kMaxRows + l];
+    a.rows.conv_out[l] = (void*)rows[5 * kMaxRows + l];
+  }
+  a.scratch = (float*)scratch;
+  a.L = nrows;
+  a.b = slots;
+  a.dm = d_model;
+  a.di = d_inner;
+  a.R = dt_rank;
+  a.k = d_conv;
+  a.nx = dt_rank + 2 * kMN;
+  a.g = (d_inner + kScaleGroup - 1) / kScaleGroup;
+  a.nchunks = (d_inner + kChunk - 1) / kChunk;
+  a.d_ff = d_ff;
+  a.state_dtype = state_dtype;
+  a.exp_impl = exp_impl;
+  a.silu_impl = silu_impl;
+  return launch(pick(dtype, weight_dtype, 1), a, scratch_len, stream);
 }

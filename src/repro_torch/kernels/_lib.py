@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("selective_scan.cu", "conv1d.cu", "decode_step.cu",
-           "decode_step_q.cu", "megakernel_mamba.cu")
+           "decode_step_q.cu", "megakernel_mamba.cu", "flash_attention.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
@@ -36,7 +36,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float32: 2,
                 torch.bfloat16: 3}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "marca_selective_scan": [_P] * 10 + [_I] * 4 + [_L] * 10
     + [_I] * 3 + [_P],
@@ -45,7 +45,9 @@ _SIGNATURES = {
     "marca_decode_step_q": [_P] * 13 + [_I] * 4 + [_L] * 5 + [_I] * 4
     + [_P],
     "marca_mamba_stacked_step": [_P] * 10 + [_L] + [_I] * 12 + [_P],
-    "marca_mamba_stacked_grid": [_I] * 4 + [_P],
+    "marca_mamba_stacked_grid": [_I] * 5 + [_P],
+    "marca_jamba_stacked_run": [_P] * 5 + [_L] + [_I] * 13 + [_P],
+    "marca_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 _lib = None

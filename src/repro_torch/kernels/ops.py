@@ -10,6 +10,9 @@ accepted so that one config describes both packages:
 * ``scan_impl``: seq | assoc | chunked | chunked_seq | pallas — all run
   the scan kernel (``pallas`` is the name this slice is configured with);
 * ``conv_impl``: xla | pallas — both run the conv kernel;
+* ``attn_impl``: chunked | ref | pallas — all run the flash attention
+  kernel (K7) at prefill (``pallas`` is the name jamba is configured
+  with);
 * ``step_impl``: "megakernel" runs the whole layer stack of a decode
   token in one launch of the cross-layer kernel (K3,
   ``kernels/megakernel.py``); fused | pallas | xla run the per-layer
@@ -30,10 +33,12 @@ import torch
 from repro_torch.core import state_quant
 from repro_torch.kernels import conv1d as _conv_k
 from repro_torch.kernels import decode_step as _step_k
+from repro_torch.kernels import flash_attention as _flash_k
 from repro_torch.kernels import selective_scan as _scan_k
 
 SCAN_IMPLS = ("seq", "assoc", "chunked", "chunked_seq", "pallas")
 CONV_IMPLS = ("xla", "pallas")
+ATTN_IMPLS = ("chunked", "ref", "pallas")
 STEP_IMPLS = ("auto", "megakernel", "fused", "pallas", "xla")
 
 
@@ -94,3 +99,11 @@ def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
         hq, h_scale, x_t, dt_t, A, B_t, C_t, D=D, z_t=z_t,
         state_dtype=state_dtype, exp_impl=exp_impl, silu_impl=silu_impl,
         a_scale=a_scale)
+
+
+def attention(q, k, v, causal: bool = True, impl: str = "pallas"):
+    """Causal GQA attention of a sequence: K7 on the card, its plain
+    version on the CPU, under every ``attn_impl`` name."""
+    if impl not in ATTN_IMPLS:
+        raise KeyError(f"unknown attention impl {impl!r}")
+    return _flash_k.flash_attention(q, k, v, causal=causal)

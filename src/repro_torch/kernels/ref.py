@@ -11,9 +11,10 @@ Layouts are ``repro``'s public ones (``repro/kernels/ref.py``): h is
 
 ``CALLS`` counts entries into each plain version, so a run on the card
 can show that the serving path never took one.  Each version counts
-only its own entry: the plain K3 (``mamba_stacked_step``) runs the conv
-and the step through the uncounted bodies ``conv_math``, ``step_math``
-and ``step_q_math``, as the TPU kernel runs them inline.
+only its own entry: the plain K3 (``mamba_stacked_step``,
+``jamba_stacked_run``) runs the conv and the step through the uncounted
+bodies ``conv_math``, ``step_math`` and ``step_q_math``, as the TPU
+kernel runs them inline.
 """
 from __future__ import annotations
 
@@ -169,3 +170,52 @@ def mamba_stacked_step(cfg, x0, layers, h, h_scale, conv):
             ss.append(ns["h_scale"])
     return (x, torch.stack(hs), torch.stack(ss) if ss else None,
             torch.stack(cs))
+
+
+def jamba_stacked_run(cfg, x0, rows, states):
+    """One run of pure-SSM jamba positions for one decode token: the body
+    of ``repro/models/jamba.py:305`` (``stacked_step``'s ``run_mega``,
+    launched through ``repro/kernels/decode_step.py:413``), for each
+    position of the run in order: norm1 -> ``mamba.mamba_block_megastep``
+    -> residual -> norm2 -> MLP -> residual.
+
+    x0 (b, 1, d_model) in cfg.dtype; ``rows`` the positions' param dicts
+    ({"norm1", "mamba", "norm2", "mlp"}); ``states`` one state dict per
+    position ({"h", "conv"} + "h_scale" for an int8/fp8 state).  Returns
+    (x (b, 1, d_model), the new state dicts)."""
+    from repro_torch.models import blocks, mamba   # models import kernels
+    CALLS["jamba_stacked_run"] += 1
+    x = x0
+    out = []
+    for lp, state in zip(rows, states):
+        xn = blocks.apply_norm(cfg, lp["norm1"], x)
+        y, ns = mamba.mamba_block_megastep(cfg, lp["mamba"], xn, state)
+        x = x + y
+        xn = blocks.apply_norm(cfg, lp["norm2"], x)
+        x = x + blocks.mlp_apply(cfg, lp["mlp"], xn)
+        out.append(ns)
+    return x, out
+
+
+def attention(q, k, v, causal: bool = True, scale=None):
+    """Causal GQA attention, the oracle of the flash kernel K7
+    (``repro/kernels/ref.py:152``).  q (b, lq, hq, dh); k/v (b, lk, hkv,
+    dh); GQA by head repetition; in f32 with the scores materialized;
+    with ``causal`` query i attends to keys j <= i + lk - lq (the queries
+    are the suffix of the sequence).  Returns (b, lq, hq, dh) in q's
+    dtype."""
+    CALLS["attention"] += 1
+    b, lq, hq, dh = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if scale is None:
+        scale = dh ** -0.5
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    if causal:
+        mask = torch.ones(lq, lk, dtype=torch.bool,
+                          device=q.device).tril(lk - lq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

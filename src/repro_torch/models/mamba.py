@@ -33,13 +33,14 @@ def mamba_block_init(cfg, gen):
                       cfg.dt_rank)
     # S4D-real initialization for A; dt bias init for softplus range
     a_init = torch.arange(1, n + 1, dtype=torch.float32)[None, :].repeat(di, 1)
-    dt_init = torch.exp(torch.rand(di, generator=gen)
+    dt_init = torch.exp(torch.rand(di, generator=gen, device=gen.device)
                         * (math.log(0.1) - math.log(0.001))
                         + math.log(0.001))
     dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))  # inverse softplus
     return {
         "in_proj": blocks.dense_init(gen, d, 2 * di),
-        "conv_w": torch.randn(k, di, generator=gen) * (1.0 / k),
+        "conv_w": torch.randn(k, di, generator=gen, device=gen.device)
+        * (1.0 / k),
         "conv_b": torch.zeros(di),
         "x_proj": blocks.dense_init(gen, di, r + 2 * n),
         "dt_proj": blocks.dense_init(gen, r, di, scale=r ** -0.5),

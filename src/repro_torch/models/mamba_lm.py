@@ -113,6 +113,13 @@ def prefill(cfg, p, cache, batch):
     return _logits(cfg, p, h), _stack(cfg, states, pos)
 
 
+def stack_params(cfg, params):
+    """``params`` with K3's view of the layers under ``"stack"``: a
+    ``megakernel.MambaStack`` over the same tensors, built once per engine
+    (``registry.stack_params``)."""
+    return {**params, "stack": megakernel.MambaStack(cfg, params["layers"])}
+
+
 def stacked_step(cfg, p, cache, batch):
     """Single-token decode as ONE kernel launch for the whole stack
     (``repro/models/mamba_lm.py:140``): embed, K3 over every layer

@@ -1,15 +1,17 @@
 """Model registry: family dispatch, slot-indexable caches and parameter
-counts — the port of ``repro/models/registry.py`` for the mamba family.
-Other families raise ``NotImplementedError`` (ROADMAP A9-A11).
+counts — the port of ``repro/models/registry.py`` for the mamba and
+jamba families.  Other families raise ``NotImplementedError`` (ROADMAP
+A10-A11).
 
   init_params(cfg, seed, device) -> param tree (nested dicts of tensors)
   quantize_params(cfg, params) -> the int8 + scale tree (weight_dtype)
-  stack_params(cfg, params) -> the tree with the megakernel's stacked
-      view of its layers (built once per engine)
+  stack_params(cfg, params) -> the tree with the megakernel's view of
+      its layers (built once per engine)
   forward / prefill / decode_step(cfg, params, ...) -> (logits, ...)
   init_cache(cfg, batch, max_seq, dtype, device) -> decode cache
   gather_slots / scatter_slots / mask_slots -> the serving engine's
-      slot contract over cache_slot_axes
+      slot contract over cache_slot_axes (nested cache trees: jamba's
+      {"layers": {"pos{i}": {...}}, "pos"})
   count_params(cfg) -> analytical N
 """
 from __future__ import annotations
@@ -17,17 +19,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import weight_quant
-from repro_torch.kernels import megakernel
-from repro_torch.models import mamba_lm
+from repro_torch.models import jamba, mamba_lm
 
-_FAMILIES = {"mamba": mamba_lm}
+_FAMILIES = {"mamba": mamba_lm, "jamba": jamba}
 
 
 def family(cfg):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP A9-A11)")
+            "(ROADMAP A10-A11)")
     return _FAMILIES[cfg.family]
 
 
@@ -50,15 +51,28 @@ def tree_to(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
+def tree_zip(fn, axes, *trees):
+    """``fn(axis, *leaves)`` over trees of one structure, walked along
+    ``axes`` (a tree of ints, as ``cache_slot_axes`` gives); returns the
+    tree of the results."""
+    if isinstance(axes, dict):
+        return {k: tree_zip(fn, a, *(t[k] for t in trees))
+                for k, a in axes.items()}
+    return fn(axes, *trees)
+
+
 # ---------------------------------------------------------------------------
 # Params / caches
 # ---------------------------------------------------------------------------
 
-def init_params(cfg, seed: int = 0, device="cpu"):
-    """Weights made from ``seed`` with a CPU ``torch.Generator``, then
-    moved: the same seed gives the same weights on every device.
-    Quantized when cfg.weight_dtype is "int8"."""
-    gen = torch.Generator().manual_seed(seed)
+def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
+    """Weights made from ``seed`` with a ``torch.Generator`` on
+    ``draw_device``, then moved to ``device``.  A CPU generator (the
+    default) gives the same weights on every device; a CUDA one draws a
+    large tree on the card (jamba-v0.1 is 53 GB in f32), with other
+    numbers from the same seed.  Quantized when cfg.weight_dtype is
+    "int8"."""
+    gen = torch.Generator(device=draw_device).manual_seed(seed)
     return tree_to(quantize_params(cfg, family(cfg).init(cfg, gen)), device)
 
 
@@ -72,12 +86,14 @@ def quantize_params(cfg, params):
 
 def stack_params(cfg, params):
     """``params`` with ``"stack"``: the layers as the cross-layer decode
-    kernel (K3, ``step_impl="megakernel"``) reads them, a
-    ``megakernel.MambaStack`` over the same tensors (no weight is
-    copied).  ``repro`` holds its layers stacked on a leading L axis; the
-    port keeps per-layer dicts and builds this once per engine, after the
-    tree has moved to its device, never per token."""
-    return {**params, "stack": megakernel.MambaStack(cfg, params["layers"])}
+    kernel (K3, ``step_impl="megakernel"``) reads them, over the same
+    tensors (no weight is copied), built by the family: a
+    ``megakernel.MambaStack`` of every layer for mamba, one
+    ``megakernel.JambaRun`` per pure-SSM run of each group for jamba.
+    ``repro`` holds its layers stacked on a leading axis; the port keeps
+    per-layer dicts and builds this once per engine, after the tree has
+    moved to its device, never per token."""
+    return family(cfg).stack_params(cfg, params)
 
 
 def init_cache(cfg, batch, max_seq, dtype=None, device="cpu"):
@@ -102,34 +118,32 @@ def _bits(t):
 
 def gather_slots(cfg, cache, slot_ids):
     """Sub-cache of ``slot_ids`` (int64 tensor (m,)), a copy."""
-    axes = cache_slot_axes(cfg)
-    return {k: _bits(v).index_select(axes[k], slot_ids).view(v.dtype)
-            for k, v in cache.items()}
+    return tree_zip(
+        lambda ax, v: _bits(v).index_select(ax, slot_ids).view(v.dtype),
+        cache_slot_axes(cfg), cache)
 
 
 def scatter_slots(cfg, pool_cache, sub_cache, slot_ids):
     """Write a sub-cache (m slot entries) into ``pool_cache`` at
     ``slot_ids``.  In place — the pool's buffers are updated rather than
     copied, unlike repro's functional ``.at[].set`` — and returned."""
-    axes = cache_slot_axes(cfg)
-    for k, dst in pool_cache.items():
-        _bits(dst).index_copy_(axes[k], slot_ids,
-                               _bits(sub_cache[k].to(dst.dtype)))
+    def put(ax, dst, src):
+        _bits(dst).index_copy_(ax, slot_ids, _bits(src.to(dst.dtype)))
+
+    tree_zip(put, cache_slot_axes(cfg), pool_cache, sub_cache)
     return pool_cache
 
 
 def mask_slots(cfg, old_cache, new_cache, active):
     """Per-slot select: ``new_cache`` where ``active`` (bool (slots,)),
     else ``old_cache`` — inactive slots never change."""
-    axes = cache_slot_axes(cfg)
-    out = {}
-    for k, old in old_cache.items():
+    def mix(ax, old, new):
         shape = [1] * old.dim()
-        shape[axes[k]] = -1
-        out[k] = torch.where(active.reshape(shape),
-                             _bits(new_cache[k].to(old.dtype)),
-                             _bits(old)).view(old.dtype)
-    return out
+        shape[ax] = -1
+        return torch.where(active.reshape(shape), _bits(new.to(old.dtype)),
+                           _bits(old)).view(old.dtype)
+
+    return tree_zip(mix, cache_slot_axes(cfg), old_cache, new_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,12 @@ no compile to share between engines.
 ``weight_dtype="int8"`` quantizes the handed-in f32 tree for decode
 (the decode-bandwidth lever) and keeps the f32 tree as the prefill
 master (``prefill_params``), as ``repro``'s engine does; both live on
-the device.  ``state_dtype`` "int8"/"fp8" stores the pooled state as
-codes with f32 group scales.
+the device (a jamba tree shares its MoE experts, which stay f32,
+between the two).  ``state_dtype`` "int8"/"fp8" stores the pooled state
+as codes with f32 group scales, ``kv_cache_dtype="int8"`` jamba's KV
+strips as codes with per-position scales.  The engine touches the cache
+only through the registry's slot operations, which walk any nested
+cache tree.
 
 ``step_impl="megakernel"`` (and "auto" on the card) decodes each token
 of the pool with one launch of the cross-layer kernel K3; the engine
@@ -75,10 +79,12 @@ class EngineConfig:
     # (fused, pallas and xla run the per-layer step kernel; so does auto
     # on the CPU); state_dtype "f32" | "bf16" | "int8" | "fp8";
     # weight_dtype "f32" | "int8" (int8 quantizes the handed-in f32 tree
-    # for decode)
+    # for decode); kv_cache_dtype "model" | "int8" (jamba's attention KV
+    # strips: state_dtype covers the recurrent blocks, this the strips)
     step_impl: Optional[str] = None
     state_dtype: Optional[str] = None
     weight_dtype: Optional[str] = None
+    kv_cache_dtype: Optional[str] = None
     # not ported yet: must stay None
     draft: Optional[object] = None
     prefix_cache: Optional[object] = None
@@ -130,6 +136,9 @@ class Engine:
             cfg = dataclasses.replace(cfg, step_impl=ecfg.step_impl)
         if ecfg.state_dtype is not None:
             cfg = dataclasses.replace(cfg, state_dtype=ecfg.state_dtype)
+        if ecfg.kv_cache_dtype is not None:
+            cfg = dataclasses.replace(cfg,
+                                      kv_cache_dtype=ecfg.kv_cache_dtype)
         ecfg.default_params.validate()
         self.device = resolve_device(ecfg.device)
         stack = ops.resolve_step_impl(cfg.step_impl,

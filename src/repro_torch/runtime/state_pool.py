@@ -25,8 +25,9 @@ from repro_torch.runtime import sampling
 
 class SlotStatePool:
     """Fixed-capacity pool of per-slot decode state for one config.
-    ``cache`` is a dict of tensors whose slot axis
-    (``registry.cache_slot_axes``) has ``n_slots`` entries."""
+    ``cache`` is a tree of tensors (flat for mamba, nested for jamba)
+    whose slot axis (``registry.cache_slot_axes``) has ``n_slots``
+    entries."""
 
     def __init__(self, cfg, n_slots: int, max_seq: int, dtype=None,
                  device="cpu"):
@@ -108,9 +109,9 @@ class SlotStatePool:
     def state_bytes_per_slot(self) -> int:
         """Device bytes one slot occupies across every cache leaf:
         quantized payloads at their storage width, their f32 scales
-        included."""
+        included (jamba's KV strips at max_seq)."""
         return sum(t.numel() * t.element_size()
-                   for t in self.cache.values()) // self.n_slots
+                   for t in registry.tree_leaves(self.cache)) // self.n_slots
 
     def slots_per_gb(self) -> float:
         """Slot capacity per GiB of decode-state memory (the capacity

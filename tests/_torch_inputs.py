@@ -129,3 +129,40 @@ def stacked_inputs(cfg, slots, seed=0, device="cpu"):
         h = h.to(state_quant.storage_dtype(cfg.state_dtype))
     return (params, x0.to(device, dt), h.to(device), h_scale,
             conv.to(device, dt))
+
+
+def jamba_run_inputs(cfg, n_pos, slots, seed=0, device="cpu"):
+    """One call of K3's jamba instance at cfg's shapes: ``n_pos`` mamba +
+    MLP positions drawn from ``seed`` on ``device`` (int8 when
+    cfg.weight_dtype is) as a ``megakernel.JambaRun``, x0 (slots, 1,
+    d_model) in cfg.dtype, one state dict per position (h, conv, + h_scale
+    for an int8/fp8 state; slot 0 a fresh slot) and output dicts to write
+    into.  Returns (run, x0, states, outs)."""
+    from repro_torch.core import state_quant, weight_quant
+    from repro_torch.kernels import megakernel
+    from repro_torch.models import jamba, registry
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = registry.tree_to([jamba._sublayer_init(cfg, gen, 0)
+                             for _ in range(n_pos)], device)
+    if weight_quant.is_quantized(cfg.weight_dtype):
+        rows = weight_quant.quantize_tree(rows)
+    dt = getattr(torch, cfg.dtype)
+    di, n, k = cfg.d_inner, cfg.d_state, cfg.d_conv
+    x0 = torch.from_numpy(np_input(seed + 1, slots, 1, cfg.d_model))
+    states = []
+    for i in range(n_pos):
+        h = torch.from_numpy(np_input(seed + 2 + i, slots, di, n)) * 0.5
+        h[0] = 0.0
+        st = {"conv": torch.from_numpy(np_input(seed + 20 + i, slots, k - 1,
+                                                di)).to(device, dt)}
+        if state_quant.is_quantized(cfg.state_dtype):
+            h, scale = state_quant.quantize_h(h, cfg.state_dtype)
+            scale[0] = 0.0
+            st["h_scale"] = scale.to(device)
+        else:
+            h = h.to(state_quant.storage_dtype(cfg.state_dtype))
+        st["h"] = h.to(device)
+        states.append(st)
+    outs = [{key: torch.empty_like(v) for key, v in st.items()}
+            for st in states]
+    return megakernel.JambaRun(cfg, rows), x0.to(device, dt), states, outs

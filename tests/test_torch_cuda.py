@@ -14,8 +14,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
 from _torch_inputs import (VARIANTS, assert_q_close, close, code_ordinals,
-                           np_input, q_step_tensors, scan_arrays, scan_call,
-                           stacked_inputs, step_arrays, to_torch)
+                           jamba_run_inputs, np_input, q_step_tensors,
+                           scan_arrays, scan_call, stacked_inputs,
+                           step_arrays, to_torch)
 
 
 @pytest.fixture
@@ -283,3 +284,137 @@ def test_cuda_megakernel_repeats_bitwise(cuda, state_dtype):
     for u, v in zip(a, b):
         assert (u is None and v is None) or torch.equal(
             u.view(torch.uint8), v.view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# K7: flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [  # b, lq, lk, hq, hkv, dh
+    (2, 37, 37, 4, 2, 16),      # ragged, the smoke width's head dim
+    (1, 17, 100, 8, 2, 64),     # suffix: lq < lk
+    (1, 1, 45, 4, 4, 16),
+    (1, 64, 64, 32, 8, 128),    # jamba-v0.1's heads
+    (1, 127, 127, 32, 8, 128),
+    (1, 512, 512, 32, 8, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,dh", FLASH_SHAPES)
+def test_cuda_flash_matches_plain(cuda, dtype, tol, b, lq, lk, hq, hkv, dh):
+    """K7 against ref.attention on the card, at repro's flash tolerances
+    (2e-5 f32, 3e-2 bf16: the output rounds to bf16)."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.kernels import flash_attention
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(np_input(lq, b, lq, hq, dh)).to(cuda, dt)
+    k = torch.from_numpy(np_input(lk + 1, b, lk, hkv, dh)).to(cuda, dt)
+    v = torch.from_numpy(np_input(lk + 2, b, lk, hkv, dh)).to(cuda, dt)
+    counts = dispatch_count.launch_counts(flash_attention.flash_attention,
+                                          q, k, v)
+    assert dict(counts) == {"flash_attention": 1}, counts
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = ref.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_non_causal(cuda):
+    from repro_torch.kernels import flash_attention
+    q = torch.from_numpy(np_input(1, 2, 33, 4, 32)).to(cuda)
+    k = torch.from_numpy(np_input(2, 2, 50, 2, 32)).to(cuda)
+    v = torch.from_numpy(np_input(3, 2, 50, 2, 32)).to(cuda)
+    got = flash_attention.flash_attention(q, k, v, causal=False)
+    want = ref.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3, jamba instance
+# ---------------------------------------------------------------------------
+
+def _jamba_cfg(d_model, d_ff, dtype, weight_dtype, state_dtype,
+               dt_rank=None):
+    import dataclasses
+    from repro_torch import configs
+    base = configs.get_config("jamba-v0.1-52b")
+    return dataclasses.replace(
+        base, n_layers=8, d_model=d_model, d_ff=d_ff,
+        dt_rank=dt_rank or -(-d_model // 16), dtype=dtype,
+        weight_dtype=weight_dtype, state_dtype=state_dtype)
+
+
+def _jamba_close(cfg, x1, outs1, x0, outs0, tol, label):
+    for i, (a, b) in enumerate(zip(outs1, outs0)):
+        _mega_close(cfg, (x1, a["h"], a.get("h_scale"), a["conv"]),
+                    (x0, b["h"], b.get("h_scale"), b["conv"]), tol,
+                    f"{label} position {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("weight_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("d_model,d_ff,n_pos,slots", [
+    (64, 128, 1, 3), (64, 128, 4, 4), (550, 1000, 3, 6)])
+def test_cuda_jamba_run_matches_plain(cuda, state_dtype, weight_dtype,
+                                      dtype, tol, d_model, d_ff, n_pos,
+                                      slots):
+    """K3's jamba instance against ref.jamba_stacked_run on the card: a
+    one-position run and multi-position runs, a ragged width (d_inner
+    1100, d_ff 1000), 6 slots in two passes of the 4-slot staging."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.kernels import megakernel
+    cfg = _jamba_cfg(d_model, d_ff, dtype, weight_dtype, state_dtype)
+    run, x0, states, outs = jamba_run_inputs(cfg, n_pos, slots, seed=d_model,
+                                             device=cuda)
+    counts = dispatch_count.launch_counts(
+        megakernel.jamba_stacked_run, cfg, x0, run, states, outs)
+    assert sum(counts.values()) == 1 and not any(
+        k.startswith("plain") for k in counts), counts
+    x1 = megakernel.jamba_stacked_run(cfg, x0, run, states, outs)
+    x0r, want = ref.jamba_stacked_run(cfg, x0, run.rows, states)
+    torch.cuda.synchronize()
+    _jamba_close(cfg, x1, outs, x0r, want, tol,
+                 f"{dtype} {weight_dtype} {state_dtype}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weight_dtype,state_dtype", [("f32", "f32"),
+                                                      ("int8", "int8")])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+def test_cuda_jamba_run_full_width(cuda, weight_dtype, state_dtype, dtype,
+                                   tol):
+    """jamba-v0.1's widths (d_model 4096, d_inner 8192, dt_rank 256,
+    d_ff 14336: 16 scale groups, x_proj 288 columns), one position, 4
+    slots."""
+    from repro_torch.kernels import megakernel
+    cfg = _jamba_cfg(4096, 14336, dtype, weight_dtype, state_dtype)
+    run, x0, states, outs = jamba_run_inputs(cfg, 1, 4, seed=7, device=cuda)
+    x1 = megakernel.jamba_stacked_run(cfg, x0, run, states, outs)
+    x0r, want = ref.jamba_stacked_run(cfg, x0, run.rows, states)
+    torch.cuda.synchronize()
+    _jamba_close(cfg, x1, outs, x0r, want, tol, f"full width {dtype}")
+
+
+@pytest.mark.gpu
+def test_cuda_jamba_run_repeats_bitwise(cuda):
+    from repro_torch.kernels import megakernel
+    cfg = _jamba_cfg(550, 1000, "bfloat16", "int8", "int8")
+    run, x0, states, outs = jamba_run_inputs(cfg, 2, 5, seed=3, device=cuda)
+    a = megakernel.jamba_stacked_run(cfg, x0, run, states, outs)
+    first = [{k: v.clone() for k, v in o.items()} for o in outs]
+    b = megakernel.jamba_stacked_run(cfg, x0, run, states, outs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    for u, v in zip(first, outs):
+        for k in u:
+            assert torch.equal(u[k].view(torch.uint8), v[k].view(torch.uint8))

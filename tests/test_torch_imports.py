@@ -58,6 +58,8 @@ def test_serve_path_imports_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch.launch.serve, repro_torch.bridge\n"
         "import repro_torch.runtime.engine, repro_torch.kernels.ops\n"
+        "import repro_torch.models.jamba, repro_torch.models.moe\n"
+        "import repro_torch.kernels.flash_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

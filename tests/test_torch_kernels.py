@@ -223,6 +223,7 @@ def _c_prototypes():
                 kinds.append(ctypes.c_void_p if "*" in arg else
                              ctypes.c_int64 if arg.startswith("int64_t") else
                              ctypes.c_int if arg.startswith("int ") else
+                             ctypes.c_float if arg.startswith("float ") else
                              None)
             out[name] = kinds
     return out
@@ -230,7 +231,8 @@ def _c_prototypes():
 
 def test_ctypes_signatures_match_the_c_entry_points():
     """Every pointer and the stream bind as c_void_p, every int64_t as
-    c_int64: a mismatch would cut a pointer or shift every argument."""
+    c_int64, every float as c_float: a mismatch would cut a pointer or
+    shift every argument."""
     protos = _c_prototypes()
     assert set(protos) == set(_lib._SIGNATURES)
     for name, kinds in protos.items():
