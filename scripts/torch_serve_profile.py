@@ -18,11 +18,13 @@ on a machine with a CUDA card:
 ``--step-impl`` picks the decode path: "megakernel" is one launch of the
 cross-layer kernel per token (for jamba one per pure-SSM run of a
 group), "fused" the per-layer conv and step kernels, "auto" (the
-default) what an engine on the card takes, the megakernel.
+default) what an engine on the card takes, the megakernel (for xLSTM one
+launch per run of same-kind layers, six a token at xlstm-350m).
 jamba-v0.1-52b (32 layers, 52 B parameters) does not fit one card, so it
 is cut to one group of 8 layers, whose weights (53 GB in f32) are drawn
 on the card from a CUDA generator; prefill attention runs the flash
-kernel.
+kernel.  xlstm-350m runs at full width and full depth (24 layers), its
+prefill recurrence a per-token loop of plain tensor code.
 """
 import argparse
 import dataclasses

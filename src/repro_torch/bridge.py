@@ -7,7 +7,10 @@ except the layer stack: ``repro`` stacks each layer parameter on a
 leading L axis (``p["layers"][name]`` of shape (L, ...)), the port keeps
 a list of per-layer dicts; jamba's ``p["groups"]["pos{i}"]`` subtrees
 are stacked on a leading group axis there and are a list of per-group
-dicts ``p["groups"][g]["pos{i}"]`` here.  Cache trees agree as they are.
+dicts ``p["groups"][g]["pos{i}"]`` here.  xLSTM's ``p["layers"]`` is a
+python list of ``{"mlstm": ...}`` / ``{"slstm": ...}`` dicts on both
+sides (its layers differ in kind), so it maps entry for entry.  Cache
+trees agree as they are, lists included.
 
 numpy has no bfloat16 or float8_e4m3fn: a ``repro`` array of either
 dtype (ml_dtypes) is widened to float32 on the way in and cast back in
@@ -62,14 +65,23 @@ def _stack(trees):
 
 #: the keys of the stacked subtree: layers (mamba), groups (jamba)
 _STACKED = ("layers", "groups")
+#: the keys of a layer of a python-list stack (xLSTM's cell kinds)
+_LISTED = ("mlstm", "slstm")
+
+
+def _listed(layers) -> bool:
+    """True for a per-layer list that ``repro`` keeps as a list too."""
+    return (isinstance(layers, (list, tuple)) and len(layers) > 0
+            and isinstance(layers[0], dict)
+            and any(k in layers[0] for k in _LISTED))
 
 
 def params_from_repro(tree, device="cpu"):
-    """``repro`` param tree (numpy leaves, stacked layers or groups) ->
-    port tree."""
+    """``repro`` param tree (numpy leaves, stacked layers or groups, or
+    xLSTM's list of layers) -> port tree."""
     out = to_torch(tree, device)
     for key in _STACKED:
-        if key in out:
+        if key in out and isinstance(out[key], dict):
             stacked = out[key]
             n = tree_leaves(stacked)[0].shape[0]
             out[key] = [tree_map(lambda t, i=i: t[i], stacked)
@@ -82,7 +94,8 @@ def params_to_repro(params):
     out = {k: to_numpy(v) for k, v in params.items() if k not in _STACKED}
     for key in _STACKED:
         if key in params:
-            out[key] = _stack([to_numpy(lp) for lp in params[key]])
+            layers = [to_numpy(lp) for lp in params[key]]
+            out[key] = layers if _listed(params[key]) else _stack(layers)
     return out
 
 

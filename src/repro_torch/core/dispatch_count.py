@@ -21,8 +21,9 @@ from __future__ import annotations
 
 import collections
 
-from repro_torch.kernels import conv1d, decode_step, flash_attention
-from repro_torch.kernels import megakernel, ref, selective_scan
+from repro_torch.kernels import conv1d, decode_step, fast_exp
+from repro_torch.kernels import flash_attention, megakernel, piecewise_silu
+from repro_torch.kernels import ref, selective_scan
 
 #: every kernel launch counter: name -> (wrapper module, attribute)
 COUNTERS = {
@@ -39,7 +40,15 @@ COUNTERS = {
     "jamba_stacked_run_int8a": (megakernel, "jamba_launches_int8a"),
     "jamba_stacked_run_q": (megakernel, "jamba_launches_q"),
     "jamba_stacked_run_q_int8a": (megakernel, "jamba_launches_q_int8a"),
+    "mlstm_stacked_run": (megakernel, "mlstm_launches"),
+    "mlstm_stacked_run_int8w": (megakernel, "mlstm_launches_int8w"),
+    "mlstm_stacked_run_q": (megakernel, "mlstm_launches_q"),
+    "mlstm_stacked_run_q_int8w": (megakernel, "mlstm_launches_q_int8w"),
+    "slstm_stacked_run": (megakernel, "slstm_launches"),
+    "slstm_stacked_run_int8w": (megakernel, "slstm_launches_int8w"),
     "flash_attention": (flash_attention, "launches"),
+    "fast_exp": (fast_exp, "launches"),
+    "piecewise_silu": (piecewise_silu, "launches"),
 }
 
 

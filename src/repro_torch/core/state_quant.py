@@ -1,7 +1,7 @@
 """Quantized storage for the pooled decode state (cfg.state_dtype).
 
-The port's copy of ``repro/core/state_quant.py`` for the SSM state h
-(the xLSTM matrix-memory quantizers come with that family).  The slot
+The port's copy of ``repro/core/state_quant.py``: the SSM state h and
+the xLSTM matrix memory C.  The slot
 pool holds one ``(layers, d_inner, d_state)`` state per in-flight
 sequence; stored int8 or fp8 with f32 absmax scales it takes a quarter
 of the f32 bytes, while the decode math stays f32: dequantize on read,
@@ -119,3 +119,24 @@ def dequantize_h(q, scale):
     out = grouped * scale[..., None, None]
     *lead, g, blk, n = out.shape
     return out.reshape(*lead, g * blk, n)[..., :d, :]
+
+
+# ---------------------------------------------------------------------------
+# Matrix memory (xLSTM C): (..., r, c) payload, (..., r) scales -- one scale
+# per matrix row (``repro/core/state_quant.py:151``).  Rows of C are written
+# by different keys, so their magnitudes span decades; per-row scales keep
+# the relative error uniform.
+# ---------------------------------------------------------------------------
+
+def quantize_mat(x, state_dtype: str, prev_scale=None):
+    """Quantize (..., r, c) -> (payload, scale (..., r)); the running
+    absmax of ``update_scale`` per row."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = update_scale(amax, prev_scale, state_dtype)
+    return encode(xf / scale[..., None], state_dtype), scale
+
+
+def dequantize_mat(q, scale):
+    """Inverse of quantize_mat (up to rounding): (..., r, c) f32."""
+    return q.float() * scale[..., None]

@@ -83,19 +83,15 @@
 #include <mutex>
 #include <vector>
 
-#include "common.cuh"
+#include "megakernel_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace marca {
 
-constexpr int kMThreads = 512;
-constexpr int kMWarps = kMThreads / 32;
 constexpr int kMN = 16;                                // d_state
 constexpr int kChunk = kMThreads / kMN;                // 32 channels / item
 constexpr int kChunksPerGroup = kScaleGroup / kChunk;  // 16
-constexpr int kSlots = 4;                              // slots per pass
-constexpr float kNormEps = 1e-5f;                      // blocks.apply_norm
 constexpr float kSoftplusThreshold = 20.0f;            // F.softplus
 
 // Columns of the per-layer weight table (repro_torch/kernels/megakernel.py
@@ -167,205 +163,6 @@ __device__ __forceinline__ RowState row_state(const MegaArgs& a, int l) {
           static_cast<char*>(a.h_out) + l * nh,
           q ? a.h_scale_out + l * ns : nullptr,
           static_cast<T*>(a.conv_out) + l * nc};
-}
-
-template <typename P>
-__device__ __forceinline__ const P* column(const int64_t* row, int c) {
-  return reinterpret_cast<const P*>(row[c]);
-}
-
-// The residual rows s0 .. s0+nb-1 normalised into shared memory, xs[si][i]
-// (blocks.apply_norm with rmsnorm: x * rsqrt(mean(x^2) + eps) * scale,
-// rounded to the compute type).
-template <typename T>
-__device__ void stage_norm(float* xs, float* redn, const T* src,
-                           const float* scale, int s0, int nb, int dm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float ss[kSlots];
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) ss[si] = 0.0f;
-  for (int i = threadIdx.x; i < dm; i += kMThreads) {
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si) {
-      if (si < nb) {
-        const float v = to_f32(src[(int64_t)(s0 + si) * dm + i]);
-        xs[si * dm + i] = v;
-        ss[si] += v * v;
-      }
-    }
-  }
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    const float v = group_sum<32>(ss[si]);
-    if (lane == 0) redn[warp * kSlots + si] = v;
-  }
-  __syncthreads();
-  float r[kSlots];
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    float tot = 0.0f;
-    for (int w = 0; w < kMWarps; ++w) tot += redn[w * kSlots + si];
-    r[si] = rsqrtf(tot / (float)dm + kNormEps);
-  }
-  for (int i = threadIdx.x; i < dm; i += kMThreads) {
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si)
-      if (si < nb) xs[si * dm + i] = round_to<T>(xs[si * dm + i] * r[si] *
-                                                 scale[i]);
-  }
-  __syncthreads();
-}
-
-// rows s0 .. s0+nb-1 of a (b, K) scratch vector into shared memory
-__device__ void stage_rows(float* xs, const float* src, int s0, int nb,
-                           int K) {
-  for (int i = threadIdx.x; i < nb * K; i += kMThreads)
-    xs[i] = src[(int64_t)s0 * K + i];
-  __syncthreads();
-}
-
-// the widest tile (<= 32 threads across) that still gives every block one
-__host__ __device__ __forceinline__ int pick_tj(int n, int grid) {
-  int tj = 32;
-  while (tj > 1 && (n + tj - 1) / tj < grid) tj >>= 1;
-  return tj;
-}
-
-// kVec adjacent weight columns one thread of the jamba instance loads at
-// once, where the row length allows: a float4 of f32 weights or a char4 of
-// int8 codes.  Its projections have hundreds of rows a thread, and the
-// wider loads put 2-4 times the bytes in flight.  The mamba instance loads
-// one column a thread: at mamba-130m a thread has 3-24 rows of a weight,
-// and 4 columns a thread (with their 4 times larger tile reduction and
-// code) measured 10-19% slower on an H100 (700 W).
-constexpr int kVec = 4;
-
-template <typename TW, int V> struct WVec;
-template <> struct WVec<float, 1> { using type = float; };
-template <> struct WVec<float, 4> { using type = float4; };
-template <> struct WVec<int8_t, 1> { using type = int8_t; };
-template <> struct WVec<int8_t, 4> { using type = char4; };
-
-__device__ __forceinline__ float lane_of(float v, int) { return v; }
-__device__ __forceinline__ float lane_of(int8_t v, int) { return (float)v; }
-__device__ __forceinline__ float lane_of(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ float lane_of(const char4& v, int c) {
-  return (float)(c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w);
-}
-
-// a weight as the dense layer consumes it: f32 as stored, or the int8 code
-// times its column's scale with one rounded multiply (load_w's arithmetic)
-template <typename TW>
-__device__ __forceinline__ float weight_value(float raw, const float* scale,
-                                              int col) {
-  return sizeof(TW) == 1 ? __fmul_rn(raw, scale[col]) : raw;
-}
-
-// columns per thread for an N-column weight, at most kV
-template <int kV>
-__device__ __forceinline__ int gemv_vec(int N) {
-  return kV > 1 && N % kV == 0 ? kV : 1;
-}
-
-// the column tiles of an N-column weight (the blocks with an index below
-// it take part in the phase)
-template <int kV>
-__device__ __forceinline__ int gemv_ntiles(int N) {
-  const int v = gemv_vec<kV>(N);
-  const int tj = pick_tj(N / v, gridDim.x);
-  return (N / v + tj - 1) / tj;
-}
-
-// out[si][j] = sum_i xs[si][i] * w(i, j) for the column tiles this block
-// takes; epi(si, j, sum) gets each unrounded f32 sum once.  W is (K, N),
-// row-major, as blocks.dense stores it; xs may be shared or global memory.
-// A tile is tj threads across, each taking V adjacent columns (gemv_vec:
-// V = 4 in the jamba instance, one 16-byte load of f32 weights or 4 bytes
-// of int8 codes); the block's other threads split the rows.  Each thread loads kB rows of its
-// columns before it uses any, so that many bytes are in flight at once
-// (the phase is bound by memory latency, not by the bytes); the sum still
-// runs over the rows in ascending order.  The same N gives the same tiles
-// and the same epilogue thread for a column, call after call.
-template <typename T, typename TW, int V, typename Epi>
-__device__ void gemv_cols(const float* xs, int nb, int K, const TW* W,
-                          const float* wscale, int N, float* red, Epi epi) {
-  using VT = typename WVec<TW, V>::type;
-  constexpr int kB = (V > 1 && sizeof(TW) == 4) ? 4 : 8;
-  const int tj = pick_tj(N / V, gridDim.x);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int jj = lane & (tj - 1);
-  const int p = warp * (32 / tj) + lane / tj;
-  const int P = kMThreads / tj;
-  const int cols = tj * V;
-  const int ntiles = (N + cols - 1) / cols;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int j = min(t * cols + jj * V, N - V);
-    float acc[kSlots][V];
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si)
-#pragma unroll
-      for (int c = 0; c < V; ++c) acc[si][c] = 0.0f;
-    for (int i0 = p; i0 < K; i0 += kB * P) {
-      VT w[kB];
-#pragma unroll
-      for (int u = 0; u < kB; ++u) {
-        const int i = i0 + u * P;
-        w[u] = i < K ? *reinterpret_cast<const VT*>(W + (int64_t)i * N + j)
-                     : VT{};
-      }
-#pragma unroll
-      for (int u = 0; u < kB; ++u) {
-        const int i = i0 + u * P;
-        if (i < K) {
-#pragma unroll
-          for (int c = 0; c < V; ++c) {
-            const float wv =
-                round_to<T>(weight_value<TW>(lane_of(w[u], c), wscale, j + c));
-#pragma unroll
-            for (int si = 0; si < kSlots; ++si)
-              acc[si][c] += xs[si * K + i] * wv;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si) {
-#pragma unroll
-      for (int c = 0; c < V; ++c) {
-        float v = acc[si][c];
-        for (int off = 16; off >= tj; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane < tj) red[((warp * kSlots + si) * 32 + lane) * V + c] = v;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < nb * cols) {
-      const int si = threadIdx.x / cols, cc = threadIdx.x % cols;
-      float s = 0.0f;
-      for (int w = 0; w < kMWarps; ++w)
-        s += red[(w * kSlots + si) * 32 * V + cc];
-      if (t * cols + cc < N) epi(si, t * cols + cc, s);
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, typename TW, int kV, typename Epi>
-__device__ void gemv_tiles(const float* xs, int nb, int K, const TW* W,
-                           const float* wscale, int N, float* red, Epi epi) {
-  if constexpr (kV > 1) {
-    if (gemv_vec<kV>(N) == kV) {
-      gemv_cols<T, TW, kV>(xs, nb, K, W, wscale, N, red, epi);
-      return;
-    }
-  }
-  gemv_cols<T, TW, 1>(xs, nb, K, W, wscale, N, red, epi);
-}
-
-__device__ __forceinline__ bool quantized(int state_dtype) {
-  return state_dtype == SD_INT8 || state_dtype == SD_FP8;
 }
 
 // phase C: dt, the S6 step, D skip and gate for (slot, 32-channel) items
@@ -708,17 +505,17 @@ int launch(KernelFn fn, MegaArgs& a, int64_t scratch_len, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// blocks per SM, grid and shared memory of a launch; 0 or an error code.
-// The answers are kept per (kernel, device, shared memory), and so is the
-// largest shared memory a kernel was opened to, so a launch after the
-// first makes no attribute or occupancy query (none inside a CUDA graph
-// capture either).
+// blocks per SM, grid and shared memory of a launch; 0 or an error code
 int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
               size_t* smem) {
-  struct Entry { KernelFn fn; int dev; size_t smem; int per_sm, grid; };
+  *smem = smem_bytes(dm, di, mlp);
+  return coop_grid((const void*)fn, *smem, per_sm, grid);
+}
+
+int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid) {
+  struct Entry { const void* fn; int dev; size_t smem; int per_sm, grid; };
   static std::mutex mu;
   static std::vector<Entry> seen;
-  *smem = smem_bytes(dm, di, mlp);
   int dev, sms, coop;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -726,7 +523,7 @@ int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
   size_t opened = 0;
   for (const Entry& x : seen) {
     if (x.fn != fn || x.dev != dev) continue;
-    if (x.smem == *smem) {
+    if (x.smem == smem) {
       *per_sm = x.per_sm;
       *grid = x.grid;
       return 0;
@@ -736,17 +533,16 @@ int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && *smem > opened)
-    e = cudaFuncSetAttribute((const void*)fn,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*smem);
+  if (e == cudaSuccess && smem > opened)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kMThreads,
-                                                      *smem);
+                                                      smem);
   if (e != cudaSuccess) return (int)e;
   if (!coop || *per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   *grid = *per_sm * sms;
-  seen.push_back({fn, dev, *smem, *per_sm, *grid});
+  seen.push_back({fn, dev, smem, *per_sm, *grid});
   return 0;
 }
 

@@ -2,9 +2,9 @@
 
 The sources in ``repro_torch/csrc/*.cu`` have a plain C interface.  On
 first use they are compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc``
-per source, all started together — and linked into one shared library
-under ``<repo>/build/``, named by a hash of the sources and flags so an
-edited source rebuilds.  The library is loaded with ``ctypes``; every C
+per source (per set of defines, for a source in ``BUILDS``), all started
+together — and linked into one shared library under ``<repo>/build/``,
+named by a hash of the sources and flags so an edited source rebuilds.  The library is loaded with ``ctypes``; every C
 entry point returns ``cudaGetLastError()`` and ``call`` raises if it is
 not 0.  Nothing here runs at import: this module is imported on
 machines without ``nvcc`` or a card, where only the plain versions run.
@@ -24,7 +24,14 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("selective_scan.cu", "conv1d.cu", "decode_step.cu",
-           "decode_step_q.cu", "megakernel_mamba.cu", "flash_attention.cu")
+           "decode_step_q.cu", "megakernel_mamba.cu", "megakernel_xlstm.cu",
+           "megakernel_xlstm_inst.cu", "flash_attention.cu",
+           "approx_units.cu")
+#: the sources built more than once, each time with other -D defines: the
+#: xLSTM instances' kernels once per (compute type, weight type) pair, so
+#: the four compile in parallel
+BUILDS = {"megakernel_xlstm_inst.cu": tuple(
+    (f"XL_ACT={a}", f"XL_W={w}") for a in (0, 1) for w in (0, 1))}
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
@@ -48,6 +55,10 @@ _SIGNATURES = {
     "marca_mamba_stacked_grid": [_I] * 5 + [_P],
     "marca_jamba_stacked_run": [_P] * 5 + [_L] + [_I] * 13 + [_P],
     "marca_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    "marca_xlstm_stacked_run": [_P] * 5 + [_L] + [_I] * 10 + [_F, _P],
+    "marca_xlstm_stacked_grid": [_I] * 4 + [_P],
+    "marca_fast_exp": [_P, _P, _L, _I, _F, _F, _P],
+    "marca_piecewise_silu": [_P, _P, _L, _I, _I, _P],
 }
 
 _lib = None
@@ -63,6 +74,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(BUILDS).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -84,15 +96,20 @@ def build() -> Path:
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=BUILD))
     cc = nvcc()
-    objs = [tmp / (src[:-3] + ".o") for src in SOURCES]
+    units = [(src, defs) for src in SOURCES
+             for defs in BUILDS.get(src, ((),))]
+    objs = [tmp / ("_".join([src[:-3], *defs]).replace("=", "") + ".o")
+            for src, defs in units]
     procs = [subprocess.Popen(
-        [cc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src), "-o",
-         str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for src, obj in zip(SOURCES, objs)]
+        [cc, *NVCC_FLAGS, *(f"-D{d}" for d in defs), "-I", str(CSRC), "-c",
+         str(CSRC / src), "-o", str(obj)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for (src, defs), obj in zip(units, objs)]
     log = []
-    for src, p in zip(SOURCES, procs):
+    for (src, defs), p in zip(units, procs):
         out, _ = p.communicate()
-        log.append(f"== nvcc {src} (exit {p.returncode})\n{out}")
+        log.append(f"== nvcc {' '.join([src, *defs])} (exit {p.returncode})"
+                   f"\n{out}")
     if any(p.returncode for p in procs):
         raise RuntimeError("nvcc failed:\n" + "\n".join(log))
     tmp_so = tmp / so.name

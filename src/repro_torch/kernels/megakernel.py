@@ -1,19 +1,23 @@
-"""Cross-layer decode megakernel (K3): wrapper over the CUDA kernel
-``csrc/megakernel_mamba.cu``.
+"""Cross-layer decode megakernel (K3): wrappers over the CUDA kernels
+``csrc/megakernel_mamba.cu`` and ``csrc/megakernel_xlstm.cuh``.
 
 Port of ``repro/kernels/decode_step.py:413`` ``stacked_layer_launch``
-(pallas_call at :488) with two of its bodies:
+(pallas_call at :488) with four of its bodies:
 
 * the mamba instance (``repro/models/mamba_lm.py:160``): one launch per
   decoded token runs every layer (norm -> ``mamba.mamba_block_megastep``
   -> residual) for the whole slot pool (``mamba_stacked_step``);
 * the jamba instance (``repro/models/jamba.py:305``): one launch per run
   of pure-SSM positions of a group adds norm2 -> swiglu MLP -> residual
-  after each position's mamba block (``jamba_stacked_run``).
+  after each position's mamba block (``jamba_stacked_run``);
+* the xLSTM instances ``marca_megakernel_mlstm`` and
+  ``marca_megakernel_slstm`` (``repro/models/xlstm.py:575``): one launch
+  per run of same-kind layers runs each layer's block step and residual
+  (``xlstm_stacked_run``).
 
 On a CUDA tensor the kernel runs; on a CPU tensor its plain version
-(``kernels.ref.mamba_stacked_step``, ``kernels.ref.jamba_stacked_run``)
-does.
+(``kernels.ref.mamba_stacked_step``, ``kernels.ref.jamba_stacked_run``,
+``kernels.ref.xlstm_stacked_run``) does.
 
 ``repro`` stacks each layer parameter on a leading L axis; the port keeps
 a list of per-layer dicts.  ``MambaStack`` gives K3 its view of them
@@ -24,7 +28,8 @@ h (L, slots, d_inner, 16), h_scale (L, slots, g), conv (L, slots, k-1,
 d_inner).  ``JambaRun`` is the same view of one run of jamba positions;
 their states live in different cache leaves, so each launch hands the
 kernel one pointer per position and state tensor, and no cache is
-stacked or copied.
+stacked or copied.  ``XlstmRun`` is the same view of one run of xLSTM
+layers, whose states are handed over in the same way.
 """
 from __future__ import annotations
 
@@ -46,6 +51,15 @@ jamba_launches = 0
 jamba_launches_int8a = 0
 jamba_launches_q = 0
 jamba_launches_q_int8a = 0
+#: ``xlstm_stacked_run``'s launches: mLSTM runs by f32 or int8 weights x
+#: an f32/bf16 or int8/fp8 C, sLSTM runs (whose state is always f32) by
+#: weights
+mlstm_launches = 0
+mlstm_launches_int8w = 0
+mlstm_launches_q = 0
+mlstm_launches_q_int8w = 0
+slstm_launches = 0
+slstm_launches_int8w = 0
 
 #: the columns of the per-layer pointer table, in the order of
 #: ``WeightColumn`` in csrc/megakernel_mamba.cu: a path into the layer's
@@ -78,6 +92,7 @@ MAX_RUN = 8
 #: Hopper gives one block at most 227 KB
 _SMEM_LIMIT = 232448
 _CHUNK = 32     # channels of one phase-C item
+_SLOTS_PER_PASS = 4     # csrc megakernel_common.cuh kSlots
 
 
 def smem_bytes(d_model: int, d_inner: int, mlp: bool) -> int:
@@ -159,22 +174,17 @@ def _check_cfg(cfg, family):
                  f"memory: {need} bytes > {_SMEM_LIMIT}")
 
 
-def _pointer_table(cfg, rows, int8, mlp):
-    """Check every weight of ``rows`` that K3 reads (shape, dtype,
-    contiguity, one device, no dense bias) and return (device, the
-    ``(len(rows), 24)`` int64 table of their device pointers on a card,
-    else None).  ``mlp``: the rows are jamba positions."""
-    shapes = _shapes(cfg, int8, mlp)
-    columns = TABLE_COLUMNS + (MLP_COLUMNS if mlp else ())
-    names = JAMBA_NAMES if mlp else None
-    denses = [("mixer", d) for d in ("in_proj", "x_proj", "dt_proj",
-                                     "out_proj")]
-    if mlp:
-        denses += [("mlp", d) for d in ("w1", "w3", "w2")]
+def _table(rows, columns, shapes, denses, width, leaf):
+    """Check every weight of ``rows`` that K3 reads at ``columns`` (shape
+    and dtype from ``shapes``, which leaves out the columns a row does
+    not have: a 0 pointer; contiguity, one device, no bias on the dense
+    layers ``denses``), reading a row's entry with ``leaf(row, path)``,
+    and return (device, the ``(len(rows), width)`` int64 table of their
+    device pointers on a card, else None)."""
     table = []
     for row in rows:
         for path in denses:
-            extra = set(_leaf(row, path, int8, names)) - {"w", "w_scale"}
+            extra = set(leaf(row, path)) - {"w", "w_scale"}
             _lib.require(not extra,
                          f"K3 takes no dense bias ({path[-1]}: {extra})")
         tensors = []
@@ -182,7 +192,7 @@ def _pointer_table(cfg, rows, int8, mlp):
             if path not in shapes:
                 tensors.append(None)
                 continue
-            t = _leaf(row, path, int8, names)
+            t = leaf(row, path)
             _lib.check_dense(".".join(path), t, shapes[path][1],
                              shapes[path][0])
             tensors.append(t)
@@ -194,8 +204,21 @@ def _pointer_table(cfg, rows, int8, mlp):
     if device.type != "cuda":
         return device, None
     ptrs = [[_lib.ptr(t) or 0 for t in tensors]
-            + [0] * (_TABLE_WIDTH - len(tensors)) for tensors in table]
+            + [0] * (width - len(tensors)) for tensors in table]
     return device, torch.tensor(ptrs, dtype=torch.int64, device=device)
+
+
+def _pointer_table(cfg, rows, int8, mlp):
+    """``_table`` of the mamba rows (``mlp``: jamba positions) K3's mamba
+    instance reads."""
+    names = JAMBA_NAMES if mlp else None
+    denses = [("mixer", d) for d in ("in_proj", "x_proj", "dt_proj",
+                                     "out_proj")]
+    if mlp:
+        denses += [("mlp", d) for d in ("w1", "w3", "w2")]
+    return _table(rows, TABLE_COLUMNS + (MLP_COLUMNS if mlp else ()),
+                  _shapes(cfg, int8, mlp), denses, _TABLE_WIDTH,
+                  lambda row, path: _leaf(row, path, int8, names))
 
 
 class MambaStack:
@@ -230,9 +253,14 @@ def _dims(cfg):
 def scratch_floats(slots: int, d_inner: int, nx: int, d_ff: int = 0) -> int:
     """f32 scratch of one launch: x_a, z, (dt_low | B | C), y, the
     chunks' absmax, the f32 state values and (jamba) the MLP hidden
-    (csrc scratch_floats)."""
+    (csrc scratch_floats), the hidden padded by 3 rows: w2's column tiles
+    read 4 slots' rows of it from global memory whatever a pass's slot
+    count, so a pool of fewer than 4 slots (or of 5, 6, 7, ...) would read
+    past the end of the launch's scratch; the padding rows are read and
+    never used."""
     nchunks = -(-d_inner // _CHUNK)
-    return slots * (3 * d_inner + nx + nchunks + 16 * d_inner + d_ff)
+    return (slots * (3 * d_inner + nx + nchunks + 16 * d_inner + d_ff)
+            + (_SLOTS_PER_PASS - 1) * d_ff)
 
 
 def mamba_stacked_step(cfg, x0, stack: MambaStack, h, h_scale, conv):
@@ -412,4 +440,219 @@ def launch_config(cfg, dtype, int8: bool, device="cuda") -> dict:
             int(cfg.family == "jamba"), ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"marca_mamba_stacked_grid: CUDA error {rc}")
+    return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2]}
+
+
+# ---------------------------------------------------------------------------
+# K3's xLSTM instances (csrc/megakernel_xlstm.cuh)
+# ---------------------------------------------------------------------------
+
+#: the columns of an xLSTM run's pointer table, in the order of
+#: ``MlstmColumn`` / ``SlstmColumn`` in csrc/megakernel_xlstm.cuh; a
+#: ``w_scale`` column exists only for int8 weights (the per-head wq, wk and
+#: sLSTM r are no dense layers and stay f32 under int8 weights, as in repro)
+XLSTM_COLUMNS = {
+    "mlstm": (("norm", "scale"), ("norm", "bias"), ("up", "w"),
+              ("up", "w_scale"), ("conv_w",), ("wq",), ("wk",), ("wi",),
+              ("wf",), ("bi",), ("bf",), ("gn_scale",), ("down", "w"),
+              ("down", "w_scale")),
+    "slstm": (("norm", "scale"), ("norm", "bias"), ("wx", "w"),
+              ("wx", "w_scale"), ("r",), ("b",), ("gn_scale",),
+              ("out", "w"), ("out", "w_scale")),
+}
+_XLSTM_TABLE_WIDTH = 16
+#: the state tensors of a layer, in the order of the kernel's state parts
+XLSTM_PARTS = {"mlstm": ("C", "C_scale", "n", "m", "conv"),
+               "slstm": ("c", "n", "h", "m")}
+_XLSTM_NPARTS = 5
+#: the most layers one xLSTM launch takes
+MAX_XLSTM_RUN = 32
+#: the widest head: a C row is one warp's 16 columns a lane, and the
+#: tile reduction holds 16 warps x dh floats
+MAX_XLSTM_HEAD = 512
+_XLSTM_ROWS = 32     # rows of C per tile of the cell phase
+
+
+def _xlstm_dims(cfg, kind):
+    """(d_model, n_heads, head width, inner width) of a block."""
+    d, nh = cfg.d_model, cfg.n_heads
+    di = 2 * d if kind == "mlstm" else d
+    return d, nh, di // nh, di
+
+
+def _xlstm_shapes(cfg, kind, int8):
+    d, nh, dh, di = _xlstm_dims(cfg, kind)
+    w = torch.int8 if int8 else torch.float32
+    f = torch.float32
+    if kind == "mlstm":
+        out = {("norm", "scale"): ((d,), f), ("norm", "bias"): ((d,), f),
+               ("up", "w"): ((d, 2 * di), w),
+               ("conv_w",): ((cfg.d_conv, di), f),
+               ("wq",): ((nh, dh, dh), f), ("wk",): ((nh, dh, dh), f),
+               ("wi",): ((nh, dh), f), ("wf",): ((nh, dh), f),
+               ("bi",): ((nh,), f), ("bf",): ((nh,), f),
+               ("gn_scale",): ((di,), f), ("down", "w"): ((di, d), w)}
+        if int8:
+            out.update({("up", "w_scale"): ((2 * di,), f),
+                        ("down", "w_scale"): ((d,), f)})
+        return out
+    out = {("norm", "scale"): ((d,), f), ("norm", "bias"): ((d,), f),
+           ("wx", "w"): ((d, 4 * d), w), ("r",): ((4, nh, dh, dh), f),
+           ("b",): ((4 * d,), f), ("gn_scale",): ((d,), f),
+           ("out", "w"): ((d, d), w)}
+    if int8:
+        out.update({("wx", "w_scale"): ((4 * d,), f),
+                    ("out", "w_scale"): ((d,), f)})
+    return out
+
+
+def _xlstm_state_shapes(cfg, kind, slots):
+    """Each state tensor's shape and dtype for ``slots`` slots."""
+    d, nh, dh, di = _xlstm_dims(cfg, kind)
+    f = torch.float32
+    if kind == "slstm":
+        return {k: ((slots, nh, dh), f) for k in XLSTM_PARTS["slstm"]}
+    out = {"C": ((slots, nh, dh, dh),
+                 state_quant.storage_dtype(cfg.state_dtype)),
+           "n": ((slots, nh, dh), f), "m": ((slots, nh), f),
+           "conv": ((slots, cfg.d_conv - 1, di), f)}
+    if state_quant.is_quantized(cfg.state_dtype):
+        out["C_scale"] = ((slots, nh, dh), f)
+    return out
+
+
+class XlstmRun:
+    """One run of same-kind xLSTM layers as K3 reads them: the blocks'
+    weights in a ``(layers, 16)`` device table of pointers, built once per
+    engine (``registry.stack_params``) over the same tensors.  Checks
+    every weight (shape, dtype, contiguity, one device, f32 or int8
+    throughout) and refuses what K3 does not take: a norm other than
+    LayerNorm with a bias, dense biases, a head wider than 512, a head or
+    d_model no multiple of 4, or more than 32 layers."""
+
+    def __init__(self, cfg, kind, rows):
+        _lib.require(cfg.family == "xlstm",
+                     f"K3's xLSTM instance runs the xlstm family, not "
+                     f"{cfg.family!r}")
+        _lib.require(kind in XLSTM_COLUMNS, f"unknown xLSTM kind {kind!r}")
+        _lib.require(cfg.norm == "ln",
+                     f"K3's xLSTM instance takes LayerNorm ('ln'), not "
+                     f"{cfg.norm!r}")
+        _lib.require(0 < len(rows) <= MAX_XLSTM_RUN,
+                     f"a run of {len(rows)} layers (1 to {MAX_XLSTM_RUN})")
+        _, nh, dh, di = _xlstm_dims(cfg, kind)
+        _lib.require(nh * dh == di and dh <= MAX_XLSTM_HEAD
+                     and dh % 4 == 0 and cfg.d_model % 4 == 0,
+                     f"K3 takes heads of at most {MAX_XLSTM_HEAD} and "
+                     f"widths that are multiples of 4 (its tiles load 4 "
+                     f"columns a thread): {di} over {nh} heads, d_model "
+                     f"{cfg.d_model}")
+        dense = ("up", "down") if kind == "mlstm" else ("wx", "out")
+        self.kind = kind
+        self.int8 = "w_scale" in _leaf(rows[0], (dense[0],), False)
+        self.dims = (cfg.d_model, nh, cfg.d_conv)
+        self.device, self.table = _table(
+            rows, XLSTM_COLUMNS[kind], _xlstm_shapes(cfg, kind, self.int8),
+            [(name,) for name in dense], _XLSTM_TABLE_WIDTH,
+            lambda row, path: _leaf(row, path, False))
+        self.rows = [_copy_dicts(row) for row in rows]
+
+
+def xlstm_scratch_floats(kind, slots, d_model, n_heads) -> int:
+    """f32 scratch of one launch (csrc xlstm_scratch_floats): mLSTM u, the
+    conv output, g, q, k, y and the tiles' partial sums of C'^T q; sLSTM
+    the input gates, the pre-activations and y."""
+    if kind == "slstm":
+        return slots * 9 * d_model
+    di = 2 * d_model
+    dh = di // n_heads
+    ntile = -(-dh // _XLSTM_ROWS)
+    return slots * di * (6 + ntile)
+
+
+def xlstm_stacked_run(cfg, x0, run: XlstmRun, states, outs):
+    """One decode token through a run of same-kind xLSTM layers.
+
+    x0 (slots, 1, d_model) in the compute dtype; ``states`` one dict per
+    layer of the run, each contiguous (a layer's cache leaves): mLSTM
+    {"C" (slots, nh, dh, dh) in cfg.state_dtype's storage, "n" (slots,
+    nh, dh), "m" (slots, nh), "conv" (slots, d_conv-1, 2 d_model) f32}
+    + "C_scale" (slots, nh, dh) for an int8/fp8 C; sLSTM {"c", "n", "h",
+    "m"} (slots, nh, dh) f32.  ``outs`` dicts of the same tensors' shapes
+    that the new states are written into.  Returns the new residual
+    stream x (slots, 1, d_model)."""
+    global mlstm_launches, mlstm_launches_int8w, mlstm_launches_q
+    global mlstm_launches_q_int8w, slstm_launches, slstm_launches_int8w
+    _lib.check_dtype(x0)
+    kind = run.kind
+    _lib.require((cfg.d_model, cfg.n_heads, cfg.d_conv) == run.dims,
+                 "cfg does not describe the run's weights")
+    _lib.require(len(states) == len(outs) == len(run.rows),
+                 f"{len(states)} states and {len(outs)} outputs for a run "
+                 f"of {len(run.rows)}")
+    slots = x0.shape[0]
+    d, nh, dh, _ = _xlstm_dims(cfg, kind)
+    shapes = _xlstm_state_shapes(cfg, kind, slots)
+    _lib.check_same_device(x0.device, run=run.rows[0]["norm"]["scale"])
+    _lib.check_dense("x0", x0, x0.dtype, (slots, 1, d))
+    for i, (st, out) in enumerate(zip(states, outs)):
+        for part in (st, out):
+            _lib.require(set(part) == set(shapes),
+                         f"layer {i} of the run: state {sorted(part)}, "
+                         f"expected {sorted(shapes)}")
+            for key, (shape, dtype) in shapes.items():
+                _lib.check_same_device(x0.device, **{key: part[key]})
+                _lib.check_dense(key, part[key], dtype, shape)
+    _lib.check_impls(cfg.exp_impl, cfg.silu_impl)
+    if x0.device.type == "cpu":
+        x, new = ref.xlstm_stacked_run(cfg, x0, kind, run.rows, states)
+        for ns, out in zip(new, outs):
+            for key in shapes:
+                out[key].copy_(ns[key])
+        return x
+    x = torch.empty_like(x0)
+    scratch = torch.empty(xlstm_scratch_floats(kind, slots, d, nh),
+                          dtype=torch.float32, device=x0.device)
+    ptrs = (ctypes.c_int64 * (2 * _XLSTM_NPARTS * MAX_XLSTM_RUN))()
+    for c, part in enumerate(XLSTM_PARTS[kind]):
+        for i, (st, out) in enumerate(zip(states, outs)):
+            ptrs[c * MAX_XLSTM_RUN + i] = _lib.ptr(st.get(part)) or 0
+            ptrs[(c + _XLSTM_NPARTS) * MAX_XLSTM_RUN + i] = (
+                _lib.ptr(out.get(part)) or 0)
+    quant = kind == "mlstm" and state_quant.is_quantized(cfg.state_dtype)
+    c_dtype = shapes["C"][1] if kind == "mlstm" else torch.float32
+    _lib.call("marca_xlstm_stacked_run", x0.device,
+              _lib.ptr(run.table), _lib.ptr(x0), _lib.ptr(x),
+              ctypes.cast(ptrs, ctypes.c_void_p), _lib.ptr(scratch),
+              scratch.numel(), int(kind == "slstm"), len(run.rows), slots,
+              d, nh, cfg.d_conv, _lib.DTYPES[x0.dtype], int(run.int8),
+              _lib.STATE_DTYPES[c_dtype], _lib.SILU_IMPLS[cfg.silu_impl],
+              float(dh ** -0.5))
+    if kind == "slstm":
+        if run.int8:
+            slstm_launches_int8w += 1
+        else:
+            slstm_launches += 1
+    elif quant and run.int8:
+        mlstm_launches_q_int8w += 1
+    elif quant:
+        mlstm_launches_q += 1
+    elif run.int8:
+        mlstm_launches_int8w += 1
+    else:
+        mlstm_launches += 1
+    return x
+
+
+def xlstm_launch_config(cfg, kind, dtype, int8: bool,
+                        device="cuda") -> dict:
+    """The grid K3's xLSTM instance takes on ``device``: blocks per SM,
+    blocks, dynamic shared memory bytes per block."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        rc = _lib.lib().marca_xlstm_stacked_grid(
+            int(kind == "slstm"), cfg.d_model, _lib.DTYPES[dtype], int(int8),
+            ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"marca_xlstm_stacked_grid: CUDA error {rc}")
     return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2]}

@@ -22,6 +22,11 @@ accepted so that one config describes both packages:
   to "fused" (``resolve_cell_impl``).  ``repro``'s ``REPRO_STEP_IMPL``
   override of "auto" is not ported.
 
+``exp`` and ``silu`` are the MARCA units standalone (the paper's EXP-RCU
+and SiLU-RCU modes): with ``backend="pallas"`` the approximations run
+the unit kernels (K8, K9), with "xla" the plain tensor functions of
+``core.approx``; "exact" is ``torch.exp`` / ``F.silu`` under either.
+
 ``state_dtype`` "f32" and "bf16" store the pooled state at that width;
 "int8" and "fp8" store codes with f32 group scales and decode through
 ``selective_state_step_q``.  The step math is f32 in every case.
@@ -29,17 +34,51 @@ accepted so that one config describes both packages:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core import state_quant
+from repro_torch.core import approx, state_quant
 from repro_torch.kernels import conv1d as _conv_k
 from repro_torch.kernels import decode_step as _step_k
+from repro_torch.kernels import fast_exp as _fast_exp_k
 from repro_torch.kernels import flash_attention as _flash_k
+from repro_torch.kernels import piecewise_silu as _silu_k
 from repro_torch.kernels import selective_scan as _scan_k
 
 SCAN_IMPLS = ("seq", "assoc", "chunked", "chunked_seq", "pallas")
 CONV_IMPLS = ("xla", "pallas")
 ATTN_IMPLS = ("chunked", "ref", "pallas")
 STEP_IMPLS = ("auto", "megakernel", "fused", "pallas", "xla")
+BACKENDS = ("xla", "pallas")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise KeyError(f"unknown backend {backend!r}")
+
+
+def exp(x, impl: str = "exact", backend: str = "xla"):
+    """impl in {exact, ours, fast}; backend in {xla, pallas}
+    (``repro/kernels/ops.py:19``)."""
+    _check_backend(backend)
+    if impl == "exact":
+        return torch.exp(x)
+    if backend == "pallas":
+        if impl == "ours":
+            return _fast_exp_k.fast_exp(x)
+        return _fast_exp_k.fast_exp(x, b_shift=approx.FAST_EXP_B_SHIFT,
+                                    c=0.0)
+    return approx.get_exp(impl)(x)
+
+
+def silu(x, impl: str = "exact", backend: str = "xla"):
+    """impl in {exact, ours, paper}; backend in {xla, pallas}
+    (``repro/kernels/ops.py:30``)."""
+    _check_backend(backend)
+    if impl == "exact":
+        return F.silu(x)
+    if backend == "pallas":
+        return _silu_k.piecewise_silu(x, variant=impl)
+    return approx.get_silu(impl)(x)
 
 
 def resolve_step_impl(name: str, device="cpu") -> str:

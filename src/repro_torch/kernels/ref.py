@@ -12,15 +12,18 @@ Layouts are ``repro``'s public ones (``repro/kernels/ref.py``): h is
 ``CALLS`` counts entries into each plain version, so a run on the card
 can show that the serving path never took one.  Each version counts
 only its own entry: the plain K3 (``mamba_stacked_step``,
-``jamba_stacked_run``) runs the conv and the step through the uncounted
-bodies ``conv_math``, ``step_math`` and ``step_q_math``, as the TPU
-kernel runs them inline.
+``jamba_stacked_run``, ``xlstm_stacked_run``) runs the conv and the step
+through the uncounted bodies ``conv_math``, ``step_math`` and
+``step_q_math``, as the TPU kernel runs them inline.  The xLSTM cells
+(``mlstm_cell``, ``slstm_cell``) are model math that ``repro`` runs in
+XLA on its per-layer path; they count nothing.
 """
 from __future__ import annotations
 
 import collections
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import approx, state_quant, weight_quant
 
@@ -219,3 +222,94 @@ def attention(q, k, v, causal: bool = True, scale=None):
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM cells (repro/kernels/decode_step.py:142 mlstm_cell, :170 slstm_cell)
+# and the plain K3 xLSTM instance.  The stabilisers pin the exact exp and
+# log-sigmoid: the MARCA approximations enter the mLSTM block only through
+# its front end's SiLU.
+# ---------------------------------------------------------------------------
+
+def mlstm_cell(C, n, m, q, k, v, i, f, dh):
+    """One stabilised mLSTM step, all f32.  C (..., dh, dh), n (..., dh),
+    m (...); q, k, v (..., dh); i, f (...) the gate pre-activations.
+
+      m' = max(log_sigmoid(f) + m, i);  i' = exp(i - m');
+      f' = exp(log_sigmoid(f) + m - m')
+      C' = f' C + i' k v^T;  n' = f' n + i' k
+      h = C'^T (q / sqrt(dh)) / max(|n' . q / sqrt(dh)|, 1)
+
+    Returns (h (..., dh), (C', n', m'))."""
+    logf = F.logsigmoid(f)
+    m_new = torch.maximum(logf + m, i)
+    i_p = torch.exp(i - m_new)
+    f_p = torch.exp(logf + m - m_new)
+    kv = k[..., :, None] * v[..., None, :]
+    C = f_p[..., None, None] * C + i_p[..., None, None] * kv
+    n = f_p[..., None] * n + i_p[..., None] * k
+    qn = q * (dh ** -0.5)
+    num = torch.matmul(qn[..., None, :], C)[..., 0, :]
+    den = torch.abs((n * qn).sum(-1))
+    return num / torch.clamp(den, min=1.0)[..., None], (C, n, m_new)
+
+
+def slstm_cell(c, n, m, g):
+    """One stabilised sLSTM step, all f32.  c, n, m (..., nh, dh); g
+    (..., 4, nh, dh) the combined pre-activations [z, i, f, o].  Returns
+    (h (..., nh, dh), (c', n', m'))."""
+    z = torch.tanh(g[..., 0, :, :])
+    i = g[..., 1, :, :]
+    logf = F.logsigmoid(g[..., 2, :, :])
+    m_new = torch.maximum(logf + m, i)
+    i_p = torch.exp(i - m_new)
+    f_p = torch.exp(logf + m - m_new)
+    c_new = f_p * c + i_p * z
+    n_new = f_p * n + i_p
+    o = torch.sigmoid(g[..., 3, :, :])
+    return o * c_new / torch.clamp(n_new, min=1.0), (c_new, n_new, m_new)
+
+
+def xlstm_stacked_run(cfg, x0, kind, rows, states):
+    """One run of same-kind xLSTM layers for one decode token: the body of
+    ``repro/models/xlstm.py:575`` (``stacked_step``, launched through
+    ``repro/kernels/decode_step.py:413``), for each layer of the run in
+    order: x = x + block_step(x), the mLSTM block with its conv run inline
+    (``conv_impl="xla"``, as ``repro``'s body forces).
+
+    x0 (b, 1, d_model) in cfg.dtype; ``kind`` "mlstm" or "slstm"; ``rows``
+    the layers' block params; ``states`` one state dict per layer.
+    Returns (x (b, 1, d_model), the new state dicts)."""
+    from repro_torch.models import xlstm   # models import kernels
+    CALLS[f"{kind}_stacked_run"] += 1
+    x = x0
+    out = []
+    for lp, state in zip(rows, states):
+        if kind == "mlstm":
+            y, ns = xlstm.mlstm_block_step(cfg, lp, x, state,
+                                           conv_impl="xla")
+        else:
+            y, ns = xlstm.slstm_block_step(cfg, lp, x, state)
+        x = x + y
+        out.append(ns)
+    return x, out
+
+
+# ---------------------------------------------------------------------------
+# The MARCA units standalone (K8, K9): the kernels' plain versions
+# ---------------------------------------------------------------------------
+
+def fast_exp(x, b_shift, c):
+    """``repro/kernels/fast_exp.py:26``'s body: the biased fast exp of
+    every element (``core.approx.fast_exp``), in x's dtype."""
+    CALLS["fast_exp"] += 1
+    return approx.fast_exp(x, b_shift, c)
+
+
+def piecewise_silu(x, variant: str = "ours"):
+    """``repro/kernels/piecewise_silu.py:26``'s body: the piecewise SiLU
+    ("ours" or "paper") of every element, in x's dtype."""
+    CALLS["piecewise_silu"] += 1
+    if variant == "paper":
+        return approx.piecewise_silu_paper(x)
+    return approx.piecewise_silu(x)

@@ -1,5 +1,5 @@
 """Model building blocks (port of ``repro/models/blocks.py``): dense
-projection, norms, rotary embedding, GQA attention with its decode
+projection, norms (with the xLSTM group norm), rotary embedding, GQA attention with its decode
 cache, gated MLPs, embedding and unembedding.
 
 Parameters are plain tensors in nested dicts laid out as ``repro``'s
@@ -67,6 +67,18 @@ def apply_norm(cfg, p, x, eps=1e-5):
         if cfg.norm == "ln":
             xf = xf * p["scale"] + p["bias"]
     return xf.to(x.dtype)
+
+
+def group_norm(x, scale, n_groups, eps=1e-5):
+    """x (..., d) normalized per group of d / n_groups channels (the xLSTM
+    head norm, ``repro`` blocks.py:87): mean and biased variance in f32,
+    then the scale, cast back to x's dtype."""
+    shp = x.shape
+    xf = x.float().reshape(*shp[:-1], n_groups, -1)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    xf = ((xf - mu) * torch.rsqrt(var + eps)).reshape(shp)
+    return (xf * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

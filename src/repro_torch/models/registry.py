@@ -1,7 +1,7 @@
 """Model registry: family dispatch, slot-indexable caches and parameter
-counts — the port of ``repro/models/registry.py`` for the mamba and
-jamba families.  Other families raise ``NotImplementedError`` (ROADMAP
-A10-A11).
+counts — the port of ``repro/models/registry.py`` for the mamba, jamba
+and xlstm families.  Other families raise ``NotImplementedError``
+(ROADMAP A11).
 
   init_params(cfg, seed, device) -> param tree (nested dicts of tensors)
   quantize_params(cfg, params) -> the int8 + scale tree (weight_dtype)
@@ -11,7 +11,8 @@ A10-A11).
   init_cache(cfg, batch, max_seq, dtype, device) -> decode cache
   gather_slots / scatter_slots / mask_slots -> the serving engine's
       slot contract over cache_slot_axes (nested cache trees: jamba's
-      {"layers": {"pos{i}": {...}}, "pos"})
+      {"layers": {"pos{i}": {...}}, "pos"}, xLSTM's {"layers": [{"mlstm":
+      {...}} | {"slstm": {...}}, ...], "pos"})
   count_params(cfg) -> analytical N
 """
 from __future__ import annotations
@@ -19,16 +20,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import weight_quant
-from repro_torch.models import jamba, mamba_lm
+from repro_torch.models import jamba, mamba_lm, xlstm
 
-_FAMILIES = {"mamba": mamba_lm, "jamba": jamba}
+_FAMILIES = {"mamba": mamba_lm, "jamba": jamba, "xlstm": xlstm}
 
 
 def family(cfg):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP A10-A11)")
+            "(ROADMAP A11)")
     return _FAMILIES[cfg.family]
 
 
@@ -53,11 +54,14 @@ def tree_to(tree, device):
 
 def tree_zip(fn, axes, *trees):
     """``fn(axis, *leaves)`` over trees of one structure, walked along
-    ``axes`` (a tree of ints, as ``cache_slot_axes`` gives); returns the
-    tree of the results."""
+    ``axes`` (a tree of ints in dicts and lists, as ``cache_slot_axes``
+    gives); returns the tree of the results."""
     if isinstance(axes, dict):
         return {k: tree_zip(fn, a, *(t[k] for t in trees))
                 for k, a in axes.items()}
+    if isinstance(axes, (list, tuple)):
+        return [tree_zip(fn, a, *(t[i] for t in trees))
+                for i, a in enumerate(axes)]
     return fn(axes, *trees)
 
 

@@ -166,3 +166,65 @@ def jamba_run_inputs(cfg, n_pos, slots, seed=0, device="cpu"):
     outs = [{key: torch.empty_like(v) for key, v in st.items()}
             for st in states]
     return megakernel.JambaRun(cfg, rows), x0.to(device, dt), states, outs
+
+
+def xlstm_run_inputs(cfg, kind, n_layers, slots, seed=0, device="cpu"):
+    """One call of K3's xLSTM instance at cfg's shapes: ``n_layers``
+    blocks of ``kind`` ("mlstm" or "slstm") drawn from ``seed`` on
+    ``device`` (int8 when cfg.weight_dtype is) as a
+    ``megakernel.XlstmRun``, x0 (slots, 1, d_model) in cfg.dtype, one
+    state dict per layer at cfg.state_dtype (slot 0 a fresh slot: zero
+    state and scales, m = -1e30) and output dicts to write into.  A bf16
+    model's conv tails hold bf16 values, as its cache does.  Returns
+    (run, x0, states, outs)."""
+    from repro_torch.core import state_quant, weight_quant
+    from repro_torch.kernels import megakernel
+    from repro_torch.models import registry, xlstm
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init = (xlstm.mlstm_block_init if kind == "mlstm"
+            else xlstm.slstm_block_init)
+    rows = registry.tree_to([init(cfg, gen) for _ in range(n_layers)],
+                            device)
+    if weight_quant.is_quantized(cfg.weight_dtype):
+        rows = weight_quant.quantize_tree(rows)
+    dt = getattr(torch, cfg.dtype)
+    d, nh = cfg.d_model, cfg.n_heads
+    x0 = torch.from_numpy(np_input(seed + 1, slots, 1, d))
+    states = []
+    for i in range(n_layers):
+        s = seed + 10 * (i + 2)
+        if kind == "slstm":
+            dh = d // nh
+            st = {"c": np_input(s, slots, nh, dh),
+                  "n": np.abs(np_input(s + 1, slots, nh, dh)) + 1.0,
+                  "h": 0.5 * np_input(s + 2, slots, nh, dh),
+                  "m": np_input(s + 3, slots, nh, dh)}
+            st = {k: torch.from_numpy(v) for k, v in st.items()}
+            for k in ("c", "n", "h"):
+                st[k][0] = 0.0
+            st["m"][0] = -1e30
+        else:
+            di = 2 * d
+            dh = di // nh
+            C = torch.from_numpy(np_input(s, slots, nh, dh, dh)) * 0.5
+            st = {"n": torch.from_numpy(np_input(s + 1, slots, nh, dh)),
+                  "m": torch.from_numpy(np_input(s + 2, slots, nh)),
+                  "conv": torch.from_numpy(np_input(s + 3, slots,
+                                                    cfg.d_conv - 1, di))
+                  .to(dt).float()}
+            C[0] = 0.0
+            st["n"][0] = 0.0
+            st["m"][0] = -1e30
+            st["conv"][0] = 0.0
+            if state_quant.is_quantized(cfg.state_dtype):
+                C, scale = state_quant.quantize_mat(C, cfg.state_dtype)
+                scale[0] = 0.0
+                st["C_scale"] = scale
+            else:
+                C = C.to(state_quant.storage_dtype(cfg.state_dtype))
+            st["C"] = C
+        states.append({k: v.to(device) for k, v in st.items()})
+    outs = [{key: torch.empty_like(v) for key, v in st.items()}
+            for st in states]
+    return (megakernel.XlstmRun(cfg, kind, rows), x0.to(device, dt), states,
+            outs)

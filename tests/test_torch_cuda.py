@@ -16,7 +16,7 @@ from repro_torch.kernels import selective_scan as tscan
 from _torch_inputs import (VARIANTS, assert_q_close, close, code_ordinals,
                            jamba_run_inputs, np_input, q_step_tensors,
                            scan_arrays, scan_call, stacked_inputs,
-                           step_arrays, to_torch)
+                           step_arrays, to_torch, xlstm_run_inputs)
 
 
 @pytest.fixture
@@ -418,3 +418,163 @@ def test_cuda_jamba_run_repeats_bitwise(cuda):
     for u, v in zip(first, outs):
         for k in u:
             assert torch.equal(u[k].view(torch.uint8), v[k].view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# K3's xLSTM instances against their plain version; K8 and K9 bitwise
+# ---------------------------------------------------------------------------
+
+def _xlstm_cfg(d_model, n_heads, dtype, weight_dtype, state_dtype,
+               silu_impl="exact"):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(
+        configs.get_config("xlstm-350m"), d_model=d_model, n_heads=n_heads,
+        vocab=64, dtype=dtype, weight_dtype=weight_dtype,
+        state_dtype=state_dtype, silu_impl=silu_impl)
+
+
+def _xlstm_close(cfg, kind, x1, outs1, x0, outs0, tol, label):
+    """chip_smoke.py's K3-xLSTM rules: f32 values within ``tol``, a bf16
+    C within a bf16 step, an int8/fp8 C within one code with its scales to
+    1e-5 of themselves plus 1e-5 of the largest (a near-zero k_d carries
+    the f32 dot's absolute error as a large relative one); bf16 (one
+    layer at a time) values to ``tol`` of themselves plus ``tol`` of the
+    largest, an int8/fp8 C dequantized as the others plus one code, its
+    scales to 3e-2 of themselves plus 3e-2 of the largest."""
+    from repro_torch.core import state_quant
+    bf16 = cfg.dtype == "bfloat16"
+
+    def near(a, b, t, what):
+        b = b.cpu().float()
+        at = t * float(b.abs().max()) if bf16 else t
+        torch.testing.assert_close(a.cpu().float(), b, rtol=t, atol=at,
+                                   msg=lambda m: f"{label} {what}: {m}")
+
+    near(x1, x0, tol, "x")
+    for i, (a, b) in enumerate(zip(outs1, outs0)):
+        for key in a:
+            if key not in ("C", "C_scale"):
+                near(a[key], b[key], tol, f"[{i}] {key}")
+        if kind == "slstm" or cfg.state_dtype == "f32":
+            if kind == "mlstm":
+                near(a["C"], b["C"], tol, f"[{i}] C")
+            continue
+        if cfg.state_dtype == "bf16":
+            near(a["C"], b["C"], max(tol, 8e-3), f"[{i}] C")
+            continue
+        st = 3e-2 if bf16 else 1e-5
+        near_s = b["C_scale"].cpu()
+        torch.testing.assert_close(
+            a["C_scale"].cpu(), near_s, rtol=st,
+            atol=st * float(near_s.abs().max()),
+            msg=lambda m: f"{label} [{i}] C_scale: {m}")
+        if bf16:
+            d1 = state_quant.dequantize_mat(a["C"], a["C_scale"]).cpu()
+            d0 = state_quant.dequantize_mat(b["C"], b["C_scale"]).cpu()
+            top = float(d0.abs().max())
+            fp8 = cfg.state_dtype == "fp8"
+            torch.testing.assert_close(
+                d1, d0, rtol=tol + (0.125 if fp8 else 0.0),
+                atol=tol * top + (0.0 if fp8 else top / 127),
+                msg=lambda m: f"{label} [{i}] C: {m}")
+        else:
+            apart = (code_ordinals(a["C"].cpu())
+                     - code_ordinals(b["C"].cpu())).abs()
+            assert int(apart.max()) <= 1, f"{label}: codes {int(apart.max())}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n_layers,state_dtype", [
+    ("mlstm", 3, "f32"), ("mlstm", 3, "bf16"), ("mlstm", 3, "int8"),
+    ("mlstm", 3, "fp8"), ("slstm", 2, "f32")])
+@pytest.mark.parametrize("weight_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("d_model,n_heads,slots", [(256, 4, 4),
+                                                   (96, 4, 6)])
+def test_cuda_xlstm_run_matches_plain(cuda, kind, n_layers, state_dtype,
+                                      weight_dtype, dtype, tol, d_model,
+                                      n_heads, slots):
+    """K3's xLSTM instances against ref.xlstm_stacked_run on the card: a
+    multi-layer run in f32, one layer in bf16 (the rounding steps a bf16
+    run amplifies from layer to layer are held one layer at a time); a
+    ragged width (heads of 48 and 24: no multiple of the 32 lanes) with 6
+    slots in two passes of the 4-slot staging."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.kernels import megakernel
+    if dtype == "bfloat16":
+        n_layers = 1
+    cfg = _xlstm_cfg(d_model, n_heads, dtype, weight_dtype, state_dtype)
+    run, x0, states, outs = xlstm_run_inputs(cfg, kind, n_layers, slots,
+                                             seed=d_model, device=cuda)
+    counts = dispatch_count.launch_counts(
+        megakernel.xlstm_stacked_run, cfg, x0, run, states, outs)
+    assert sum(counts.values()) == 1 and not any(
+        k.startswith("plain") for k in counts), counts
+    x1 = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    x0r, want = ref.xlstm_stacked_run(cfg, x0, kind, run.rows, states)
+    torch.cuda.synchronize()
+    _xlstm_close(cfg, kind, x1, outs, x0r, want, tol,
+                 f"{kind} {dtype} {weight_dtype} {state_dtype}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("silu_impl", ["ours", "paper"])
+def test_cuda_xlstm_run_silu_variants(cuda, silu_impl):
+    from repro_torch.kernels import megakernel
+    cfg = _xlstm_cfg(256, 4, "float32", "f32", "int8", silu_impl)
+    run, x0, states, outs = xlstm_run_inputs(cfg, "mlstm", 2, 4, seed=5,
+                                             device=cuda)
+    x1 = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    x0r, want = ref.xlstm_stacked_run(cfg, x0, "mlstm", run.rows, states)
+    torch.cuda.synchronize()
+    _xlstm_close(cfg, "mlstm", x1, outs, x0r, want, 1e-4, silu_impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_cuda_xlstm_run_is_its_layers_in_turn(cuda, kind):
+    """A bf16 run's one launch equals its layers launched one by one, bit
+    for bit, and a repeated launch repeats its bits."""
+    from repro_torch.kernels import megakernel
+    cfg = _xlstm_cfg(96, 4, "bfloat16", "int8", "int8")
+    run, x0, states, outs = xlstm_run_inputs(cfg, kind, 3, 5, seed=3,
+                                             device=cuda)
+    a = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    first = [{k: v.clone() for k, v in o.items()} for o in outs]
+    b = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    x, chain = x0, []
+    for row, st in zip(run.rows, states):
+        out = {k: torch.empty_like(v) for k, v in st.items()}
+        x = megakernel.xlstm_stacked_run(
+            cfg, x, megakernel.XlstmRun(cfg, kind, [row]), [st], [out])
+        chain.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, x)
+    for u, v, w in zip(first, outs, chain):
+        for k in u:
+            assert torch.equal(u[k].view(torch.uint8), v[k].view(torch.uint8))
+            assert torch.equal(u[k].view(torch.uint8), w[k].view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1000003, 1 << 22])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op,impl", [("exp", "ours"), ("exp", "fast"),
+                                     ("silu", "ours"), ("silu", "paper")])
+def test_cuda_units_match_plain_bitwise(cuda, op, impl, dtype, n):
+    """K8 and K9 (``ops.exp`` / ``ops.silu`` with backend "pallas")
+    against their plain versions: equal bit for bit, and launched once."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(n)
+    x = (torch.randn(n, generator=gen) * 4.0 - 1.0).to(cuda, dtype)
+    fn = getattr(ops, op)
+    counts = dispatch_count.launch_counts(fn, x, impl, "pallas")
+    assert dict(counts) == {"fast_exp" if op == "exp" else
+                            "piecewise_silu": 1}
+    got = fn(x, impl, "pallas")
+    want = fn(x.cpu(), impl, "pallas")
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.cpu().view(bits), want.view(bits))

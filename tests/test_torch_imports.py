@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
-chip_smoke.py imports jax or the repro package, not even lazily inside a
-function, and the port's serve path imports with jax made unimportable."""
+chip_smoke.py or scripts/torch_serve_profile.py imports jax or the repro
+package, not even lazily inside a function, and the port's serve path
+imports with jax made unimportable."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_serve_profile.py"]
 
 
 def _imported_modules(source):
@@ -60,6 +61,8 @@ def test_serve_path_imports_with_jax_blocked():
         "import repro_torch.runtime.engine, repro_torch.kernels.ops\n"
         "import repro_torch.models.jamba, repro_torch.models.moe\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.models.xlstm, repro_torch.kernels.fast_exp\n"
+        "import repro_torch.kernels.piecewise_silu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

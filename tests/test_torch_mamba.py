@@ -266,6 +266,6 @@ def test_bf16_state_pool_and_unported_families():
     cache = tregistry.init_cache(tcfg, 2, 16)
     assert cache["h"].dtype == torch.bfloat16
     assert "h_scale" not in cache
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A11"):
         tregistry.init_params(tconfigs.smoke_variant(
-            tconfigs.get_config("xlstm-350m")))
+            tconfigs.get_config("olmo-1b")))

@@ -378,3 +378,17 @@ def test_stack_holds_the_weights_without_copying(weights):
     tp["layers"][0]["mixer"]["out_proj"]["w"] = old.clone()
     assert st.layers[0]["mixer"]["out_proj"]["w"] is old
     assert sp["layers"] is tp["layers"]
+
+
+@pytest.mark.parametrize("slots", range(1, 10))
+def test_jamba_scratch_holds_every_row_the_w2_tiles_read(slots):
+    """K3's jamba instance stages no hidden in shared memory: w2's column
+    tiles read 4 slots' rows of the (slots, d_ff) hidden at the end of the
+    launch's scratch on every pass, whatever the pass's slot count, so the
+    scratch holds rows up to the last pass's start + 4."""
+    di, nx, ff = 8192, 288, 14336
+    nchunks = -(-di // 32)
+    hidden_at = slots * (3 * di + nx + nchunks + 16 * di)
+    last_pass = 4 * ((slots - 1) // 4)
+    assert (megakernel.scratch_floats(slots, di, nx, ff)
+            >= hidden_at + (last_pass + 4) * ff)
