@@ -8,13 +8,19 @@ Run from the repository root on a machine with one CUDA card (an H100):
 Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi``), torch and CUDA versions; build the
-   kernels from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a and print
-   the compiler's ``-Xptxas -v`` report;
+   kernels from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a, print
+   the compiler's ``-Xptxas -v`` report, and count the tensor-core
+   (HGMMA) and TMA (UTMALDG) instructions in K7's bf16 kernels' SASS
+   (``cuobjdump -sass``), failing where HGMMA is missing;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving shapes of mamba-130m, in f32 and bf16, for every exp/SiLU
-   variant, within the printed tolerances: the scan, the conv, the decode
-   step with f32 A and with int8 A (K1), and the quantized-state step (K2)
-   with int8 and fp8 state, f32 and int8 A, at d 1536 and 1100; K2's
+   variant, within the printed tolerances: the scan, the conv (one
+   launch that writes y and its tail, which is held bitwise; also at L 2
+   and 3, with and without x_prev; each launch repeated bit for bit and
+   one device kernel a call), the
+   decode step with f32 A and with int8 A (K1), and the quantized-state
+   step (K2) with int8 and fp8 state, f32 and int8 A, at d 1536 and 1100;
+   K2's
    encoding against torch's over the whole code range; the fp8 slot
    operations (byte views) against exact fp8 results; the cross-layer
    megakernel (K3) at 4 slots in f32 and bf16 with f32 or int8 weights and
@@ -35,8 +41,10 @@ Phases, each fatal on failure:
    ``Engine``; each run checks the launch counts of every kernel, that no
    plain version ran, and the slot size, and a K3 run prints its token
    agreement with the per-layer run of its setup;
-5. time each kernel on the card (device time from a CUDA graph replay, and
-   eager per-call time) beside its bound, its plain version
+5. time each kernel on the card (device time from a CUDA graph replay,
+   eager per-call time, and the device kernels one wrapper call runs:
+   the kernel nodes of a graph that captures it) beside its bound, its
+   plain version
    and (for the conv) ``F.conv1d``, and the whole decode step through K3
    against the per-layer one;
 
@@ -71,9 +79,12 @@ experts) with its depth cut from 32 layers to one group of 8, whose
 weights (53 GB in f32) are drawn on the card from a seeded CUDA
 generator:
 
-2j. the flash attention kernel (K7) against its plain version at b=1,
-   32 query and 8 KV heads of 128, L 64/127/512 and a suffix case, f32
-   and bf16; K3's jamba instance (mamba block + MLP per position) at
+2j. the flash attention kernel (K7: bf16 on the tensor cores, f32 on the
+   SIMT pipes) against its plain version at b=1, 32 query and 8 KV heads
+   of 128, L 64/127/512 and a suffix case, f32 and bf16, and in bf16 at
+   ragged lengths (65, 200, 37 over 300, 500 over 700), each launch
+   repeated bit for bit and one device kernel a call; K3's jamba
+   instance (mamba block + MLP per position) at
    full width, 4 slots, one and four positions, f32 and bf16, f32 or
    int8 weights, f32, int8 or fp8 state, its inputs made by the card
    tests' builder (``tests/_torch_inputs.py``); one launch repeated bit
@@ -85,10 +96,12 @@ generator:
    phase 4's checks: per layer (f32) and through K3 (``"auto"``, f32)
    via ``Server``, through K3 via ``Engine`` (int8 weights, int8 state,
    int8 KV);
-5j. time K7 beside SDPA and its bound, K3-jamba, and the whole jamba
-   decode step through K3 against the per-layer one;
+5j. time K7 beside SDPA and its bound (and its device kernels a call),
+   K3-jamba, and the whole jamba decode step through K3 against the
+   per-layer one;
 
-and print one JSON line of every kernel.
+and print one JSON line of every kernel (K5's and K7's with their
+designs, K7's with its SASS counts).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
@@ -179,6 +192,11 @@ def conv_inputs(b, L, d, k, dtype, gen, dev):
 # Phases
 # ---------------------------------------------------------------------------
 
+# K7's bf16 instantiations, whose products must run on the tensor cores
+K7_TC = "flash_attention_tc"
+SASS = {}
+
+
 def phase_build():
     from repro_torch.kernels import _lib
     log(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
@@ -188,6 +206,33 @@ def phase_build():
     _lib.lib()
     log(f"built {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     log(_lib.build_log())
+    check_k7_sass(so)
+
+
+def check_k7_sass(so):
+    """Count the warpgroup tensor-core instructions (HGMMA) and TMA loads
+    (UTMALDG) in each of K7's bf16 kernels in the built library's SASS
+    (``cuobjdump -sass``); a kernel without HGMMA fails."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if K7_TC in m.group(1) else None
+            if fn:
+                SASS[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in SASS[fn]:
+                SASS[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    for fn, n in SASS.items():
+        log(f"  K7 bf16 SASS {fn}: {n['HGMMA']} HGMMA, {n['UTMALDG']} "
+            f"UTMALDG  {'ok' if n['HGMMA'] else 'FAIL'}")
+    if not SASS or not all(n["HGMMA"] for n in SASS.values()):
+        FAILURES.append("K7 bf16 without HGMMA")
 
 
 VARIANTS = [("exact", "exact"), ("ours", "ours"), ("fast", "paper")]
@@ -484,14 +529,26 @@ def phase_kernels(cfg, dev):
                 check(name + " h_last", h1, h0r, 5e-4, 5e-4)
                 if dtype == torch.bfloat16 and L == 512 and ei == "exact":
                     serving["selective_scan"] = e
-        for L, b in ((1, 4), (512, 1)):
+        # decode and prefill as served; then L < k-1 (the tail keeps
+        # x_prev's rows, shifted by L) and no x_prev (zeros before t = 0)
+        for L, b, prev in ((1, 4, True), (512, 1, True), (2, 4, True),
+                           (3, 4, False)):
             x, w, bias, x_prev = conv_inputs(b, L, d, k, dtype, gen, dev)
+            x_prev = x_prev if prev else None
             y1, s1 = conv1d.causal_conv1d(x, w, bias, x_prev)
             y0, s0 = ref.causal_conv1d(x, w, bias, x_prev)
+            y2, s2 = conv1d.causal_conv1d(x, w, bias, x_prev)
             torch.cuda.synchronize()
-            name = f"conv {tag} b={b} L={L}"
+            name = f"conv {tag} b={b} L={L}" + ("" if prev else " no x_prev")
             e = check(name + " y", y1, y0, *t["conv"])
             check(name + " tail", s1, s0, 0.0, 0.0)
+            same = torch.equal(y1, y2) and torch.equal(s1, s2)
+            nk = shared_inputs().graph_kernels(
+                lambda: conv1d.causal_conv1d(x, w, bias, x_prev))
+            log(f"  {name} repeated: {'bitwise equal' if same else 'FAIL'};"
+                f" {nk} device kernel(s) a call  {'ok' if nk == 1 else 'FAIL'}")
+            if not same or nk != 1:
+                FAILURES.append(f"{name} repeat / one kernel")
             if dtype == torch.bfloat16 and L == 1:
                 serving["causal_conv1d"] = e
         for a8 in (False, True):
@@ -896,13 +953,17 @@ def device_time(fn, reps):
 def measure(name, shape, kernel, plain, library, work, reps,
             flops=F32_FLOPS):
     """One timing row: the kernel's device time (CUDA graph replay, or
-    events where capture is refused: ``timing`` says which) and eager
-    per-call time, its plain version's and the library call's device
-    times, and the bound from ``work`` = (bytes, operations) with the
+    events where capture is refused: ``timing`` says which), eager
+    per-call time and device kernels a call (``graph_kernels`` of the
+    card tests' helpers), its
+    plain version's and the library call's device times,
+    and the bound from ``work`` = (bytes, operations) with the
     operations at ``flops``."""
     bms, by = bound_ms(*work, flops)
     ms, how = device_time(kernel, reps)
     row = dict(shape=shape, ms=ms, timing=how,
+               device_kernels=(shared_inputs().graph_kernels(kernel)
+                               if how == "graph" else None),
                eager_ms=time_ms(kernel, 10 * reps),
                plain_ms=device_time(plain, 1 if reps <= 10 else 10)[0],
                bound_ms=bms, bound_by=by,
@@ -910,9 +971,24 @@ def measure(name, shape, kernel, plain, library, work, reps,
                                                                  reps))
     lib_txt = "-" if library is None else f"{row['library_ms']:.4f}"
     log(f"  {name:<15} {row['ms']:.4f} ms ({how}; eager "
-        f"{row['eager_ms']:.4f})  bound {bms:.4f} ms ({by})  plain "
+        f"{row['eager_ms']:.4f}; {row['device_kernels']} device kernels "
+        f"a call)  bound {bms:.4f} ms ({by})  plain "
         f"{row['plain_ms']:.4f} ms  library {lib_txt} ms  [{shape}]")
     return row
+
+
+# the designs of the kernels rebuilt under rule 2, named in the kernels line
+DESIGNS = {
+    "causal_conv1d": "one launch writes y and the (b, k-1, d) tail; 8 "
+    "channels (16-byte loads) and up to 8 time steps a thread, the taps, "
+    "bias and a sliding window of the k-1 previous inputs in registers",
+    "flash_attention": "bf16 on the tensor cores: wgmma for Q.K^T (smem "
+    "operands) and P.V (P from registers, V through the transpose bit), a "
+    "producer warp's TMA ring of 3 K/V stages, the softmax of S(t) "
+    "overlapping P.V(t-1); 64-row query tiles of (position, head) pairs "
+    "over the query heads of one KV head, a light and a heavy tile paired "
+    "in a block; f32 the SIMT kernel",
+}
 
 
 def k3_work(cfg, b, int8, state_dtype, act_bytes):
@@ -1069,6 +1145,8 @@ def phase_timing(cfg, dev, counts, errs):
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "launches": counts[name],
                  "max_abs_err": errs[name], **main_row}
+        if name in DESIGNS:
+            entry["design"] = DESIGNS[name]
         if more:
             entry["other_shapes"] = more
         kernels.append(entry)
@@ -1571,8 +1649,10 @@ def jamba_free(key):
 
 
 def shared_inputs():
-    """The card tests' input builders (``tests/_torch_inputs.py``)."""
-    sys.path.insert(0, str(ROOT / "tests"))
+    """The card tests' input builders and helpers
+    (``tests/_torch_inputs.py``)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
     import _torch_inputs
     return _torch_inputs
 
@@ -1585,18 +1665,32 @@ def check_jamba_kernels(dev, serving):
     gen = torch.Generator().manual_seed(SEED + 5)
     # K7: b=1, 32 query heads over 8 kv heads of 128, as jamba's prefill;
     # repro's flash tolerances (2e-5 f32, 3e-2 bf16: the output rounds)
+    # (bf16 on the tensor cores: also lengths no multiple of its 64-key
+    # and 16-position tiles, on one and two warpgroups a block, each
+    # launch repeated bit for bit)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        for lq, lk in ((64, 64), (127, 127), (512, 512), (64, 512)):
+        ragged = (((65, 65), (200, 200), (37, 300), (500, 700))
+                  if tag == "bf16" else ())
+        for lq, lk in ((64, 64), (127, 127), (512, 512), (64, 512),
+                       *ragged):
             q = torch.randn(1, lq, 32, 128, generator=gen).to(dev, dtype)
             k = torch.randn(1, lk, 8, 128, generator=gen).to(dev, dtype)
             v = torch.randn(1, lk, 8, 128, generator=gen).to(dev, dtype)
             got = flash_attention.flash_attention(q, k, v, causal=True)
             want = ref.attention(q, k, v, causal=True)
+            again = flash_attention.flash_attention(q, k, v, causal=True)
             torch.cuda.synchronize()
             what = "suffix " if lq < lk else ""
-            e = check(f"K7 {tag} {what}lq={lq} lk={lk} hq=32 hkv=8 dh=128",
-                      got, want, tol, tol)
+            name = f"K7 {tag} {what}lq={lq} lk={lk} hq=32 hkv=8 dh=128"
+            e = check(name, got, want, tol, tol)
+            same = torch.equal(got, again)
+            nk = shared_inputs().graph_kernels(
+                lambda: flash_attention.flash_attention(q, k, v, causal=True))
+            log(f"  {name} repeated: {'bitwise equal' if same else 'FAIL'};"
+                f" {nk} device kernel(s) a call  {'ok' if nk == 1 else 'FAIL'}")
+            if not same or nk != 1:
+                FAILURES.append(f"{name} repeat / one kernel")
             if tag == "bf16" and lq == lk == 512:
                 serving["flash_attention"] = e
     # K3's jamba instance: one position, or four (the length of the dense
@@ -1769,6 +1863,10 @@ def phase_jamba_timing(dev, counts, errs):
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "launches": counts[name],
                  "max_abs_err": errs[name], **main_row}
+        if name in DESIGNS:
+            entry["design"] = DESIGNS[name]
+        if name == "flash_attention":
+            entry["sass"] = SASS
         if more:
             entry["other_shapes"] = more
         kernels.append(entry)

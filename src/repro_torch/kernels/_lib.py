@@ -47,7 +47,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "marca_selective_scan": [_P] * 10 + [_I] * 4 + [_L] * 10
     + [_I] * 3 + [_P],
-    "marca_causal_conv1d": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I, _P],
+    "marca_causal_conv1d": [_P] * 6 + [_I] * 4 + [_L] * 2 + [_I, _P],
     "marca_decode_step": [_P] * 11 + [_I] * 3 + [_L] * 5 + [_I] * 3 + [_P],
     "marca_decode_step_q": [_P] * 13 + [_I] * 4 + [_L] * 5 + [_I] * 4
     + [_P],
@@ -74,7 +74,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(repr(BUILDS).encode())
+    h.update(repr((SOURCES, BUILDS)).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -140,12 +140,30 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+# the current stream's handle as an int without building a Stream object
+# (torch's own generated code reads it so), else through the public API
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def call(name: str, device: torch.device, *args) -> None:
     """Launch ``name`` on ``device``'s current stream; raise on a CUDA
-    error reported right after the launch."""
+    error reported right after the launch.  The device is made current
+    only where it is not already: switching costs the eager caller more
+    than the launch."""
     fn = getattr(lib(), name)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = fn(*args, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _stream(index))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 

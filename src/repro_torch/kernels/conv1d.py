@@ -4,7 +4,8 @@ Port of ``repro/kernels/conv1d.py`` (Pallas ``_conv_kernel``,
 pallas_call at :73).  Same semantics and layout as
 ``kernels.ref.causal_conv1d``: x (b, L, d); w (k, d) f32; bias (d,) f32;
 x_prev and the returned tail (b, k-1, d) in x's dtype.  On a CUDA
-tensor the kernel runs; on a CPU tensor the plain version does.
+tensor the kernel runs, one launch that writes y and the tail; on a CPU
+tensor the plain version does.
 """
 from __future__ import annotations
 
@@ -15,9 +16,13 @@ from repro_torch.kernels import _lib, ref
 #: kernel launches made by this wrapper
 launches = 0
 
+#: the most taps the kernel holds in registers
+MAX_TAPS = 4
+
 
 def causal_conv1d(x, w, b=None, x_prev=None):
-    """Returns (y (b, L, d) in x.dtype, new_state (b, k-1, d)).
+    """Returns (y (b, L, d) in x.dtype, new_state (b, k-1, d)), the tail
+    a fresh tensor (never x_prev).
 
     x may be a strided view (unit stride on the last axis only); w, b
     and x_prev must be contiguous."""
@@ -33,15 +38,12 @@ def causal_conv1d(x, w, b=None, x_prev=None):
     _lib.require(L >= 1 and k >= 1, "empty sequence or filter")
     if x.device.type == "cpu":
         return ref.causal_conv1d(x, w, b=b, x_prev=x_prev)
+    _lib.require(k <= MAX_TAPS, f"K5 takes at most {MAX_TAPS} taps, got {k}")
     y = torch.empty(bsz, L, d, dtype=x.dtype, device=x.device)
+    tail = torch.empty(bsz, k - 1, d, dtype=x.dtype, device=x.device)
     _lib.call("marca_causal_conv1d", x.device,
               _lib.ptr(x), _lib.ptr(w), _lib.ptr(b), _lib.ptr(x_prev),
-              _lib.ptr(y), bsz, L, d, k, x.stride(0), x.stride(1),
-              _lib.DTYPES[x.dtype])
+              _lib.ptr(y), _lib.ptr(tail), bsz, L, d, k, x.stride(0),
+              x.stride(1), _lib.DTYPES[x.dtype])
     launches += 1
-    # the new tail is the last k-1 true inputs, rebuilt as repro's
-    # wrapper does (conv1d.py:110)
-    if x_prev is None:
-        x_prev = torch.zeros(bsz, k - 1, d, dtype=x.dtype, device=x.device)
-    full = torch.cat([x_prev, x], dim=1)
-    return y, full[:, full.shape[1] - (k - 1):].contiguous()
+    return y, tail

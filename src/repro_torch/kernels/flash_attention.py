@@ -5,10 +5,13 @@ Port of ``repro/kernels/flash_attention.py`` (Pallas ``_flash_kernel``,
 pallas_call at :80), in ``repro``'s public layout: q (b, lq, hq, dh),
 k/v (b, lk, hkv, dh), the output like q.  The queries may be the suffix
 of the sequence (lq < lk): query i attends to keys j <= i + lk - lq.
-On a CUDA tensor the kernel runs; on a CPU tensor the plain version
-``kernels.ref.attention`` does.
+On a CUDA tensor the kernel runs (bf16 on the tensor cores, f32 on the
+SIMT pipes); on a CPU tensor the plain version ``kernels.ref.attention``
+does.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import _lib, ref
 
@@ -22,7 +25,9 @@ MAX_HEAD_DIM = 128
 def flash_attention(q, k, v, causal: bool = True, scale=None):
     """Returns (b, lq, hq, dh) in q's dtype.  q, k and v contiguous, of
     one dtype (float32 or bfloat16); hq a multiple of hkv; dh a multiple
-    of 4 up to 128; with ``causal``, lq <= lk."""
+    of 4 up to 128 in float32, of 16 up to 128 in bfloat16 (and q, k, v
+    on 16-byte boundaries, as the tensor cores' copies need); with
+    ``causal``, lq <= lk."""
     global launches
     _lib.check_dtype(q)
     b, lq, hq, dh = q.shape
@@ -39,9 +44,13 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
         scale = dh ** -0.5
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, scale=scale)
-    _lib.require(dh % 4 == 0 and 4 <= dh <= MAX_HEAD_DIM,
-                 f"K7 takes a head dim that is a multiple of 4 up to "
-                 f"{MAX_HEAD_DIM}, got {dh}")
+    step = 16 if q.dtype == torch.bfloat16 else 4
+    _lib.require(dh % step == 0 and step <= dh <= MAX_HEAD_DIM,
+                 f"K7 in {q.dtype} takes a head dim that is a multiple of "
+                 f"{step} up to {MAX_HEAD_DIM}, got {dh}")
+    _lib.require(q.dtype != torch.bfloat16 or all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v)),
+        "K7 in bfloat16 needs q, k and v on 16-byte boundaries")
     o = q.new_empty(q.shape)
     _lib.call("marca_flash_attention", q.device, _lib.ptr(q), _lib.ptr(k),
               _lib.ptr(v), _lib.ptr(o), b, lq, lk, hq, hkv, dh,

@@ -50,6 +50,53 @@ def close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
+def device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` runs on the
+    card, from torch.profiler's CUDA activity."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def graph_kernels(fn) -> int:
+    """The number of device kernels one call of ``fn`` launches: the
+    kernel nodes of a CUDA graph that captures the call, read through the
+    driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  Unlike
+    ``device_kernels`` it does not depend on the tracer's state (late in
+    a long process the profiler was seen to record no kernel at all)."""
+    import ctypes
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:                      # a torch without keep_graph
+        graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = ctypes.c_int()
+    kernels = 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kinds)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kinds.value == 0         # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
 def scan_call(fn, t, **kw):
     """Call a scan (wrapper or plain version) on a to_torch() dict."""
     return fn(t["x"], t["dt"], t["A"], t["B"], t["C"], D=t["D"], z=t["z"],

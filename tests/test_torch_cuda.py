@@ -14,9 +14,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
 from _torch_inputs import (VARIANTS, assert_q_close, close, code_ordinals,
-                           jamba_run_inputs, np_input, q_step_tensors,
-                           scan_arrays, scan_call, stacked_inputs,
-                           step_arrays, to_torch, xlstm_run_inputs)
+                           device_kernels, jamba_run_inputs, np_input,
+                           q_step_tensors, scan_arrays, scan_call,
+                           stacked_inputs, step_arrays, to_torch,
+                           xlstm_run_inputs)
 
 
 @pytest.fixture
@@ -54,6 +55,57 @@ def test_cuda_conv_matches_plain(cuda, dtype, tol, b, L):
     torch.cuda.synchronize()
     close(y1.cpu(), y0.cpu().float().numpy(), tol)
     assert torch.equal(s1, s0)
+
+
+def _conv_tensors(cuda, dtype, b, L, d, prev, strided):
+    """x as the Mamba block hands it over (a strided view of its (b, L,
+    2d) in_proj output) or dense; w, bias f32; x_prev or None."""
+    dt = getattr(torch, dtype)
+    xz = torch.from_numpy(np_input(d + L, b, L, 2 * d)).to(cuda, dt)
+    x = xz[..., :d] if strided else xz[..., :d].contiguous()
+    w = torch.from_numpy(np_input(2, 4, d)).to(cuda)
+    bias = torch.from_numpy(np_input(3, d)).to(cuda)
+    x_prev = (torch.from_numpy(np_input(4, b, 3, d)).to(cuda, dt) if prev
+              else None)
+    return x, w, bias, x_prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("d", [200, 1536])
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 300])
+@pytest.mark.parametrize("prev", [True, False], ids=["x_prev", "no_prev"])
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
+def test_cuda_conv_writes_its_tail(cuda, dtype, tol, d, L, prev, strided):
+    """K5 writes y and the new tail in one launch: the tail bitwise the
+    plain version's and a fresh tensor, x_prev's rows shifted by L where
+    L < k-1; d 200 takes the kernel's one-channel path, d 1536 its
+    8-channel path."""
+    x, w, bias, x_prev = _conv_tensors(cuda, dtype, 3, L, d, prev, strided)
+    n0 = tconv.launches
+    y1, s1 = tconv.causal_conv1d(x, w, bias, x_prev)
+    y0, s0 = ref.causal_conv1d(x, w, bias, x_prev)
+    torch.cuda.synchronize()
+    assert tconv.launches == n0 + 1
+    close(y1.cpu(), y0.cpu().float().numpy(), tol)
+    assert torch.equal(s1, s0)
+    assert x_prev is None or s1.data_ptr() != x_prev.data_ptr()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,L,prev", [(4, 1, True), (1, 512, True),
+                                      (4, 2, False)])
+def test_cuda_conv_is_one_device_kernel(cuda, b, L, prev):
+    """One wrapper call runs one device kernel (no concatenation, zeros or
+    copy beside it), counted by torch.profiler, and repeats bit for
+    bit."""
+    x, w, bias, x_prev = _conv_tensors(cuda, "bfloat16", b, L, 1536, prev,
+                                       True)
+    names = device_kernels(lambda: tconv.causal_conv1d(x, w, bias, x_prev))
+    assert len(names) == 1 and "causal_conv1d_kernel" in names[0], names
+    y1, s1 = tconv.causal_conv1d(x, w, bias, x_prev)
+    y2, s2 = tconv.causal_conv1d(x, w, bias, x_prev)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.gpu
@@ -321,6 +373,66 @@ def test_cuda_flash_matches_plain(cuda, dtype, tol, b, lq, lk, hq, hkv, dh):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
                                rtol=tol, atol=tol)
+
+
+FLASH_TC_SHAPES = [  # b, lq, lk, hq, hkv, dh: bf16, on the tensor cores
+    (1, 65, 65, 32, 8, 128),    # ragged against the 64-row tile
+    (1, 129, 129, 32, 8, 128),
+    (1, 200, 200, 32, 8, 128),
+    (1, 37, 300, 32, 8, 128),   # a ragged suffix
+    (2, 300, 300, 32, 8, 128),  # ragged against the 128-row tile
+    (1, 500, 700, 32, 8, 128),  # a suffix on the 128-row tile
+    (2, 70, 70, 8, 8, 64),      # hq == hkv: one head a block
+    (2, 45, 45, 4, 2, 16),      # dh 16, padded to 64 by the copies
+    (1, 100, 100, 6, 2, 96),    # 3 heads a KV head: a block takes 1
+]
+
+
+def _flash_tensors(cuda, b, lq, lk, hq, hkv, dh, dtype=torch.bfloat16):
+    q = torch.from_numpy(np_input(lq, b, lq, hq, dh)).to(cuda, dtype)
+    k = torch.from_numpy(np_input(lk + 1, b, lk, hkv, dh)).to(cuda, dtype)
+    v = torch.from_numpy(np_input(lk + 2, b, lk, hkv, dh)).to(cuda, dtype)
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,dh", FLASH_TC_SHAPES)
+def test_cuda_flash_bf16_ragged_matches_plain(cuda, b, lq, lk, hq, hkv, dh):
+    """K7's bf16 (tensor-core) kernel at lengths that are no multiple of
+    its row or key tiles, at the bf16 tolerance of 3e-2."""
+    from repro_torch.kernels import flash_attention
+    q, k, v = _flash_tensors(cuda, b, lq, lk, hq, hkv, dh)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = ref.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq", [512, 200])
+def test_cuda_flash_bf16_repeats_bitwise(cuda, lq):
+    """No atomics and no split of the key walk: a launch repeats bit for
+    bit (128-row tiles at 512, 64-row tiles at 200)."""
+    from repro_torch.kernels import flash_attention
+    q, k, v = _flash_tensors(cuda, 1, lq, lq, 32, 8, 128)
+    a = flash_attention.flash_attention(q, k, v, causal=True)
+    b = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [8, 24, 136])
+def test_cuda_flash_bf16_refuses_other_head_dims(cuda, dh):
+    """bf16 takes dh a multiple of 16 up to 128, and raises otherwise:
+    no fall back to the f32 kernel or the plain version."""
+    from repro_torch.kernels import flash_attention
+    q, k, v = _flash_tensors(cuda, 1, 16, 16, 4, 2, dh)
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention.flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == n0
 
 
 @pytest.mark.gpu

@@ -77,12 +77,25 @@ def test_scan_plain_matches_pallas_bf16():
 @pytest.mark.parametrize("b,L,d,k,prev", [(1, 16, 8, 4, True),
                                           (2, 37, 40, 4, True),
                                           (3, 5, 17, 3, False),
-                                          (4, 1, 24, 4, True)])
+                                          (4, 1, 24, 4, True),
+                                          # L < k-1: the tail keeps
+                                          # x_prev's rows, shifted by L
+                                          (2, 2, 40, 4, True),
+                                          (2, 2, 40, 4, False),
+                                          # with x_prev, x a strided view
+                                          # as the Mamba block's xz split
+                                          (2, 5, 40, 4, "strided")])
 def test_conv_plain_matches_pallas(b, L, d, k, prev):
     a = dict(x=np_input(b, b, L, d), w=np_input(b + 1, k, d), b=np_input(b + 2, d),
              x_prev=np_input(b + 3, b, k - 1, d) if prev else None)
     yj, sj = jconv.causal_conv1d(**to_jax(a), block_d=16, block_l=16)
-    yt, st = ref.causal_conv1d(**to_torch(a))
+    t = to_torch(a)
+    if prev == "strided":
+        xz = torch.zeros(b, L, 2 * d)
+        xz[..., :d] = t["x"]
+        t["x"] = xz[..., :d]
+        assert not t["x"].is_contiguous()
+    yt, st = ref.causal_conv1d(**t)
     close(yt, yj, 1e-5)
     np.testing.assert_array_equal(np.asarray(st), np.asarray(sj))
 
