@@ -11,7 +11,9 @@ Phases, each fatal on failure:
    kernels from ``src/repro_torch/csrc`` with ``nvcc`` for sm_90a, print
    the compiler's ``-Xptxas -v`` report, and count the tensor-core
    (HGMMA) and TMA (UTMALDG) instructions in K7's bf16 kernels' SASS
-   (``cuobjdump -sass``), failing where HGMMA is missing;
+   (``cuobjdump -sass``), failing where HGMMA is missing, and the 128-bit
+   loads and stores (and FMUL, FADD, FFMA, LDS) of K8's and K9's,
+   failing where those loads or stores are missing;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving shapes of mamba-130m, in f32 and bf16, for every exp/SiLU
    variant, within the printed tolerances: the scan, the conv (one
@@ -61,7 +63,11 @@ units:
 2u. the units' main path (``ops.exp`` / ``ops.silu`` with backend
    "pallas", K8 and K9) driven with the counts at 0, then each kernel
    against its plain version, bitwise, at 1,000,003 and 16 M elements,
-   f32 and bf16;
+   f32 and bf16; over every bf16 bit pattern and every f32 bit pattern
+   (16 chunks of 2^28); +-0, +-inf, NaNs, subnormals, K8's clamp and the
+   SiLU breaks with their f32 neighbours; sizes 1-17; views at every
+   offset within a 16-byte vector; each launch repeated; one device
+   kernel a call; K8's answer for NaN against ``repro``'s;
 3x. xlstm-350m in f32, prefill 127 + 8 decode steps, per layer and
    through K3 on the card against the CPU: f32, int8 weights with int8
    state, fp8 state;
@@ -195,6 +201,16 @@ def conv_inputs(b, L, d, k, dtype, gen, dev):
 # K7's bf16 instantiations, whose products must run on the tensor cores
 K7_TC = "flash_attention_tc"
 SASS = {}
+# K8's and K9's kernels (approx_units.cu): their 16-byte loads and stores,
+# and the f32 arithmetic that shows one quadratic an element (FFMA would
+# be a contraction that changes bits)
+UNIT_KERNEL = "unit_kernel"
+UNIT_SASS_OPS = {"LDG.128": r"\bLDG\.[\w.]*128\b",
+                 "STG.128": r"\bSTG\.[\w.]*128\b", "FMUL": r"\bFMUL\b",
+                 "FADD": r"\bFADD\b", "FFMA": r"\bFFMA\b",
+                 "LDS": r"\bLDS\b",
+                 "instructions": r"/\*[0-9a-f]{4,}\*/\s+[A-Z@]"}
+UNIT_SASS = {}
 
 
 def phase_build():
@@ -207,32 +223,67 @@ def phase_build():
     log(f"built {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     log(_lib.build_log())
     check_k7_sass(so)
+    check_unit_sass(so)
 
 
-def check_k7_sass(so):
-    """Count the warpgroup tensor-core instructions (HGMMA) and TMA loads
-    (UTMALDG) in each of K7's bf16 kernels in the built library's SASS
-    (``cuobjdump -sass``); a kernel without HGMMA fails."""
+def sass_counts(so, match, ops):
+    """{kernel: {op: lines}} over the kernels of the library's SASS
+    (``cuobjdump -sass``) whose mangled name holds ``match``: for each op
+    the number of instructions matching its regex."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    fn = None
+    out, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if K7_TC in m.group(1) else None
+            fn = m.group(1) if match in m.group(1) else None
             if fn:
-                SASS[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                out[fn] = dict.fromkeys(ops, 0)
         elif fn:
-            for op in SASS[fn]:
-                SASS[fn][op] += bool(re.search(rf"\b{op}\b", line))
+            for op, rx in ops.items():
+                out[fn][op] += bool(re.search(rx, line))
+    return out
+
+
+def check_k7_sass(so):
+    """Count the warpgroup tensor-core instructions (HGMMA) and TMA loads
+    (UTMALDG) in each of K7's bf16 kernels in the built library's SASS;
+    a kernel without HGMMA fails."""
+    SASS.update(sass_counts(so, K7_TC, {op: rf"\b{op}\b"
+                                        for op in ("HGMMA", "UTMALDG")}))
     for fn, n in SASS.items():
         log(f"  K7 bf16 SASS {fn}: {n['HGMMA']} HGMMA, {n['UTMALDG']} "
             f"UTMALDG  {'ok' if n['HGMMA'] else 'FAIL'}")
     if not SASS or not all(n["HGMMA"] for n in SASS.values()):
         FAILURES.append("K7 bf16 without HGMMA")
+
+
+def unit_kernel_name(fn):
+    """'<unit> <dtype>' of an instantiation of approx_units.cu's
+    unit_kernel<T, kOp> from its mangled name."""
+    op = {"Li0E": "fast_exp", "Li1E": "silu ours", "Li2E": "silu paper"}
+    unit = next((v for k, v in op.items() if k in fn), fn)
+    return f"{unit} {'bf16' if 'bfloat16' in fn else 'f32'}"
+
+
+def check_unit_sass(so):
+    """K8's and K9's instantiations: each must hold 128-bit global loads
+    and stores; the counts of FMUL / FADD (2 a quadratic), FFMA, LDS (K9
+    "ours"' table reads) and of all instructions are printed."""
+    UNIT_SASS.update({unit_kernel_name(fn): n for fn, n in sass_counts(
+        so, UNIT_KERNEL, UNIT_SASS_OPS).items()})
+    for name, n in sorted(UNIT_SASS.items()):
+        ok = n["LDG.128"] > 0 and n["STG.128"] > 0
+        log(f"  K8/K9 SASS {name}: " + ", ".join(
+            f"{v} {k}" for k, v in n.items()) + f"  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"{name} without 128-bit loads and stores")
+    if len(UNIT_SASS) != 6:
+        FAILURES.append(f"{len(UNIT_SASS)} K8/K9 instantiations in the SASS "
+                        f"(expected 6)")
 
 
 VARIANTS = [("exact", "exact"), ("ours", "ours"), ("fast", "paper")]
@@ -988,6 +1039,15 @@ DESIGNS = {
     "overlapping P.V(t-1); 64-row query tiles of (position, head) pairs "
     "over the query heads of one KV head, a light and a heavy tile paired "
     "in a block; f32 the SIMT kernel",
+    "fast_exp": "16-byte vectors (4 f32 or 8 bf16), 2 a thread loaded "
+    "before either is computed, streaming loads and stores, one block a "
+    "chunk of 256 x 2 vectors, at most 32 registers (8 blocks an SM); the "
+    "unaligned head, the tail and a differently aligned x and y in a "
+    "scalar loop of the same launch",
+    "piecewise_silu": "K8's memory design; the range detected first: the "
+    "count of breaks at or below x picks one row of a coefficient table in "
+    "shared memory (three 4-byte reads) and one quadratic is evaluated "
+    "('paper': its segment's constants by selects, one evaluation)",
 }
 
 
@@ -1352,9 +1412,9 @@ def check_xlstm_kernels(dev, serving):
 
 # the MARCA units' main path: ops.exp / ops.silu with backend "pallas" at
 # every approximate variant, f32 and bf16, on 16 M elements
-UNIT_CALLS = (("exp", "ours"), ("exp", "fast"), ("silu", "ours"),
-              ("silu", "paper"))
 UNIT_N = 1 << 24
+# the f32 sweep's chunk: 2^28 bit patterns, 1 GB
+UNIT_SWEEP = 1 << 28
 
 
 def unit_input(n, dtype, seed, dev):
@@ -1367,24 +1427,70 @@ def unit_cases():
     the library call) of each approximate unit: K8's "ours" and "fast"
     biases, K9's "ours" and "paper" segments."""
     import torch.nn.functional as F
-    from repro_torch.core import approx
-    from repro_torch.kernels import fast_exp, piecewise_silu, ref
-    fast = (approx.FAST_EXP_B_SHIFT, 0.0)
-    ours = (approx.OUR_EXP_B_SHIFT, approx.OUR_EXP_C)
-    return [("fast_exp", name, lambda x, a=a: fast_exp.fast_exp(x, *a),
-             lambda x, a=a: ref.fast_exp(x, *a), torch.exp)
-            for name, a in (("ours", ours), ("fast", fast))] + [
-        ("piecewise_silu", v,
-         lambda x, v=v: piecewise_silu.piecewise_silu(x, v),
-         lambda x, v=v: ref.piecewise_silu(x, v), F.silu)
-        for v in ("ours", "paper")]
+    ti = shared_inputs()
+    return [("fast_exp" if op == "exp" else "piecewise_silu", impl,
+             *ti.unit_fns(op, impl), torch.exp if op == "exp" else F.silu)
+            for op, impl in ti.UNIT_IMPLS]
+
+
+def check_unit_values(dev, sweep=True):
+    """K8 and K9 against their plain versions on the card, bit for bit (a
+    NaN against any NaN): the card tests' checks
+    (``tests/_torch_inputs.py`` ``unit_value_mismatches``: every bf16
+    bit pattern, +-0, +-inf, NaNs, subnormals, K8's clamp and each SiLU
+    break with its f32 neighbours, K8's answer for NaN is ``repro``'s,
+    sizes 1-17 and 1,000,003, views at each offset within a 16-byte
+    vector, repeats, one device kernel a call), then every f32 bit
+    pattern in chunks of 2^28 (``sweep``).  Prints K8's answer for NaN
+    (0.0 with "fast", c with "ours")."""
+    ti = shared_inputs()
+    t0 = time.perf_counter()
+    n0 = len(FAILURES)
+    for op, impl in ti.UNIT_IMPLS:
+        kern, _ = ti.unit_fns(op, impl)
+        name = f"{'K8' if op == 'exp' else 'K9'} {impl}"
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            for line in ti.unit_value_mismatches(op, impl, dt, dev):
+                log(f"  {name} {tag} {line}  FAIL")
+                FAILURES.append(f"{name} {tag} {line}")
+            if op == "exp":
+                nan = torch.full((1,), float("nan"), device=dev, dtype=dt)
+                log(f"  {name} {tag} exp(NaN) = {float(kern(nan)[0]):.6e}")
+    log(f"  K8/K9: every bf16 pattern, special values, breaks, sizes "
+        f"1-17 and 1000003, offsets, repeats: "
+        f"{'bitwise equal' if len(FAILURES) == n0 else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not sweep:
+        return
+    t0 = time.perf_counter()
+    cases = [(op, impl, *ti.unit_fns(op, impl)) for op, impl in ti.UNIT_IMPLS]
+    ramp = torch.arange(UNIT_SWEEP, dtype=torch.int32, device=dev)
+    bad = dict.fromkeys(ti.UNIT_IMPLS, 0)
+    for c in range((1 << 32) // UNIT_SWEEP):
+        start = c * UNIT_SWEEP - (1 << 32 if c * UNIT_SWEEP >= 1 << 31
+                                  else 0)
+        x = (ramp + start).view(torch.float32)
+        for op, impl, kern, plain in cases:
+            bad[op, impl] += ti.unit_mismatches(kern(x), plain(x))
+        del x
+    del ramp
+    torch.cuda.empty_cache()
+    for (op, impl), n in bad.items():
+        name = f"{'K8' if op == 'exp' else 'K9'} {impl}"
+        log(f"  {name} f32: every one of the 2^32 bit patterns "
+            f"{'bitwise equal' if not n else f'{n} differ  FAIL'}")
+        if n:
+            FAILURES.append(f"{name} f32 sweep")
+    log(f"  the f32 sweep took {time.perf_counter() - t0:.1f} s")
 
 
 def check_units(dev, counts, serving):
     """Phase 2u: the main path of K8 and K9 (``ops.exp`` / ``ops.silu``
     with backend "pallas") driven once with the counts at 0, then each
     kernel held against its plain version, bitwise, at a ragged size and
-    at 16 M elements, f32 and bf16."""
+    at 16 M elements, f32 and bf16, and over the values and shapes of
+    ``check_unit_values``."""
     from repro_torch.core import dispatch_count
     from repro_torch.kernels import ops
     xs = [unit_input(UNIT_N, dt, SEED + 300 + i, dev)
@@ -1392,7 +1498,7 @@ def check_units(dev, counts, serving):
     torch.cuda.synchronize()
     dispatch_count.reset()
     for x in xs:
-        for op, impl in UNIT_CALLS:
+        for op, impl in shared_inputs().UNIT_IMPLS:
             getattr(ops, op)(x, impl, "pallas")
     torch.cuda.synchronize()
     snap = dispatch_count.snapshot()
@@ -1424,6 +1530,7 @@ def check_units(dev, counts, serving):
                 if not same:
                     FAILURES.append(f"{name} {impl} n={n} {tag}")
     serving.update(worst)
+    check_unit_values(dev)
 
 
 # (weights, state, kv cache, logits tolerance, why, ties): each card-vs-CPU
@@ -1593,11 +1700,15 @@ def phase_xlstm_timing(dev, counts, errs):
                       ("piecewise_silu",
                        "src/repro/kernels/piecewise_silu.py:26")):
         main_row, *more = rows[name]
+        unit = "fast_exp" if name == "fast_exp" else "silu"
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/approx_units.cu",
             "replaces": rep, "launches": counts[name],
-            "max_abs_err": errs[name], **main_row, "other_shapes": more})
+            "max_abs_err": errs[name], **main_row, "other_shapes": more,
+            "design": DESIGNS[name],
+            "sass": {k: v for k, v in UNIT_SASS.items()
+                     if k.startswith(unit)}})
     return kernels
 
 

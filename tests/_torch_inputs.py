@@ -275,3 +275,147 @@ def xlstm_run_inputs(cfg, kind, n_layers, slots, seed=0, device="cpu"):
             for st in states]
     return (megakernel.XlstmRun(cfg, kind, rows), x0.to(device, dt), states,
             outs)
+
+
+# ---------------------------------------------------------------------------
+# The MARCA units standalone (K8 fast exp, K9 piecewise SiLU)
+# ---------------------------------------------------------------------------
+
+#: (op, impl) of each approximate unit: K8's "ours" and "fast" biases, K9's
+#: "ours" and "paper" segments
+UNIT_IMPLS = (("exp", "ours"), ("exp", "fast"), ("silu", "ours"),
+              ("silu", "paper"))
+#: the breaks of K9's "ours" segments ("paper"'s are -5, -1.5 and 0.75)
+SILU_BREAKS = (-9.0, -5.0, -1.5, 0.75, 2.25, 4.5, 9.0)
+
+
+def _exp_args(impl):
+    from repro_torch.core import approx
+    if impl == "ours":
+        return approx.OUR_EXP_B_SHIFT, approx.OUR_EXP_C
+    return approx.FAST_EXP_B_SHIFT, 0.0
+
+
+def unit_fns(op, impl):
+    """(the kernel's wrapper, its plain version) of one unit."""
+    from repro_torch.kernels import fast_exp, piecewise_silu, ref
+    if op == "exp":
+        a = _exp_args(impl)
+        return (lambda x: fast_exp.fast_exp(x, *a),
+                lambda x: ref.fast_exp(x, *a))
+    return (lambda x: piecewise_silu.piecewise_silu(x, impl),
+            lambda x: ref.piecewise_silu(x, impl))
+
+
+def unit_raw(op, impl, x, y):
+    """The unit's C entry on x into y exactly as given, views at any
+    offset included (the wrapper always writes a fresh, aligned y)."""
+    from repro_torch.core import approx
+    from repro_torch.kernels import _lib
+    args = (x.data_ptr(), y.data_ptr(), x.numel(), _lib.DTYPES[x.dtype])
+    if op == "exp":
+        b, c = _exp_args(impl)
+        _lib.call("marca_fast_exp", x.device, *args,
+                  approx._f32((127.0 + b) * approx._S23), approx._f32(c))
+    else:
+        _lib.call("marca_piecewise_silu", x.device, *args,
+                  int(impl == "paper"))
+
+
+def unit_special_values(dtype, device="cpu"):
+    """+-0, +-inf, NaNs of several signs and payloads, subnormals, the
+    largest finite values, K8's clamp at +-80 and every SiLU break, each
+    of the last with its f32 neighbours (``torch.nextafter``), in
+    ``dtype``."""
+    bits = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                     0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001,
+                     0x7FFFFFFF, 0xFFFFFFFF, 0x00000001, 0x80000001,
+                     0x00400000, 0x007FFFFF, 0x807FFFFF, 0x7F7FFFFF,
+                     0xFF7FFFFF], np.uint32).view(np.float32)
+    pts = torch.tensor(SILU_BREAKS + (-80.0, 80.0))
+    inf = torch.full_like(pts, float("inf"))
+    x = torch.cat([torch.from_numpy(bits.copy()), pts,
+                   torch.nextafter(pts, inf), torch.nextafter(pts, -inf)])
+    return x.to(device, dtype)
+
+
+def every_bf16(device="cpu"):
+    """All 65,536 bf16 bit patterns, NaNs included."""
+    return torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).to(device)
+
+
+def unit_mismatches(got, want) -> int:
+    """The elements whose bits differ, a NaN matching any NaN: f32
+    arithmetic on the card returns the canonical NaN whatever the input's
+    payload, where the CPU keeps it, so the bits of a NaN result are not
+    compared (only that it is NaN)."""
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return int(((got.view(bits) != want.view(bits)) & ~both_nan).sum())
+
+
+def unit_value_mismatches(op, impl, dtype, device):
+    """One unit (K8 or K9, a variant, f32 or bf16) on the card against its
+    plain version over the values and shapes random inputs miss.  Returns
+    one line for each check that failed, so empty when all hold.  Each
+    result is held bit for bit, a NaN matching any NaN
+    (``unit_mismatches``):
+
+    - every bf16 bit pattern (bf16 only);
+    - ``unit_special_values``, against the plain version on the card and
+      on the CPU;
+    - K8's answer for NaN is ``repro``'s: the clamp keeps the NaN and the
+      truncating cast makes it 0, so 0.0 + c (0.0 with "fast", c with
+      "ours"), not the value at -80 that a clamp dropping the NaN gives;
+    - sizes 1-17 and 1,000,003, each one launch (the wrapper's count) and
+      repeated bit for bit;
+    - a view at each offset within a 16-byte vector, beside a fresh output
+      (the scalar loop) and into an output at the same offset (head,
+      vectors, tail);
+    - one device kernel a call.
+    """
+    from repro_torch.core import approx
+    from repro_torch.kernels import fast_exp, piecewise_silu
+    mod = fast_exp if op == "exp" else piecewise_silu
+    kern, plain = unit_fns(op, impl)
+    bad = []
+
+    def hold(what, got, want):
+        n = unit_mismatches(got, want)
+        if n:
+            bad.append(f"{what}: {n} elements differ")
+
+    if dtype == torch.bfloat16:
+        x = every_bf16(device)
+        hold("every bf16 pattern", kern(x), plain(x))
+    x = unit_special_values(dtype, device)
+    got = kern(x)
+    hold("special values and breaks", got, plain(x))
+    hold("special values and breaks, CPU plain", got.cpu(), plain(x.cpu()))
+    if op == "exp":
+        nan = torch.full((9,), float("nan"), device=device, dtype=dtype)
+        c = 0.0 if impl == "fast" else approx._f32(approx.OUR_EXP_C)
+        hold("exp(NaN) is repro's", kern(nan).cpu(),
+             torch.full((9,), c, dtype=dtype))
+    gen = torch.Generator().manual_seed(17)
+    base = (torch.randn(1000003 + 16, generator=gen) * 4.0 - 1.0).to(device,
+                                                                     dtype)
+    for n in [*range(1, 18), 1000003]:
+        x = base[:n]
+        n0 = mod.launches
+        got = kern(x)
+        if mod.launches != n0 + 1:
+            bad.append(f"n={n}: {mod.launches - n0} launches a call")
+        hold(f"n={n}", got, plain(x))
+        hold(f"n={n} repeated", kern(x), got)
+    for k in range(1, 16 // base.element_size()):
+        x = base[k:k + 1000003]
+        hold(f"x[{k}:]", kern(x), plain(x))
+        y = torch.empty_like(base)[k:k + 1000003]
+        unit_raw(op, impl, x, y)
+        hold(f"x[{k}:] into y[{k}:]", y, plain(x))
+    n_k = graph_kernels(lambda: kern(base[:1000003]))
+    if n_k != 1:
+        bad.append(f"{n_k} device kernels a call")
+    return bad

@@ -13,11 +13,11 @@ from repro_torch.kernels import decode_step as tstep
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
-from _torch_inputs import (VARIANTS, assert_q_close, close, code_ordinals,
-                           device_kernels, jamba_run_inputs, np_input,
-                           q_step_tensors, scan_arrays, scan_call,
+from _torch_inputs import (UNIT_IMPLS, VARIANTS, assert_q_close, close,
+                           code_ordinals, device_kernels, jamba_run_inputs,
+                           np_input, q_step_tensors, scan_arrays, scan_call,
                            stacked_inputs, step_arrays, to_torch,
-                           xlstm_run_inputs)
+                           unit_value_mismatches, xlstm_run_inputs)
 
 
 @pytest.fixture
@@ -690,3 +690,19 @@ def test_cuda_units_match_plain_bitwise(cuda, op, impl, dtype, n):
     want = fn(x.cpu(), impl, "pallas")
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(got.cpu().view(bits), want.view(bits))
+
+
+# K8 and K9 over the values and shapes the random inputs above miss, held
+# bit for bit; a NaN result matches any NaN (``unit_mismatches``: f32
+# arithmetic on the card returns the canonical NaN, the CPU keeps the
+# input's payload).  ``unit_value_mismatches`` lists the checks: every
+# bf16 pattern, the special values and SiLU breaks, K8's answer for NaN
+# (``repro``'s 0.0 with "fast"), sizes 1-17 and 1,000,003 with one launch
+# each and a bitwise repeat, views at each offset, one device kernel a
+# call.  ``chip_smoke.py`` phase 2u runs the same checks.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op,impl", UNIT_IMPLS)
+def test_cuda_units_values_and_shapes(cuda, op, impl, dtype):
+    assert unit_value_mismatches(op, impl, dtype, cuda) == []

@@ -15,6 +15,8 @@ from repro.kernels import ops as jops
 from repro_torch.core import dispatch_count
 from repro_torch.kernels import ops
 
+from _torch_inputs import UNIT_IMPLS, unit_special_values
+
 jax.config.update("jax_platform_name", "cpu")
 
 #: ragged shapes: no multiple of the Pallas wrapper's 128-lane tiles
@@ -53,6 +55,26 @@ def test_silu_units_match_repro(impl, shape, dtype):
     got, want = _both(ops.silu, jops.silu, _inputs(shape, 2, 4.0, 0.0),
                       dtype, impl)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("op,impl", UNIT_IMPLS)
+def test_units_special_values_match_repro(op, impl, dtype):
+    """+-0, +-inf, NaNs, subnormals, K8's clamp and the SiLU breaks with
+    their f32 neighbours: the plain versions agree with ``repro``'s at
+    its tolerances, NaN for NaN and inf for inf (XLA contracts a
+    multiply-add into an FMA, so finite values may differ in the last
+    bits), and exp of NaN is the same 0.0 ("fast") or c ("ours") in
+    both, bit for bit; so is "ours" SiLU of NaN, 0.0."""
+    x = unit_special_values(torch.float32).numpy()
+    fn, jfn = (ops.exp, jops.exp) if op == "exp" else (ops.silu, jops.silu)
+    got, want = _both(fn, jfn, x, dtype, impl)
+    np.testing.assert_allclose(got, want, rtol=5e-3 if op == "exp" else 1e-5,
+                               atol=1e-6)
+    if impl != "paper":
+        nan = np.isnan(x)
+        np.testing.assert_array_equal(got[nan].view(np.int32),
+                                      want[nan].view(np.int32))
 
 
 @pytest.mark.parametrize("fn,impl", [(ops.exp, "exact"),
