@@ -13,7 +13,9 @@ Phases, each fatal on failure:
    (HGMMA) and TMA (UTMALDG) instructions in K7's bf16 kernels' SASS
    (``cuobjdump -sass``), failing where HGMMA is missing, and the 128-bit
    loads and stores (and FMUL, FADD, FFMA, LDS) of K8's and K9's,
-   failing where those loads or stores are missing;
+   failing where those loads or stores are missing; record each K3-xLSTM
+   instantiation's registers and spill bytes from the build log (phase
+   5x's kernels line carries the mLSTM ones);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving shapes of mamba-130m, in f32 and bf16, for every exp/SiLU
    variant, within the printed tolerances: the scan, the conv (one
@@ -224,6 +226,7 @@ def phase_build():
     log(_lib.build_log())
     check_k7_sass(so)
     check_unit_sass(so)
+    check_xlstm_registers(_lib.build_log())
 
 
 def sass_counts(so, match, ops):
@@ -284,6 +287,66 @@ def check_unit_sass(so):
     if len(UNIT_SASS) != 6:
         FAILURES.append(f"{len(UNIT_SASS)} K8/K9 instantiations in the SASS "
                         f"(expected 6)")
+
+
+def xlstm_kernel_name(fn):
+    """'mlstm bf16 act, int8 w' of an instantiation of
+    megakernel_xlstm.cuh's xlstm_megakernel<T, TW, kSlstm> from its
+    mangled name."""
+    import re
+    m = re.search(r"xlstm_megakernelI(f|13__nv_bfloat16)(f|a)Lb([01])E", fn)
+    if not m:
+        return fn
+    act = "f32" if m.group(1) == "f" else "bf16"
+    w = "f32" if m.group(2) == "f" else "int8"
+    return f"{'slstm' if m.group(3) == '1' else 'mlstm'} {act} act, {w} w"
+
+
+def xlstm_registers(build_log):
+    """{instantiation: {"registers", "spill_stores", "spill_loads"}} of
+    K3's xLSTM kernels, from the ``-Xptxas -v`` report in the build log
+    (each kernel reported once: the four units build disjoint pairs)."""
+    import re
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for '\w+')?$", line.strip())
+        if m:
+            fn = (xlstm_kernel_name(m.group(1))
+                  if "xlstm_megakernel" in m.group(1) else None)
+            if fn:
+                out.setdefault(fn, {"registers": None, "spill_stores": 0,
+                                    "spill_loads": 0})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+# K3's xLSTM instantiations' registers and spills (xlstm_registers)
+XLSTM_REGS = {}
+
+
+def check_xlstm_registers(build_log):
+    """Record and print the registers and spill bytes of every
+    xlstm_megakernel instantiation (eight: mLSTM and sLSTM, f32 and bf16
+    compute, f32 and int8 weights)."""
+    XLSTM_REGS.update(xlstm_registers(build_log))
+    for name, r in sorted(XLSTM_REGS.items()):
+        log(f"  K3-xLSTM {name}: {r['registers']} registers, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill "
+            f"loads")
+    if len(XLSTM_REGS) != 8:
+        FAILURES.append(f"{len(XLSTM_REGS)} K3-xLSTM instantiations in the "
+                        f"build log (expected 8)")
 
 
 VARIANTS = [("exact", "exact"), ("ours", "ours"), ("fast", "paper")]
@@ -1044,11 +1107,25 @@ DESIGNS = {
     "chunk of 256 x 2 vectors, at most 32 registers (8 blocks an SM); the "
     "unaligned head, the tail and a differently aligned x and y in a "
     "scalar loop of the same launch",
+    "mlstm_stacked_run": "3 grid barriers a layer in blocks of 256 "
+    "threads (255 registers): A LayerNorm + up column tiles of 32, no "
+    "split, the conv and SiLU in the epilogue; C' one item per (head, "
+    "16-row tile of C) for all slots, its wq/wk columns and C rows staged "
+    "in shared memory by cp.async, q and k for its rows, the gates, the "
+    "cell (int8/fp8 C requantized per row, the quotient from the scale's "
+    "reciprocal and one fused correction), the tile's partials, the last "
+    "of 8 tiles summing them; E each (64-column tile, row range) item "
+    "computes the y of its rows from the 4 group sums (D's work) while its "
+    "down tile comes in, the last range sums the partials in order and "
+    "adds the residual; arrival counters zeroed in A, no float atomics",
     "piecewise_silu": "K8's memory design; the range detected first: the "
     "count of breaks at or below x picks one row of a coefficient table in "
     "shared memory (three 4-byte reads) and one quadratic is evaluated "
     "('paper': its segment's constants by selects, one evaluation)",
 }
+
+
+DESIGNS["mlstm_stacked_run_q_int8w"] = DESIGNS["mlstm_stacked_run"]
 
 
 def k3_work(cfg, b, int8, state_dtype, act_bytes):
@@ -1625,7 +1702,7 @@ def phase_xlstm_timing(dev, counts, errs):
                                             wd == "int8", dev)
         row = measure(
             name, f"{n} {kind} layer(s), slots=4, d_model=1024 bf16, {wd} "
-            f"weights, {sd} state; grid {lc['grid']} x 512, "
+            f"weights, {sd} state; grid {lc['grid']} x {lc['threads']}, "
             f"{lc['smem_bytes']} B shared",
             lambda: megakernel.xlstm_stacked_run(c, x0, run, states, outs),
             lambda: ref.xlstm_stacked_run(c, x0, kind, run.rows, states),
@@ -1690,12 +1767,17 @@ def phase_xlstm_timing(dev, counts, errs):
     kernels = []
     for name in meta:
         main_row, *more = rows[name]
+        extra = {}
+        if name.startswith("mlstm"):
+            extra = {"design": DESIGNS[name],
+                     "registers": {k: v for k, v in XLSTM_REGS.items()
+                                   if k.startswith("mlstm")}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/megakernel_xlstm.cuh",
             "replaces": "src/repro/kernels/decode_step.py:413",
             "launches": counts[name], "max_abs_err": errs[name],
-            **main_row})
+            **main_row, **extra})
     for name, rep in (("fast_exp", "src/repro/kernels/fast_exp.py:26"),
                       ("piecewise_silu",
                        "src/repro/kernels/piecewise_silu.py:26")):

@@ -215,11 +215,13 @@ __device__ __forceinline__ bool quantized(int state_dtype) {
 }
 
 // Blocks per SM and the grid of a cooperative launch of ``fn`` with
-// ``smem`` bytes of dynamic shared memory per block on the current device;
-// 0 or a CUDA error.  Defined in megakernel_mamba.cu: the answers are kept
-// per (kernel, device, shared memory), and so is the largest shared memory
-// a kernel was opened to, so a launch after the first makes no attribute
-// or occupancy query (none inside a CUDA graph capture either).
-int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid);
+// ``threads`` threads and ``smem`` bytes of dynamic shared memory per block
+// on the current device; 0 or a CUDA error.  Defined in
+// megakernel_mamba.cu: the answers are kept per (kernel, device, shared
+// memory), and so is the largest shared memory a kernel was opened to, so
+// a launch after the first makes no attribute or occupancy query (none
+// inside a CUDA graph capture either).
+int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid,
+              int threads = kMThreads);
 
 }  // namespace marca

@@ -512,7 +512,8 @@ int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
   return coop_grid((const void*)fn, *smem, per_sm, grid);
 }
 
-int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid) {
+int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid,
+              int threads) {
   struct Entry { const void* fn; int dev; size_t smem; int per_sm, grid; };
   static std::mutex mu;
   static std::vector<Entry> seen;
@@ -537,7 +538,7 @@ int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kMThreads,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads,
                                                       smem);
   if (e != cudaSuccess) return (int)e;
   if (!coop || *per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;

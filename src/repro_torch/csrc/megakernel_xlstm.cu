@@ -19,7 +19,8 @@ KernelFn pick(int slstm, int dtype, int weight_dtype) {
 
 // The launch configuration of K3's xLSTM instance on the current device:
 // out[0] blocks per SM, out[1] the grid, out[2] dynamic shared memory
-// bytes.  kind 0 is mLSTM, 1 sLSTM; weight_dtype 0 is f32, 1 int8.
+// bytes, out[3] threads a block.  kind 0 is mLSTM, 1 sLSTM; weight_dtype
+// 0 is f32, 1 int8.
 extern "C" int marca_xlstm_stacked_grid(int kind, int d_model, int dtype,
                                         int weight_dtype, int* out) {
   using namespace marca;
@@ -27,11 +28,13 @@ extern "C" int marca_xlstm_stacked_grid(int kind, int d_model, int dtype,
   if (fn == nullptr || d_model < 1) return cudaErrorInvalidValue;
   const size_t smem = xl::smem_bytes(kind, d_model);
   int per_sm = 0, grid = 0;
-  const int rc = coop_grid((const void*)fn, smem, &per_sm, &grid);
+  const int rc = coop_grid((const void*)fn, smem, &per_sm, &grid,
+                           xl::block_threads(kind));
   if (rc != 0) return rc;
   out[0] = per_sm;
   out[1] = grid;
   out[2] = (int)smem;
+  out[3] = xl::block_threads(kind);
   return 0;
 }
 
@@ -42,8 +45,9 @@ extern "C" int marca_xlstm_stacked_grid(int kind, int d_model, int dtype,
 // part's input of every layer, then its output (megakernel.py XLSTM_PARTS:
 // mLSTM C in the state type, C_scale for an int8/fp8 C, n, m, conv; sLSTM
 // c, n, h, m; f32 but C); scratch at least scratch_floats() f32; q_scale
-// the mLSTM's dh^-0.5 in f32.  Returns 0 or a CUDA error; a grid that
-// cannot be co-resident is cudaErrorCooperativeLaunchTooLarge.
+// the mLSTM's dh^-0.5 in f32; an mLSTM d_model at most kMaxXModel.
+// Returns 0 or a CUDA error; a grid that cannot be co-resident is
+// cudaErrorCooperativeLaunchTooLarge.
 extern "C" int marca_xlstm_stacked_run(
     const void* table, const void* x0, void* x_out, const int64_t* rows,
     void* scratch, int64_t scratch_len, int kind, int nrows, int slots,
@@ -57,6 +61,7 @@ extern "C" int marca_xlstm_stacked_run(
       di % n_heads != 0 || di / n_heads > xl::kMaxHead ||
       (di / n_heads) % kVec != 0 || d_conv < 1 || state_dtype < SD_INT8 ||
       state_dtype > SD_BF16 || (kind && state_dtype != SD_F32) ||
+      (!kind && d_model > xl::kMaxXModel) ||
       scratch_len < xl::scratch_floats(kind, slots, d_model, n_heads))
     return cudaErrorInvalidValue;
   const bool quant = state_dtype == SD_INT8 || state_dtype == SD_FP8;
@@ -87,11 +92,12 @@ extern "C" int marca_xlstm_stacked_run(
   a.q_scale = q_scale;
   const size_t smem = xl::smem_bytes(kind, d_model);
   int per_sm = 0, grid = 0;
-  const int rc = coop_grid((const void*)fn, smem, &per_sm, &grid);
+  const int threads = xl::block_threads(kind);
+  const int rc = coop_grid((const void*)fn, smem, &per_sm, &grid, threads);
   if (rc != 0) return rc;
   void* params[] = {(void*)&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)fn, dim3(grid), dim3(kMThreads), params, smem,
+      (const void*)fn, dim3(grid), dim3(threads), params, smem,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -467,10 +467,15 @@ XLSTM_PARTS = {"mlstm": ("C", "C_scale", "n", "m", "conv"),
 _XLSTM_NPARTS = 5
 #: the most layers one xLSTM launch takes
 MAX_XLSTM_RUN = 32
-#: the widest head: a C row is one warp's 16 columns a lane, and the
-#: tile reduction holds 16 warps x dh floats
+#: the widest head: a C row is one warp's 16 columns a lane, the cell's
+#: reduction holds 16 warps x dh floats, and D's work a thread a column
 MAX_XLSTM_HEAD = 512
-_XLSTM_ROWS = 32     # rows of C per tile of the cell phase
+#: the widest d_model of an mLSTM run: E stages 4 slots' rows of y for its
+#: row range in shared memory beside its weight tile (csrc kMaxXModel)
+MAX_MLSTM_MODEL = 4096
+_XLSTM_ROWS = 16     # rows of C per C' item (csrc kTileRows)
+_XLSTM_GROUP = 8     # C' tiles summed by one block (kGroupTiles)
+_XLSTM_MAX_SPLIT = 32  # K splits of the down projection, at most (kMaxSplit)
 
 
 def _xlstm_dims(cfg, kind):
@@ -528,7 +533,8 @@ class XlstmRun:
     every weight (shape, dtype, contiguity, one device, f32 or int8
     throughout) and refuses what K3 does not take: a norm other than
     LayerNorm with a bias, dense biases, a head wider than 512, a head or
-    d_model no multiple of 4, or more than 32 layers."""
+    d_model no multiple of 4, an mLSTM d_model above 4096, or more than 32
+    layers."""
 
     def __init__(self, cfg, kind, rows):
         _lib.require(cfg.family == "xlstm",
@@ -547,6 +553,9 @@ class XlstmRun:
                      f"widths that are multiples of 4 (its tiles load 4 "
                      f"columns a thread): {di} over {nh} heads, d_model "
                      f"{cfg.d_model}")
+        _lib.require(kind == "slstm" or cfg.d_model <= MAX_MLSTM_MODEL,
+                     f"K3's mLSTM instance takes d_model up to "
+                     f"{MAX_MLSTM_MODEL}, not {cfg.d_model}")
         dense = ("up", "down") if kind == "mlstm" else ("wx", "out")
         self.kind = kind
         self.int8 = "w_scale" in _leaf(rows[0], (dense[0],), False)
@@ -559,15 +568,21 @@ class XlstmRun:
 
 
 def xlstm_scratch_floats(kind, slots, d_model, n_heads) -> int:
-    """f32 scratch of one launch (csrc xlstm_scratch_floats): mLSTM u, the
-    conv output, g, q, k, y and the tiles' partial sums of C'^T q; sLSTM
+    """f32 scratch of one launch (csrc ``scratch_floats``): mLSTM u, the
+    conv output and g, the C' items' partial sums of C'^T q (one per tile
+    of 16 rows) and their sums over groups of 8 tiles, the down items'
+    partial sums (up to 32 row ranges), the same two sums of n'.q, and the
+    arrival counters (a group of tiles, a 64-column tile of down); sLSTM
     the input gates, the pre-activations and y."""
     if kind == "slstm":
         return slots * 9 * d_model
     di = 2 * d_model
-    dh = di // n_heads
-    ntile = -(-dh // _XLSTM_ROWS)
-    return slots * di * (6 + ntile)
+    ntile = -(-(di // n_heads) // _XLSTM_ROWS)
+    ngroup = -(-ntile // _XLSTM_GROUP)
+    return (slots * di * (3 + ntile + ngroup)
+            + _XLSTM_MAX_SPLIT * slots * d_model
+            + slots * n_heads * (ntile + ngroup) + n_heads * ngroup
+            + d_model)
 
 
 def xlstm_stacked_run(cfg, x0, run: XlstmRun, states, outs):
@@ -647,12 +662,13 @@ def xlstm_stacked_run(cfg, x0, run: XlstmRun, states, outs):
 def xlstm_launch_config(cfg, kind, dtype, int8: bool,
                         device="cuda") -> dict:
     """The grid K3's xLSTM instance takes on ``device``: blocks per SM,
-    blocks, dynamic shared memory bytes per block."""
-    out = (ctypes.c_int * 3)()
+    blocks, dynamic shared memory bytes and threads per block."""
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         rc = _lib.lib().marca_xlstm_stacked_grid(
             int(kind == "slstm"), cfg.d_model, _lib.DTYPES[dtype], int(int8),
             ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"marca_xlstm_stacked_grid: CUDA error {rc}")
-    return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2]}
+    return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2],
+            "threads": out[3]}

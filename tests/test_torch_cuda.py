@@ -670,6 +670,78 @@ def test_cuda_xlstm_run_is_its_layers_in_turn(cuda, kind):
             assert torch.equal(u[k].view(torch.uint8), w[k].view(torch.uint8))
 
 
+# K3-mlstm's items split C by (head, 16-row tile) over every slot, and the
+# down projection by (64-column tile, row range), each summed by the last
+# block to arrive at a counter the launch zeroes itself: slot counts off
+# the 4-slot staging, heads no multiple of the 16-row tile (52 at d_model
+# 104; 100 at d_model 100, whose int8 rows are no multiple of 8 bytes),
+# held to the plain version in f32 and bitwise to their layers in bf16.
+MLSTM_SPLITS = [(256, 4, 1), (256, 4, 3), (256, 4, 5), (256, 4, 8),
+                (104, 4, 4), (100, 2, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weight_dtype,state_dtype", [
+    ("f32", "f32"), ("int8", "int8"), ("f32", "fp8")])
+@pytest.mark.parametrize("d_model,n_heads,slots", MLSTM_SPLITS)
+def test_cuda_mlstm_items_match_plain(cuda, d_model, n_heads, slots,
+                                      weight_dtype, state_dtype):
+    from repro_torch.kernels import megakernel
+    cfg = _xlstm_cfg(d_model, n_heads, "float32", weight_dtype, state_dtype)
+    run, x0, states, outs = xlstm_run_inputs(cfg, "mlstm", 3, slots,
+                                             seed=d_model + slots,
+                                             device=cuda)
+    x1 = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    x0r, want = ref.xlstm_stacked_run(cfg, x0, "mlstm", run.rows, states)
+    torch.cuda.synchronize()
+    _xlstm_close(cfg, "mlstm", x1, outs, x0r, want, 1e-4,
+                 f"mlstm {d_model}/{n_heads} x{slots} {weight_dtype} "
+                 f"{state_dtype}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_heads,slots", MLSTM_SPLITS)
+def test_cuda_mlstm_items_are_their_layers_in_turn(cuda, d_model, n_heads,
+                                                   slots):
+    from repro_torch.kernels import megakernel
+    cfg = _xlstm_cfg(d_model, n_heads, "bfloat16", "int8", "int8")
+    run, x0, states, outs = xlstm_run_inputs(cfg, "mlstm", 3, slots,
+                                             seed=d_model + slots,
+                                             device=cuda)
+    a = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    first = [{k: v.clone() for k, v in o.items()} for o in outs]
+    b = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    x, chain = x0, []
+    for row, st in zip(run.rows, states):
+        out = {k: torch.empty_like(v) for k, v in st.items()}
+        x = megakernel.xlstm_stacked_run(
+            cfg, x, megakernel.XlstmRun(cfg, "mlstm", [row]), [st], [out])
+        chain.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, x)
+    for u, v, w in zip(first, outs, chain):
+        for k in u:
+            assert torch.equal(u[k].view(torch.uint8), v[k].view(torch.uint8))
+            assert torch.equal(u[k].view(torch.uint8), w[k].view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_cuda_mlstm_counters_start_at_zero(cuda):
+    """Launches of different run lengths back to back, each against the
+    plain version: a counter left over from the launch before would make
+    the wrong block sum a tile's partials."""
+    from repro_torch.kernels import megakernel
+    cfg = _xlstm_cfg(256, 4, "float32", "int8", "int8")
+    for n in (3, 1, 5, 2):
+        run, x0, states, outs = xlstm_run_inputs(cfg, "mlstm", n, 4,
+                                                 seed=40 + n, device=cuda)
+        x1 = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+        x0r, want = ref.xlstm_stacked_run(cfg, x0, "mlstm", run.rows, states)
+        torch.cuda.synchronize()
+        _xlstm_close(cfg, "mlstm", x1, outs, x0r, want, 1e-4,
+                     f"mlstm run of {n}")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 1000003, 1 << 22])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -392,3 +392,33 @@ def test_jamba_scratch_holds_every_row_the_w2_tiles_read(slots):
     last_pass = 4 * ((slots - 1) // 4)
     assert (megakernel.scratch_floats(slots, di, nx, ff)
             >= hidden_at + (last_pass + 4) * ff)
+
+
+@pytest.mark.parametrize("kind,slots,d_model,n_heads,want", [
+    ("mlstm", 4, 1024, 4, 452176),     # xlstm-350m as served
+    ("mlstm", 6, 96, 4, 26692),        # the card tests' ragged width
+    ("mlstm", 3, 100, 2, 16350),
+    ("slstm", 4, 1024, 4, 36864)])
+def test_xlstm_scratch_holds_the_mlstm_layout(kind, slots, d_model, n_heads,
+                                             want):
+    """K3's xLSTM scratch (csrc ``scratch_floats``): for the mLSTM u, the
+    conv output and g (slots, 2 d_model) each; the C' items' partial sums
+    of C'^T q, one per tile of 16 rows of a head, and their sums over
+    groups of 8 tiles; the down items' partial sums, up to 32 row ranges
+    of (slots, d_model); the same two sums of n'.q, one float per (slot,
+    head, tile or group); and the arrival counters, one per (head, group)
+    and per 64-column tile of down (d_model reserved).  The sLSTM keeps its
+    input gates, pre-activations (slots, 4 d_model) and y."""
+    got = megakernel.xlstm_scratch_floats(kind, slots, d_model, n_heads)
+    if kind == "mlstm":
+        di = 2 * d_model
+        ntile = -(-(di // n_heads) // 16)
+        ngroup = -(-ntile // 8)
+        parts = {"u, cv, g": 3 * slots * di,
+                 "C' tiles": slots * di * ntile,
+                 "C' groups": slots * di * ngroup,
+                 "down splits": 32 * slots * d_model,
+                 "n'.q tiles and groups": slots * n_heads * (ntile + ngroup),
+                 "counters": n_heads * ngroup + d_model}
+        assert got == sum(parts.values())
+    assert got == want
