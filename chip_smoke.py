@@ -14,8 +14,8 @@ Phases, each fatal on failure:
    (``cuobjdump -sass``), failing where HGMMA is missing, and the 128-bit
    loads and stores (and FMUL, FADD, FFMA, LDS) of K8's and K9's,
    failing where those loads or stores are missing; record each K3-xLSTM
-   instantiation's registers and spill bytes from the build log (phase
-   5x's kernels line carries the mLSTM ones);
+   and each K3 mamba/jamba instantiation's registers and spill bytes from
+   the build log (phases 5, 5x and 5j's kernels lines carry them);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving shapes of mamba-130m, in f32 and bf16, for every exp/SiLU
    variant, within the printed tolerances: the scan, the conv (one
@@ -227,6 +227,7 @@ def phase_build():
     check_k7_sass(so)
     check_unit_sass(so)
     check_xlstm_registers(_lib.build_log())
+    check_mamba_registers(_lib.build_log())
 
 
 def sass_counts(so, match, ops):
@@ -302,18 +303,32 @@ def xlstm_kernel_name(fn):
     return f"{'slstm' if m.group(3) == '1' else 'mlstm'} {act} act, {w} w"
 
 
-def xlstm_registers(build_log):
-    """{instantiation: {"registers", "spill_stores", "spill_loads"}} of
-    K3's xLSTM kernels, from the ``-Xptxas -v`` report in the build log
-    (each kernel reported once: the four units build disjoint pairs)."""
+def mamba_kernel_name(fn):
+    """'jamba bf16 act, int8 w' of an instantiation of K3's
+    mamba_megakernel<T, TW, kMlp> (the mamba instance's in
+    megakernel_mamba.cu, the jamba instance's in megakernel_mamba.cuh) from
+    its mangled name, else None."""
+    import re
+    m = re.search(r"mamba_megakernelI(f|13__nv_bfloat16)(f|a)Lb([01])E", fn)
+    if not m:
+        return None
+    act = "f32" if m.group(1) == "f" else "bf16"
+    w = "f32" if m.group(2) == "f" else "int8"
+    return f"{'jamba' if m.group(3) == '1' else 'mamba'} {act} act, {w} w"
+
+
+def kernel_registers(build_log, name):
+    """{instantiation: {"registers", "spill_stores", "spill_loads"}} of the
+    kernels ``name`` (mangled name -> label, or None to skip) names, from
+    the ``-Xptxas -v`` report in the build log (each kernel reported once:
+    the units build disjoint sets)."""
     import re
     out, fn = {}, None
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )(\S+?)'?(?: for '\w+')?$", line.strip())
         if m:
-            fn = (xlstm_kernel_name(m.group(1))
-                  if "xlstm_megakernel" in m.group(1) else None)
+            fn = name(m.group(1))
             if fn:
                 out.setdefault(fn, {"registers": None, "spill_stores": 0,
                                     "spill_loads": 0})
@@ -329,6 +344,12 @@ def xlstm_registers(build_log):
         if m:
             out[fn]["registers"] = int(m.group(1))
     return out
+
+
+def xlstm_registers(build_log):
+    """kernel_registers of K3's xLSTM kernels."""
+    return kernel_registers(build_log, lambda f: xlstm_kernel_name(f)
+                            if "xlstm_megakernel" in f else None)
 
 
 # K3's xLSTM instantiations' registers and spills (xlstm_registers)
@@ -347,6 +368,25 @@ def check_xlstm_registers(build_log):
     if len(XLSTM_REGS) != 8:
         FAILURES.append(f"{len(XLSTM_REGS)} K3-xLSTM instantiations in the "
                         f"build log (expected 8)")
+
+
+# K3's mamba and jamba instantiations' registers and spills
+MAMBA_REGS = {}
+
+
+def check_mamba_registers(build_log):
+    """Record and print the registers and spill bytes of every
+    mamba_megakernel instantiation (eight: the mamba and jamba instances,
+    f32 and bf16 compute, f32 and int8 weights); phases 5 and 5j's kernels
+    line carries them."""
+    MAMBA_REGS.update(kernel_registers(build_log, mamba_kernel_name))
+    for name, r in sorted(MAMBA_REGS.items()):
+        log(f"  K3 {name}: {r['registers']} registers, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill "
+            f"loads")
+    if len(MAMBA_REGS) != 8:
+        FAILURES.append(f"{len(MAMBA_REGS)} K3 mamba/jamba instantiations "
+                        f"in the build log (expected 8)")
 
 
 VARIANTS = [("exact", "exact"), ("ours", "ours"), ("fast", "paper")]
@@ -1126,6 +1166,33 @@ DESIGNS = {
 
 
 DESIGNS["mlstm_stacked_run_q_int8w"] = DESIGNS["mlstm_stacked_run"]
+DESIGNS["mamba_stacked_step"] = (
+    "PR 13's design, kept: one block of 512 threads an SM, 4 grid barriers "
+    "a layer (5 with an int8/fp8 state): A norm + in_proj column tiles "
+    "with the conv + SiLU epilogue, B x_proj tiles, C one block per (slot, "
+    "32 channels) for dt and the S6 step, C2 the group requantize, D "
+    "out_proj tiles and the residual; the split-K design of the jamba "
+    "instance measured slower at mamba-130m's widths, where each phase's "
+    "time is its chain of dependent steps")
+DESIGNS["mamba_stacked_step_q_int8a"] = DESIGNS["mamba_stacked_step"]
+DESIGNS["jamba_stacked_run"] = (
+    "one block of 384 threads (168 registers) an SM, 5 grid barriers a "
+    "position and one a launch: every dense layer a GEMV over (tile, row) "
+    "units, whole tiles where they fill the grid (in_proj), else split "
+    "over the blocks in one round (x_proj, out_proj, w1|w3, w2); 16-byte "
+    "loads (4 f32 or 16 int8 codes a lane) in ping-pong batches, no bounds "
+    "test in the loop, int8 codes and bf16 rounding on the integer pipes, "
+    "the scales in registers; each block's inputs copied into shared "
+    "memory at once; partial sums to scratch, the last block of a tile at "
+    "an integer counter sums them in block order and runs the epilogue "
+    "(conv + SiLU, rounding, SiLU(w1 x) * (w3 x), residual); x_proj's "
+    "finishers count themselves done and the S6 items (a chunk of channels "
+    "for all slots, dt_proj's columns, A's rows and the state staged by "
+    "cp.async while they wait) take dt (each weight read once), the step "
+    "and the gate; an int8/fp8 state's chunks meet at a counter per scale "
+    "group and each encodes its own channels; counters zeroed in the "
+    "launch, no float atomics")
+DESIGNS["jamba_stacked_run_q_int8a"] = DESIGNS["jamba_stacked_run"]
 
 
 def k3_work(cfg, b, int8, state_dtype, act_bytes):
@@ -1284,6 +1351,10 @@ def phase_timing(cfg, dev, counts, errs):
                  "max_abs_err": errs[name], **main_row}
         if name in DESIGNS:
             entry["design"] = DESIGNS[name]
+        if "stacked" in name:
+            instance = name.split("_")[0]
+            entry["registers"] = {k: v for k, v in MAMBA_REGS.items()
+                                  if k.startswith(instance)}
         if more:
             entry["other_shapes"] = more
         kernels.append(entry)
@@ -2044,10 +2115,10 @@ def phase_jamba_timing(dev, counts, errs):
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:27"),
-        "jamba_stacked_run": ("src/repro_torch/csrc/megakernel_mamba.cu",
+        "jamba_stacked_run": ("src/repro_torch/csrc/megakernel_mamba.cuh",
                               "src/repro/kernels/decode_step.py:413"),
         "jamba_stacked_run_q_int8a": (
-            "src/repro_torch/csrc/megakernel_mamba.cu",
+            "src/repro_torch/csrc/megakernel_mamba.cuh",
             "src/repro/kernels/decode_step.py:413"),
     }
     kernels = []
@@ -2058,6 +2129,10 @@ def phase_jamba_timing(dev, counts, errs):
                  "max_abs_err": errs[name], **main_row}
         if name in DESIGNS:
             entry["design"] = DESIGNS[name]
+        if "stacked" in name:
+            instance = name.split("_")[0]
+            entry["registers"] = {k: v for k, v in MAMBA_REGS.items()
+                                  if k.startswith(instance)}
         if name == "flash_attention":
             entry["sass"] = SASS
         if more:

@@ -130,13 +130,15 @@ _BUILDS = {}  # _lib.BUILDS as the tree has it
 
 def configure(lib, csrc=None, defines=()):
     """Point ``_lib`` at the megakernel sources and the conv only (from
-    ``csrc`` if given), each xLSTM unit built with ``defines`` added."""
+    ``csrc`` if given), each xLSTM unit built with ``defines`` added (the
+    other units as ``_lib.BUILDS`` builds them)."""
     lib.SOURCES = tuple(s for s in lib.SOURCES
                         if s.startswith("megakernel") or s == "conv1d.cu")
     base = _BUILDS.setdefault("base", dict(lib.BUILDS))
-    lib.BUILDS = {s: tuple(tuple(d) + tuple(defines)
-                           for d in base.get(s, ((),)))
-                  for s in lib.SOURCES if "xlstm" in s}
+    lib.BUILDS = {s: (tuple(tuple(d) + tuple(defines)
+                            for d in base.get(s, ((),)))
+                      if "xlstm" in s else base[s])
+                  for s in lib.SOURCES if "xlstm" in s or s in base}
     lib._SIGNATURES = {k: v for k, v in lib._SIGNATURES.items()
                        if k in ENTRIES}
     if csrc is not None:

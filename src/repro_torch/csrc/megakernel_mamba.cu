@@ -1,43 +1,32 @@
-// Cross-layer decode megakernel (K3) for Hopper, sm_90a.
+// Host entry points of K3's mamba and jamba instances, the mamba instance's
+// kernel, and the cooperative grid sizing every K3 kernel uses (coop_grid).
 //
 // Replaces: repro/kernels/decode_step.py:413 stacked_layer_launch
-// (pallas_call at :488) with two of its bodies.  The mamba body of
-// repro/models/mamba_lm.py:160 ("marca_megakernel_mamba"): ONE launch runs
-// every layer of a decode step for the whole slot pool,
+// (pallas_call at :488) with the body of repro/models/mamba_lm.py:160
+// ("marca_megakernel_mamba"): ONE launch runs every layer of a decode step
+// for the whole slot pool,
 //
 //   for l in layers:  x = x + mamba_block_megastep(rmsnorm(x))
-//
-// The jamba body of repro/models/jamba.py:305 ("marca_megakernel_jamba"):
-// one launch runs a run of pure-SSM positions of a group (the kMlp
-// instances), each position
-//
-//   x = x + mamba_block_megastep(rmsnorm1(x));  x = x + mlp(rmsnorm2(x))
-//
-// with mlp the swiglu w2(SiLU(w1 x) * (w3 x)).  Its positions' states live
-// in different cache leaves, so a launch takes one pointer per position
-// and state tensor (StateRows) where the mamba instance takes one stacked
-// tensor each.
 //
 // with the chain of repro_torch/models/mamba.py mamba_block_megastep: norm
 // -> in_proj -> [x | z] -> conv over the tail + bias -> SiLU -> x_proj ->
 // (dt_low, B, C) -> dt_proj + bias + softplus -> S6 step (exp_impl) -> D
-// skip and SiLU(z) gate -> out_proj -> residual.  Embed, the final norm and
-// the tied unembed stay in PyTorch, as repro keeps them in XLA.
+// skip and SiLU(z) gate -> out_proj -> residual.  The jamba instance
+// (repro/models/jamba.py:305) is megakernel_mamba.cuh's kernel.
 //
 // Bound on this card: bytes.  A decode step at a few slots reads every
 // weight of every layer once (mamba-130m: 3.77 M per layer, 362 MB in f32,
-// 92 MB in int8) and the pooled state in and out; the arithmetic is two
-// operations per weight and slot.  At 4 slots the f32 model takes at least
-// 114 us at 3.35 TB/s, the int8 model with an int8 state 29 us.  One
-// jamba-v0.1 position (105.3 M mamba and 176.2 M MLP weights) reads 1.126
-// GB in f32: at least 336 us, 84 us in int8.
+// 92 MB in int8) and the pooled state in and out; at 4 slots the f32
+// model takes at least 114 us at 3.35 TB/s, the int8 model with an int8
+// state 29 us.  What binds it is latency: 4-5 dependent phases a layer,
+// each a few trips to memory, and a grid barrier after each.
 //
-// Design, simple and right first: one persistent cooperative kernel with as
-// many blocks of 512 threads as can be co-resident (the C entry point sizes
-// the grid from cudaOccupancyMaxActiveBlocksPerMultiprocessor and launches
-// with cudaLaunchCooperativeKernel), the layer loop inside, and a grid
-// barrier (cooperative_groups grid.sync()) wherever the next phase needs a
-// whole vector.  Per layer:
+// Design (PR 13's, kept: megakernel_mamba.cuh's split-K design measured
+// slower at mamba-130m's widths, where every weight is small and each
+// phase's time is its chain of dependent steps; PERF.md, PR 19): one
+// persistent cooperative kernel with as many blocks of 512 threads as can
+// be co-resident, the layer loop inside, and a grid barrier wherever the
+// next phase needs a whole vector.  Per layer:
 //   A   every block with work recomputes the RMS norm of the residual
 //       stream x for its slots (staged in shared memory), then computes
 //       in_proj column tiles; the x half's epilogue runs the conv over the
@@ -52,38 +41,22 @@
 //       from the 16 chunks' partials, updates the scale and encodes, with
 //       K2's arithmetic (common.cuh).                              barrier
 //   D   out_proj column tiles and the residual add x + y.          barrier
-// and, with the MLP (kMlp),
-//   E   every block recomputes norm2 of x for its slots, then w1 column
-//       tiles (each sum rounded and kept in a global hidden buffer) and the
-//       same tiles of w3, whose epilogue forms SiLU(w1 x) * (w3 x) in place.
-//       The hidden (d_ff wide: 14336 at jamba-v0.1) is not staged in shared
-//       memory: 4 slots of it are 229 KB; it stays in L2.          barrier
-//   F   w2 column tiles read the hidden rows from global memory, and the
-//       residual add.                                              barrier
-// A column tile is TJ threads across, each taking V adjacent output columns
-// (V = 4 in the jamba instance: one float4 of f32 weights or a char4 of
-// int8 codes per load; 1 in the mamba instance), TJ a power of two picked
-// so the tiles cover the grid; the block's 16 warps split the rows of the reduction, lanes TJ
-// apart take different rows, and the partial sums combine by a shuffle
-// butterfly and then over the warps in one fixed order.  No float atomics anywhere: the same inputs give the same bits.
-// Weights are read as stored: f32, or int8 codes times their scale with one
-// rounded multiply (load_w), then rounded to the compute type -- the values
-// blocks.dense and weight_quant.dequantize_rows give.  Every rounding point
-// of the per-layer path is kept: the norm, each dense output, the conv and
-// SiLU outputs, softplus, y and x + y round to the compute type.  Slots are
-// taken kSlots at a time; more slots re-read a tile's weights, mostly from
-// L1 and L2.  The phases read their per-layer weights through a table of
-// device pointers (one row per layer) that the wrapper builds once per
-// engine, so the weights stay where the parameter tree holds them.
-// Left for later: wgmma tiles fed by TMA, fewer barriers (B and C could
-// merge, and C2 go, with a thread-block cluster per scale group), weights
-// kept resident in shared memory across tokens.
+// A column tile is TJ threads across, each taking one output column, TJ
+// a power of two picked so the tiles cover the grid; the block's 16 warps
+// split the rows of the reduction, lanes TJ apart take different rows,
+// and the partial sums combine by a shuffle butterfly and then over the
+// warps in one fixed order.  No float atomics anywhere: the same inputs
+// give the same bits.  Weights are read as stored: f32, or int8 codes
+// times their scale with one rounded multiply, then rounded to the
+// compute type; every rounding point of the per-layer path is kept.  The
+// phases read their per-layer weights through a table of device pointers
+// (one row per layer) that the wrapper builds once per engine.
 #include <cooperative_groups.h>
 
 #include <mutex>
 #include <vector>
 
-#include "megakernel_common.cuh"
+#include "megakernel_mamba.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -467,9 +440,8 @@ KernelFn pick_mlp(int dtype, int weight_dtype) {
   return nullptr;
 }
 
-KernelFn pick(int dtype, int weight_dtype, int mlp) {
-  return mlp ? pick_mlp<true>(dtype, weight_dtype)
-             : pick_mlp<false>(dtype, weight_dtype);
+KernelFn pick(int dtype, int weight_dtype) {
+  return pick_mlp<false>(dtype, weight_dtype);
 }
 
 int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
@@ -549,18 +521,95 @@ int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid,
 
 }  // namespace marca
 
+namespace marca {
+namespace mb {
+
+// Shared memory of one block: the per-block values, then the larger of a
+// GEMV's staged rows and warp sums and the S6 item's operands, whose chunk
+// is sized for the smallest grid the card gives (one block an SM).
+size_t smem_bytes(int di, int R, int nx, int wbytes, int sms) {
+  const size_t step = step_smem(R, nx, chunk_of(di, sms), wbytes);
+  return 4 * (size_t)kSmall + (step > kGemvSmem ? step : kGemvSmem);
+}
+
+KernelFn pick(int dtype, int weight_dtype) {
+  if (dtype == DT_F32 && weight_dtype == 0) return kernels_0_0();
+  if (dtype == DT_F32 && weight_dtype == 1) return kernels_0_1();
+  if (dtype == DT_BF16 && weight_dtype == 0) return kernels_1_0();
+  if (dtype == DT_BF16 && weight_dtype == 1) return kernels_1_1();
+  return nullptr;
+}
+
+// blocks per SM, grid and shared memory of a launch; 0 or an error code
+int configure(KernelFn fn, int di, int R, int nx, int wbytes, int* per_sm,
+              int* grid, size_t* smem) {
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  *smem = smem_bytes(di, R, nx, wbytes, sms);
+  const int rc = coop_grid((const void*)fn, *smem, per_sm, grid, kThreads);
+  if (rc != 0) return rc;
+  // a scale group's chunks wait for each other, so one item a block at
+  // most, and the item's threads split its chunk evenly
+  if (kThreads % chunk_of(di, *grid) != 0) return cudaErrorInvalidValue;
+  return 0;
+}
+
+// Checks a jamba launch, sizes the grid and launches; 0 or a CUDA error.
+int launch(KernelFn fn, int weight_dtype, MegaArgs& a, int64_t scratch_len,
+           void* stream) {
+  const bool quant = a.state_dtype == SD_INT8 || a.state_dtype == SD_FP8;
+  if (fn == nullptr || a.L < 1 || a.b < 1 || a.dm < 1 || a.di < 1 ||
+      a.R < 1 || a.k < 1 || a.d_ff < 0 || a.state_dtype < SD_INT8 ||
+      a.state_dtype > SD_BF16 || a.dm > kMaxModel || a.k > kMaxConv)
+    return cudaErrorInvalidValue;
+  for (int l = 0; l < a.L; ++l)
+    if (a.rows.h[l] == nullptr || a.rows.conv[l] == nullptr ||
+        a.rows.h_out[l] == nullptr || a.rows.conv_out[l] == nullptr ||
+        (quant && (a.rows.h_scale[l] == nullptr ||
+                   a.rows.h_scale_out[l] == nullptr)))
+      return cudaErrorInvalidValue;
+  int per_sm = 0, grid = 0;
+  size_t smem = 0;
+  const int rc = configure(fn, a.di, a.R, a.nx, weight_dtype ? 1 : 4,
+                           &per_sm, &grid, &smem);
+  if (rc != 0) return rc;
+  if (scratch_len < scratch_floats(a.b, a.dm, a.di, a.nx, a.d_ff, a.g, grid))
+    return cudaErrorInvalidValue;
+  void* params[] = {(void*)&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)fn, dim3(grid), dim3(kThreads), params, smem,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mb
+}  // namespace marca
+
 // The launch configuration K3 would use on the current device: out[0]
 // blocks per SM, out[1] the grid, out[2] dynamic shared memory bytes.
 // weight_dtype 0 is f32, 1 int8; mlp 1 is the jamba instance.
-extern "C" int marca_mamba_stacked_grid(int d_model, int d_inner, int dtype,
+extern "C" int marca_mamba_stacked_grid(int d_model, int d_inner,
+                                        int dt_rank, int dtype,
                                         int weight_dtype, int mlp, int* out) {
-  using namespace marca;
-  const KernelFn fn = pick(dtype, weight_dtype, mlp);
-  if (fn == nullptr || d_model < 1 || d_inner < 1) return cudaErrorInvalidValue;
   int per_sm = 0, grid = 0;
   size_t smem = 0;
-  const int rc = configure(fn, d_model, d_inner, mlp, &per_sm, &grid,
-                           &smem);
+  if (d_model < 1 || d_inner < 1 || dt_rank < 1) return cudaErrorInvalidValue;
+  int rc;
+  if (mlp) {
+    const marca::mb::KernelFn fn = marca::mb::pick(dtype, weight_dtype);
+    if (fn == nullptr) return cudaErrorInvalidValue;
+    rc = marca::mb::configure(fn, d_inner, dt_rank,
+                              dt_rank + 2 * marca::mb::kMN,
+                              weight_dtype ? 1 : 4, &per_sm, &grid, &smem);
+  } else {
+    const marca::KernelFn fn = marca::pick(dtype, weight_dtype);
+    if (fn == nullptr) return cudaErrorInvalidValue;
+    rc = marca::configure(fn, d_model, d_inner, 0, &per_sm, &grid, &smem);
+  }
   if (rc != 0) return rc;
   out[0] = per_sm;
   out[1] = grid;
@@ -608,7 +657,7 @@ extern "C" int marca_mamba_stacked_step(
   a.state_dtype = state_dtype;
   a.exp_impl = exp_impl;
   a.silu_impl = silu_impl;
-  return launch(pick(dtype, weight_dtype, 0), a, scratch_len, stream);
+  return launch(pick(dtype, weight_dtype), a, scratch_len, stream);
 }
 
 // One decode token through a run of jamba positions (K3's jamba instance).
@@ -625,21 +674,21 @@ extern "C" int marca_jamba_stacked_run(
     int d_inner, int d_state, int dt_rank, int d_conv, int d_ff, int dtype,
     int weight_dtype, int state_dtype, int exp_impl, int silu_impl,
     void* stream) {
-  using namespace marca;
-  if (d_state != kMN || nrows < 1 || nrows > kMaxRows || d_ff < 1 ||
+  namespace mb = marca::mb;
+  if (d_state != mb::kMN || nrows < 1 || nrows > mb::kMaxRows || d_ff < 1 ||
       rows == nullptr)
     return cudaErrorInvalidValue;
-  MegaArgs a{};
+  mb::MegaArgs a{};
   a.table = (const int64_t*)table;
   a.x0 = x0;
   a.x = x_out;
   for (int l = 0; l < nrows; ++l) {
-    a.rows.h[l] = (const void*)rows[0 * kMaxRows + l];
-    a.rows.h_scale[l] = (const float*)rows[1 * kMaxRows + l];
-    a.rows.conv[l] = (const void*)rows[2 * kMaxRows + l];
-    a.rows.h_out[l] = (void*)rows[3 * kMaxRows + l];
-    a.rows.h_scale_out[l] = (float*)rows[4 * kMaxRows + l];
-    a.rows.conv_out[l] = (void*)rows[5 * kMaxRows + l];
+    a.rows.h[l] = (const void*)rows[0 * mb::kMaxRows + l];
+    a.rows.h_scale[l] = (const float*)rows[1 * mb::kMaxRows + l];
+    a.rows.conv[l] = (const void*)rows[2 * mb::kMaxRows + l];
+    a.rows.h_out[l] = (void*)rows[3 * mb::kMaxRows + l];
+    a.rows.h_scale_out[l] = (float*)rows[4 * mb::kMaxRows + l];
+    a.rows.conv_out[l] = (void*)rows[5 * mb::kMaxRows + l];
   }
   a.scratch = (float*)scratch;
   a.L = nrows;
@@ -648,12 +697,12 @@ extern "C" int marca_jamba_stacked_run(
   a.di = d_inner;
   a.R = dt_rank;
   a.k = d_conv;
-  a.nx = dt_rank + 2 * kMN;
-  a.g = (d_inner + kScaleGroup - 1) / kScaleGroup;
-  a.nchunks = (d_inner + kChunk - 1) / kChunk;
+  a.nx = dt_rank + 2 * mb::kMN;
+  a.g = (d_inner + marca::kScaleGroup - 1) / marca::kScaleGroup;
   a.d_ff = d_ff;
   a.state_dtype = state_dtype;
   a.exp_impl = exp_impl;
   a.silu_impl = silu_impl;
-  return launch(pick(dtype, weight_dtype, 1), a, scratch_len, stream);
+  return mb::launch(mb::pick(dtype, weight_dtype), weight_dtype, a,
+                    scratch_len, stream);
 }

@@ -24,13 +24,16 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("selective_scan.cu", "conv1d.cu", "decode_step.cu",
-           "decode_step_q.cu", "megakernel_mamba.cu", "megakernel_xlstm.cu",
+           "decode_step_q.cu", "megakernel_mamba.cu",
+           "megakernel_mamba_inst.cu", "megakernel_xlstm.cu",
            "megakernel_xlstm_inst.cu", "flash_attention.cu",
            "approx_units.cu")
-#: the sources built more than once, each time with other -D defines: the
-#: xLSTM instances' kernels once per (compute type, weight type) pair, so
-#: the four compile in parallel
-BUILDS = {"megakernel_xlstm_inst.cu": tuple(
+#: the sources built more than once, each time with other -D defines: K3's
+#: mamba/jamba and xLSTM instances' kernels once per (compute type, weight
+#: type) pair, so the four of each compile in parallel
+BUILDS = {"megakernel_mamba_inst.cu": tuple(
+    (f"MB_ACT={a}", f"MB_W={w}") for a in (0, 1) for w in (0, 1)),
+          "megakernel_xlstm_inst.cu": tuple(
     (f"XL_ACT={a}", f"XL_W={w}") for a in (0, 1) for w in (0, 1))}
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -52,7 +55,7 @@ _SIGNATURES = {
     "marca_decode_step_q": [_P] * 13 + [_I] * 4 + [_L] * 5 + [_I] * 4
     + [_P],
     "marca_mamba_stacked_step": [_P] * 10 + [_L] + [_I] * 12 + [_P],
-    "marca_mamba_stacked_grid": [_I] * 5 + [_P],
+    "marca_mamba_stacked_grid": [_I] * 6 + [_P],
     "marca_jamba_stacked_run": [_P] * 5 + [_L] + [_I] * 13 + [_P],
     "marca_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
     "marca_xlstm_stacked_run": [_P] * 5 + [_L] + [_I] * 10 + [_F, _P],

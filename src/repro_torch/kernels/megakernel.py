@@ -1,5 +1,7 @@
 """Cross-layer decode megakernel (K3): wrappers over the CUDA kernels
-``csrc/megakernel_mamba.cu`` and ``csrc/megakernel_xlstm.cuh``.
+``csrc/megakernel_mamba.cu`` (the mamba instance),
+``csrc/megakernel_mamba.cuh`` (the jamba instance) and
+``csrc/megakernel_xlstm.cuh``.
 
 Port of ``repro/kernels/decode_step.py:413`` ``stacked_layer_launch``
 (pallas_call at :488) with four of its bodies:
@@ -86,18 +88,66 @@ _TABLE_WIDTH = 24
 #: attention position)
 MAX_RUN = 8
 
-#: what a block of 512 threads stages in shared memory: 4 slots of the
-#: widest vector, the tile reduction (4 columns a thread in the jamba
-#: instance, one in the mamba instance) and the norm partials (f32);
-#: Hopper gives one block at most 227 KB
+#: what a block of K3's jamba instance (384 threads, 12 warps) keeps in
+#: shared memory (csrc megakernel_mamba.cuh): 512 bytes of per-block
+#: values, then the larger of a GEMV's 4096 staged input rows (4 slots,
+#: f32) with its warps' sums over a 128-column tile and the raw rows it
+#: copies in first (4 slots' residual rows or segment rows, a segment's
+#: norm scales), and the S6 item's operands (its chunk of dt_proj's
+#: columns and A's rows, 4 slots' state rows (at most f32) and new f32
+#: values, x_a and z, (dt_low | B | C) and dt, dt's partial sums); Hopper
+#: gives one block at most 227 KB
 _SMEM_LIMIT = 232448
-_CHUNK = 32     # channels of one phase-C item
+_SMALL = 512
+_STAGE = 4096
+_THREADS = 384
+_TILE = 128      # columns of a GEMV tile (csrc kCW)
+_PHASES = 5      # GEMV phases with tile counters (csrc kPhases)
 _SLOTS_PER_PASS = 4     # csrc megakernel_common.cuh kSlots
+#: the widest d_model and d_conv K3's jamba instance takes (csrc
+#: kMaxModel, kMaxConv)
+MAX_MODEL = 4096
+MAX_CONV = 4
+#: the H100's SMs: the fewest blocks K3's grid has there (one an SM), which
+#: sizes the S6 item's chunk of channels
+H100_SMS = 132
 
 
-def smem_bytes(d_model: int, d_inner: int, mlp: bool) -> int:
-    return 4 * (4 * max(d_model, d_inner) + 16 * 4 * 32 * (4 if mlp else 1)
-                + 16 * 4)
+def _a16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def chunk_of(d_inner: int, grid: int) -> int:
+    """Channels of one S6 item: the smallest power of two that gives the
+    grid at most one item a block (csrc ``chunk_of``)."""
+    need = -(-d_inner // grid)
+    ch = 1
+    while ch < need:
+        ch *= 2
+    return ch
+
+
+def mamba_smem_bytes(d_model: int, d_inner: int) -> int:
+    """Dynamic shared memory of one block of K3's mamba instance (csrc
+    megakernel_mamba.cu ``smem_bytes``, 512 threads): 4 slots of the
+    widest vector, the tile reduction and the norm partials (f32)."""
+    return 4 * (4 * max(d_model, d_inner) + 16 * 4 * 32 + 16 * 4)
+
+
+def smem_bytes(d_inner: int, dt_rank: int, int8: bool,
+               sms: int = H100_SMS) -> int:
+    """Dynamic shared memory of one block of K3's jamba instance (csrc
+    megakernel_mamba.cuh ``smem_bytes``) on a card of ``sms`` SMs."""
+    ch, w, nx = chunk_of(d_inner, sms), 1 if int8 else 4, dt_rank + 32
+    step = (_a16(dt_rank * ch * w) + _a16(ch * 16 * w)
+            + 2 * _a16(_SLOTS_PER_PASS * ch * 16 * 4)
+            + 2 * _a16(_SLOTS_PER_PASS * ch * 4)
+            + _a16(4 * _SLOTS_PER_PASS * nx) + _a16(4 * _SLOTS_PER_PASS * ch)
+            + 4 * _THREADS * _SLOTS_PER_PASS)
+    raw = _SLOTS_PER_PASS * (_STAGE + 8) + _STAGE + 8
+    gemv = (16 * _STAGE + 4 * (_THREADS // 32) * _SLOTS_PER_PASS * _TILE
+            + 4 * raw)
+    return _SMALL + max(step, gemv)
 
 
 def _shapes(cfg, int8: bool, mlp: bool) -> dict:
@@ -168,10 +218,22 @@ def _check_cfg(cfg, family):
                  f"K3 takes d_state 16, got {cfg.d_state}")
     _lib.require(cfg.norm == "rmsnorm",
                  f"K3 takes rmsnorm, got norm {cfg.norm!r}")
-    need = smem_bytes(cfg.d_model, cfg.d_inner, cfg.family == "jamba")
+    if family == "mamba":
+        need = mamba_smem_bytes(cfg.d_model, cfg.d_inner)
+        _lib.require(need <= _SMEM_LIMIT,
+                     f"K3 stages 4 slots of d_inner {cfg.d_inner} in shared "
+                     f"memory: {need} bytes > {_SMEM_LIMIT}")
+        return
+    _lib.require(cfg.d_model <= MAX_MODEL,
+                 f"K3 copies 4 slots' residual rows into shared memory: "
+                 f"d_model {cfg.d_model} > {MAX_MODEL}")
+    _lib.require(cfg.d_conv <= MAX_CONV,
+                 f"K3 takes d_conv up to {MAX_CONV}, not {cfg.d_conv}")
+    need = smem_bytes(cfg.d_inner, cfg.dt_rank, False)
     _lib.require(need <= _SMEM_LIMIT,
-                 f"K3 stages 4 slots of d_inner {cfg.d_inner} in shared "
-                 f"memory: {need} bytes > {_SMEM_LIMIT}")
+                 f"K3's S6 item stages its chunk of dt_proj (dt_rank "
+                 f"{cfg.dt_rank}, d_inner {cfg.d_inner}) in shared memory: "
+                 f"{need} bytes > {_SMEM_LIMIT}")
 
 
 def _table(rows, columns, shapes, denses, width, leaf):
@@ -250,17 +312,40 @@ def _dims(cfg):
             cfg.dt_rank, cfg.d_conv)
 
 
-def scratch_floats(slots: int, d_inner: int, nx: int, d_ff: int = 0) -> int:
-    """f32 scratch of one launch: x_a, z, (dt_low | B | C), y, the
-    chunks' absmax, the f32 state values and (jamba) the MLP hidden
-    (csrc scratch_floats), the hidden padded by 3 rows: w2's column tiles
-    read 4 slots' rows of it from global memory whatever a pass's slot
-    count, so a pool of fewer than 4 slots (or of 5, 6, 7, ...) would read
-    past the end of the launch's scratch; the padding rows are read and
-    never used."""
-    nchunks = -(-d_inner // _CHUNK)
-    return (slots * (3 * d_inner + nx + nchunks + 16 * d_inner + d_ff)
-            + (_SLOTS_PER_PASS - 1) * d_ff)
+def mamba_scratch_floats(slots: int, d_inner: int, nx: int) -> int:
+    """f32 scratch of one launch of K3's mamba instance (csrc
+    megakernel_mamba.cu ``scratch_floats``): x_a, z, (dt_low | B | C), y,
+    the 32-channel chunks' absmax and the f32 state values."""
+    nchunks = -(-d_inner // 32)
+    return slots * (3 * d_inner + nx + nchunks + 16 * d_inner)
+
+
+def scratch_floats(slots: int, d_model: int, d_inner: int, nx: int,
+                   d_ff: int, grid: int) -> int:
+    """f32 scratch of one launch of K3's jamba instance on a grid of
+    ``grid`` blocks (csrc megakernel_mamba.cuh ``scratch_floats``): x_a,
+    z, (dt_low | B | C), y, the MLP hidden, the S6 chunks' absmax (one a
+    slot and block), the GEMV items' partial sums (at most grid + tiles of
+    them, each 2 matrices x slots x a 128-column tile; a GEMV has at most
+    one tile per 32 columns of its widest weight), then the int counters:
+    5 phases' tile counters, x_proj's done count and one a scale group.
+    The hidden holds exactly the slots' rows: w2's items stage their rows
+    of it in shared memory."""
+    tiles = -(-max(2 * d_inner, nx, d_model, d_ff) // 32)
+    groups = state_quant.n_groups(d_inner)
+    return (slots * (3 * d_inner + nx + d_ff + grid)
+            + (grid + tiles) * 2 * slots * _TILE + _PHASES * tiles + 1
+            + groups)
+
+
+def _grid(view, cfg, dtype, device) -> int:
+    """K3's grid on ``device`` for the weights of ``view`` (a JambaRun),
+    asked of the card once per dtype and device."""
+    key = (dtype, device.index)
+    if key not in view.grids:
+        view.grids[key] = launch_config(cfg, dtype, view.int8,
+                                        device)["grid"]
+    return view.grids[key]
 
 
 def mamba_stacked_step(cfg, x0, stack: MambaStack, h, h_scale, conv):
@@ -301,7 +386,7 @@ def mamba_stacked_step(cfg, x0, stack: MambaStack, h, h_scale, conv):
     h_out = torch.empty_like(h)
     scale_out = torch.empty_like(h_scale) if quant else None
     conv_out = torch.empty_like(conv)
-    scratch = torch.empty(scratch_floats(slots, di, r + 2 * n),
+    scratch = torch.empty(mamba_scratch_floats(slots, di, r + 2 * n),
                           dtype=torch.float32, device=x0.device)
     _lib.call("marca_mamba_stacked_step", x0.device,
               _lib.ptr(stack.table), _lib.ptr(x0), _lib.ptr(x), _lib.ptr(h),
@@ -346,6 +431,7 @@ class JambaRun:
         self.device, self.table = _pointer_table(cfg, rows, self.int8,
                                                  mlp=True)
         self.rows = [_copy_dicts(row) for row in rows]
+        self.grids = {}
 
 
 def _jamba_dims(cfg):
@@ -403,8 +489,10 @@ def jamba_stacked_run(cfg, x0, run: JambaRun, states, outs):
                 out[key].copy_(ns[key])
         return x
     x = torch.empty_like(x0)
-    scratch = torch.empty(scratch_floats(slots, di, r + 2 * n, ff),
-                          dtype=torch.float32, device=x0.device)
+    scratch = torch.empty(
+        scratch_floats(slots, dm, di, r + 2 * n, ff,
+                       _grid(run, cfg, x0.dtype, x0.device)),
+        dtype=torch.float32, device=x0.device)
     ptrs = (ctypes.c_int64 * (2 * len(_STATE_PARTS) * MAX_RUN))()
     for c, part in enumerate(_STATE_PARTS):
         for i, (st, out) in enumerate(zip(states, outs)):
@@ -436,8 +524,9 @@ def launch_config(cfg, dtype, int8: bool, device="cuda") -> dict:
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         rc = _lib.lib().marca_mamba_stacked_grid(
-            cfg.d_model, cfg.d_inner, _lib.DTYPES[dtype], int(int8),
-            int(cfg.family == "jamba"), ctypes.cast(out, ctypes.c_void_p))
+            cfg.d_model, cfg.d_inner, cfg.dt_rank, _lib.DTYPES[dtype],
+            int(int8), int(cfg.family == "jamba"),
+            ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"marca_mamba_stacked_grid: CUDA error {rc}")
     return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2]}

@@ -533,6 +533,102 @@ def test_cuda_jamba_run_repeats_bitwise(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K3's mamba kernel: its split-K items, counters and S6 chunks at the
+# shapes that stress them
+# ---------------------------------------------------------------------------
+
+def _k3_case(cuda, instance, d_model, n, slots, dtype, wd, sd, seed):
+    """(cfg, launch, plain, outs) of one K3 call: a mamba stack of n layers
+    or a jamba run of n positions; ``outs`` the jamba outputs' dicts."""
+    from repro_torch.kernels import megakernel
+    if instance == "mamba":
+        cfg = _mega_cfg(d_model, n, dtype, wd, sd)
+        p, x0, h, h_scale, conv = stacked_inputs(cfg, slots, seed=seed,
+                                                 device=cuda)
+        return (cfg, lambda: megakernel.mamba_stacked_step(
+            cfg, x0, p["stack"], h, h_scale, conv),
+            lambda: ref.mamba_stacked_step(cfg, x0, p["stack"].layers, h,
+                                           h_scale, conv), None)
+    cfg = _jamba_cfg(d_model, {64: 128, 550: 1000}[d_model], dtype, wd, sd)
+    run, x0, states, outs = jamba_run_inputs(cfg, n, slots, seed=seed,
+                                             device=cuda)
+    return (cfg, lambda: megakernel.jamba_stacked_run(cfg, x0, run, states,
+                                                      outs),
+            lambda: ref.jamba_stacked_run(cfg, x0, run.rows, states), outs)
+
+
+def _k3_bits(instance, x, outs):
+    """A K3 call's results as bytes: (x, h, h_scale, conv) or x and the
+    jamba outputs' tensors."""
+    if instance == "mamba":
+        return [t.view(torch.uint8).clone() for t in x if t is not None]
+    return [x.view(torch.uint8).clone()] + [
+        o[k].view(torch.uint8).clone() for o in outs for k in sorted(o)]
+
+
+def _k3_check(cfg, instance, got, outs, want, label):
+    if instance == "mamba":
+        _mega_close(cfg, got, want, 1e-4, label)
+    else:
+        _jamba_close(cfg, got, outs, *want, 1e-4, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("instance,d_model,n,slots,wd,sd", [
+    ("mamba", 64, 2, 1, "int8", "int8"), ("mamba", 64, 2, 5, "f32", "f32"),
+    ("mamba", 64, 2, 8, "int8", "int8"), ("mamba", 550, 2, 3, "int8", "int8"),
+    ("mamba", 768, 24, 3, "int8", "int8"),
+    ("jamba", 64, 1, 1, "int8", "int8"), ("jamba", 64, 2, 5, "f32", "f32"),
+    ("jamba", 64, 8, 8, "int8", "int8"), ("jamba", 550, 3, 3, "int8", "int8"),
+])
+def test_cuda_k3_split_items_match_plain_and_repeat(cuda, instance, d_model,
+                                                    n, slots, wd, sd):
+    """K3's streamed GEMVs and S6 chunks at 1, 3, 5 and 8 slots (the 4-slot
+    passes and their partial sums), a run of MAX_RUN positions, the ragged
+    width (d_model 550: rows of 1100 and 2200 int8 codes, no multiple of
+    16) and mamba-130m's 24 layers with an int8 state: f32 against the
+    plain version, a bf16 launch repeated bit for bit."""
+    cfg, launch, plain, outs = _k3_case(cuda, instance, d_model, n, slots,
+                                        "float32", wd, sd, seed=11)
+    got = launch()
+    want = plain()
+    torch.cuda.synchronize()
+    _k3_check(cfg, instance, got, outs, want,
+              f"{instance} {d_model} n={n} slots={slots} {wd}/{sd}")
+    _, launch, _, outs = _k3_case(cuda, instance, d_model, n, slots,
+                                  "bfloat16", wd, sd, seed=12)
+    first = _k3_bits(instance, launch(), outs)
+    again = _k3_bits(instance, launch(), outs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("instance", ["mamba", "jamba"])
+def test_cuda_k3_runs_of_other_lengths_back_to_back(cuda, instance):
+    """K3's arrival counters live in each call's scratch and the kernel
+    zeroes them itself: runs of 3, 1, 5 and 2 layers (positions) launched
+    in turn each match the plain version (f32), and in bf16 each gives the
+    bits it gave when launched first in another order."""
+    lengths = (3, 1, 5, 2)
+    for n in lengths:
+        cfg, launch, plain, outs = _k3_case(cuda, instance, 64, n, 3,
+                                            "float32", "int8", "int8",
+                                            seed=20 + n)
+        got = launch()
+        want = plain()
+        torch.cuda.synchronize()
+        _k3_check(cfg, instance, got, outs, want, f"{instance} run of {n}")
+    cases = {n: _k3_case(cuda, instance, 64, n, 3, "bfloat16", "int8",
+                         "int8", seed=30 + n) for n in lengths}
+    first = {n: _k3_bits(instance, cases[n][1](), cases[n][3])
+             for n in lengths}
+    for n in reversed(lengths):
+        again = _k3_bits(instance, cases[n][1](), cases[n][3])
+        assert all(torch.equal(u, v) for u, v in zip(first[n], again)), n
+
+
+# ---------------------------------------------------------------------------
 # K3's xLSTM instances against their plain version; K8 and K9 bitwise
 # ---------------------------------------------------------------------------
 

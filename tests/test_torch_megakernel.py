@@ -381,17 +381,40 @@ def test_stack_holds_the_weights_without_copying(weights):
 
 
 @pytest.mark.parametrize("slots", range(1, 10))
-def test_jamba_scratch_holds_every_row_the_w2_tiles_read(slots):
-    """K3's jamba instance stages no hidden in shared memory: w2's column
-    tiles read 4 slots' rows of the (slots, d_ff) hidden at the end of the
-    launch's scratch on every pass, whatever the pass's slot count, so the
-    scratch holds rows up to the last pass's start + 4."""
-    di, nx, ff = 8192, 288, 14336
-    nchunks = -(-di // 32)
-    hidden_at = slots * (3 * di + nx + nchunks + 16 * di)
-    last_pass = 4 * ((slots - 1) // 4)
-    assert (megakernel.scratch_floats(slots, di, nx, ff)
-            >= hidden_at + (last_pass + 4) * ff)
+def test_jamba_scratch_holds_partials_and_counters_unpadded(slots):
+    """K3's jamba scratch at jamba-v0.1's widths on a 132-block grid (csrc
+    megakernel_mamba.cuh ``scratch_floats``): the per-slot vectors with
+    the hidden exactly (slots, d_ff) (w2's items stage their rows of it in
+    shared memory: no padding rows; the S6 items keep the new state's f32
+    values in shared memory), the chunks' absmax one a slot and block, a
+    partial sum for every (block + tile) index of the widest GEMV (its
+    tiles 128 to 32 columns wide) for 2 matrices and every slot, and the
+    int counters: 5 phases' tiles, x_proj's done count, one a scale
+    group."""
+    dm, di, nx, ff = 4096, 8192, 288, 14336
+    grid = 132
+    tiles = -(-max(2 * di, nx, dm, ff) // 32)
+    vectors = slots * (3 * di + nx + ff)     # x_a z y, dbc, the hidden
+    absmax = slots * grid
+    partials = (grid + tiles) * 2 * slots * 128
+    counters = 5 * tiles + 1 + -(-di // 512)
+    got = megakernel.scratch_floats(slots, dm, di, nx, ff, grid)
+    assert got == vectors + absmax + partials + counters
+    # every GEMV's partial index (block + tile) fits its region, at its
+    # narrowest tiles
+    for n in (2 * di, nx, dm, ff):
+        assert (grid - 1) + (-(-n // 32) - 1) < grid + tiles
+
+
+@pytest.mark.parametrize("slots", range(1, 10))
+def test_mamba_scratch_holds_its_vectors_and_state(slots):
+    """K3's mamba scratch at mamba-130m's widths (csrc megakernel_mamba.cu
+    ``scratch_floats``): x_a, z and y (slots, d_inner), (dt_low | B | C)
+    (slots, dt_rank + 32), the 32-channel chunks' absmax and the f32 state
+    values (slots, d_inner, 16); no grid term, no counters."""
+    di, nx = 1536, 80
+    want = slots * (3 * di + nx + di // 32 + 16 * di)
+    assert megakernel.mamba_scratch_floats(slots, di, nx) == want
 
 
 @pytest.mark.parametrize("kind,slots,d_model,n_heads,want", [
