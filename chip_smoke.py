@@ -305,16 +305,19 @@ def xlstm_kernel_name(fn):
 
 def mamba_kernel_name(fn):
     """'jamba bf16 act, int8 w' of an instantiation of K3's
-    mamba_megakernel<T, TW, kMlp> (the mamba instance's in
-    megakernel_mamba.cu, the jamba instance's in megakernel_mamba.cuh) from
-    its mangled name, else None."""
+    mamba_megakernel<T, TW> from its mangled name (the mamba instance's,
+    marca::, in megakernel_mamba.cu; the jamba instance's, marca::mb::, in
+    megakernel_mamba.cuh; an older build's mamba_megakernel<T, TW, kMlp>
+    by its flag), else None."""
     import re
-    m = re.search(r"mamba_megakernelI(f|13__nv_bfloat16)(f|a)Lb([01])E", fn)
+    m = re.search(r"(2mb)?16mamba_megakernelI(f|13__nv_bfloat16)(f|a)"
+                  r"(?:Lb([01]))?E", fn)
     if not m:
         return None
-    act = "f32" if m.group(1) == "f" else "bf16"
-    w = "f32" if m.group(2) == "f" else "int8"
-    return f"{'jamba' if m.group(3) == '1' else 'mamba'} {act} act, {w} w"
+    act = "f32" if m.group(2) == "f" else "bf16"
+    w = "f32" if m.group(3) == "f" else "int8"
+    jamba = m.group(1) or m.group(4) == "1"
+    return f"{'jamba' if jamba else 'mamba'} {act} act, {w} w"
 
 
 def kernel_registers(build_log, name):
@@ -1167,7 +1170,7 @@ DESIGNS = {
 
 DESIGNS["mlstm_stacked_run_q_int8w"] = DESIGNS["mlstm_stacked_run"]
 DESIGNS["mamba_stacked_step"] = (
-    "PR 13's design, kept: one block of 512 threads an SM, 4 grid barriers "
+    "The first design, kept: one block of 512 threads an SM, 4 grid barriers "
     "a layer (5 with an int8/fp8 state): A norm + in_proj column tiles "
     "with the conv + SiLU epilogue, B x_proj tiles, C one block per (slot, "
     "32 channels) for dt and the S6 step, C2 the group requantize, D "
@@ -1180,7 +1183,8 @@ DESIGNS["jamba_stacked_run"] = (
     "position and one a launch: every dense layer a GEMV over (tile, row) "
     "units, whole tiles where they fill the grid (in_proj), else split "
     "over the blocks in one round (x_proj, out_proj, w1|w3, w2); 16-byte "
-    "loads (4 f32 or 16 int8 codes a lane) in ping-pong batches, no bounds "
+    "f32 loads (4 a lane), 8-byte int8 loads (8 codes a lane), in ping-pong "
+    "batches, no bounds "
     "test in the loop, int8 codes and bf16 rounding on the integer pipes, "
     "the scales in registers; each block's inputs copied into shared "
     "memory at once; partial sums to scratch, the last block of a tile at "
@@ -1304,7 +1308,8 @@ def phase_timing(cfg, dev, counts, errs):
         x0, h, h_scale, conv = k3_inputs(c, 4, gen, dev)
         lc = megakernel.launch_config(c, torch.bfloat16, wd == "int8", dev)
         shape = (f"slots=4 L=24 d_model=768 bf16, {wd} weights, {sd} state; "
-                 f"grid {lc['grid']} x 512, {lc['smem_bytes']} B shared")
+                 f"grid {lc['grid']} x {lc['threads']}, {lc['smem_bytes']} B "
+                 f"shared")
         row = measure(
             name, shape,
             lambda: megakernel.mamba_stacked_step(c, x0, p["stack"], h,
@@ -2090,7 +2095,7 @@ def phase_jamba_timing(dev, counts, errs):
         lc = megakernel.launch_config(c, torch.bfloat16, wd == "int8", dev)
         row = measure(
             name, f"1 position (mamba + MLP), slots=4, d_model=4096 bf16, "
-            f"{wd} weights, {sd} state; grid {lc['grid']} x 512, "
+            f"{wd} weights, {sd} state; grid {lc['grid']} x {lc['threads']}, "
             f"{lc['smem_bytes']} B shared",
             lambda: megakernel.jamba_stacked_run(c, x0, run, states, outs),
             lambda: ref.jamba_stacked_run(c, x0, run.rows, states), None,

@@ -94,9 +94,7 @@ PHASES = {
             ("jamba", True): ("A norm+in_proj+conv", "B x_proj",
                               "C S6 step", "C2 requant", "D out_proj",
                               "E norm2+w1+w3", "F w2")},
-    "new": {("mamba", False): ("A norm+in_proj+conv", "BC x_proj+S6",
-                               "D out_proj"),
-            ("jamba", False): ("A norm+in_proj+conv", "BC x_proj+S6",
+    "new": {("jamba", False): ("A norm+in_proj+conv", "BC x_proj+S6",
                                "D out_proj", "E norm2+w1|w3", "F w2")},
 }
 
@@ -133,14 +131,13 @@ def configure(lib, csrc=None, defines=(), everything=False):
 
 
 def design(root, kind):
-    """'new' where ``kind``'s kernel (jamba or mamba) in ``root`` is the
-    split-K design (megakernel_mamba.cuh, zeroing its counters), else
-    'old' (the 4-5-phase design of megakernel_mamba.cu)."""
+    """'new' where ``kind`` is jamba and ``root`` has the split-K design
+    (megakernel_mamba.cuh, zeroing its counters), else 'old' (the
+    4-5-phase design of megakernel_mamba.cu, which the mamba instance
+    keeps)."""
     header = root / "src/repro_torch/csrc/megakernel_mamba.cuh"
-    if not header.exists() or "zero_counters" not in header.read_text():
-        return "old"
-    inst = (root / "src/repro_torch/csrc/megakernel_mamba_inst.cu").read_text()
-    if kind == "jamba" or "mamba_megakernel<TAct, TWgt, false>" in inst:
+    if (kind == "jamba" and header.exists()
+            and "zero_counters" in header.read_text()):
         return "new"
     return "old"
 
@@ -300,7 +297,8 @@ def timing(dev):
         what = ("1 position, jamba-v0.1" if kind == "jamba"
                 else f"{MAMBA_LAYERS} layers, mamba-130m")
         row = cs.measure(f"{kind} {wd}/{sd}",
-                         f"{what}, 4 slots, bf16; grid {lc['grid']} x 512, "
+                         f"{what}, 4 slots, bf16; grid {lc['grid']} x "
+                         f"{lc.get('threads', 512)}, "
                          f"{lc['smem_bytes']} B shared", launch, plain, None,
                          work, 5)
         log(f"    K3-{kind} {wd} w {sd} state: {row['ms'] * 1e3:.2f} µs "

@@ -1,6 +1,6 @@
 // Shared device code of the cross-layer decode megakernels (K3): the
 // block-wide stages and the column-tile GEMV that csrc/megakernel_mamba.cu
-// (mamba and jamba instances) and csrc/megakernel_xlstm.cuh (mLSTM and sLSTM
+// (the mamba instance) and csrc/megakernel_xlstm.cuh (mLSTM and sLSTM
 // instances) build their layer phases from, and the cooperative launch's
 // grid sizing.  Every kernel that includes it runs blocks of kMThreads
 // threads and stages kSlots slots of a vector in shared memory at a time.
@@ -77,10 +77,9 @@ __host__ __device__ __forceinline__ int pick_tj(int n, int grid) {
   return tj;
 }
 
-// kVec adjacent weight columns one thread of the jamba instance loads at
-// once, where the row length allows: a float4 of f32 weights or a char4 of
-// int8 codes.  Its projections have hundreds of rows a thread, and the
-// wider loads put 2-4 times the bytes in flight.  The mamba instance loads
+// kVec adjacent weight columns one thread of the xLSTM instances loads at
+// once: a float4 of f32 weights or a char4 of int8 codes, which put 2-4
+// times the bytes in flight.  The mamba instance loads
 // one column a thread: at mamba-130m a thread has 3-24 rows of a weight,
 // and 4 columns a thread (with their 4 times larger tile reduction and
 // code) measured 10-19% slower on an H100 (700 W).
@@ -128,8 +127,8 @@ __device__ __forceinline__ int gemv_ntiles(int N) {
 // takes; epi(si, j, sum) gets each unrounded f32 sum once.  W is (K, N),
 // row-major, as blocks.dense stores it; xs may be shared or global memory.
 // A tile is tj threads across, each taking V adjacent columns (gemv_vec:
-// V = 4 in the jamba instance, one 16-byte load of f32 weights or 4 bytes
-// of int8 codes); the block's other threads split the rows.  Each thread loads kB rows of its
+// V = kVec in the xLSTM instances, one 16-byte load of f32 weights or 4
+// bytes of int8 codes); the block's other threads split the rows.  Each thread loads kB rows of its
 // columns before it uses any, so that many bytes are in flight at once
 // (the phase is bound by memory latency, not by the bytes); the sum still
 // runs over the rows in ascending order.  The same N gives the same tiles
@@ -196,18 +195,6 @@ __device__ void gemv_cols(const float* xs, int nb, int K, const TW* W,
     }
     __syncthreads();
   }
-}
-
-template <typename T, typename TW, int kV, typename Epi>
-__device__ void gemv_tiles(const float* xs, int nb, int K, const TW* W,
-                           const float* wscale, int N, float* red, Epi epi) {
-  if constexpr (kV > 1) {
-    if (gemv_vec<kV>(N) == kV) {
-      gemv_cols<T, TW, kV>(xs, nb, K, W, wscale, N, red, epi);
-      return;
-    }
-  }
-  gemv_cols<T, TW, 1>(xs, nb, K, W, wscale, N, red, epi);
 }
 
 __device__ __forceinline__ bool quantized(int state_dtype) {

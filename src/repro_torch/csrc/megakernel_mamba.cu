@@ -21,9 +21,9 @@
 // state 29 us.  What binds it is latency: 4-5 dependent phases a layer,
 // each a few trips to memory, and a grid barrier after each.
 //
-// Design (PR 13's, kept: megakernel_mamba.cuh's split-K design measured
+// Design (the first one, kept: megakernel_mamba.cuh's split-K design measured
 // slower at mamba-130m's widths, where every weight is small and each
-// phase's time is its chain of dependent steps; PERF.md, PR 19): one
+// phase's time is its chain of dependent steps; PERF.md): one
 // persistent cooperative kernel with as many blocks of 512 threads as can
 // be co-resident, the layer loop inside, and a grid barrier wherever the
 // next phase needs a whole vector.  Per layer:
@@ -62,53 +62,25 @@ namespace cg = cooperative_groups;
 
 namespace marca {
 
-constexpr int kMN = 16;                                // d_state
 constexpr int kChunk = kMThreads / kMN;                // 32 channels / item
 constexpr int kChunksPerGroup = kScaleGroup / kChunk;  // 16
-constexpr float kSoftplusThreshold = 20.0f;            // F.softplus
-
-// Columns of the per-layer weight table (repro_torch/kernels/megakernel.py
-// TABLE_COLUMNS); a scale column is 0 for f32 weights.
-// (MLP_COLUMNS, for the jamba instance: norm2 and the MLP)
-enum WeightColumn {
-  W_NORM = 0, W_IN = 1, W_IN_SCALE = 2, W_CONV = 3, W_CONV_B = 4, W_X = 5,
-  W_X_SCALE = 6, W_DT = 7, W_DT_SCALE = 8, W_DT_BIAS = 9, W_A = 10,
-  W_A_SCALE = 11, W_D = 12, W_OUT = 13, W_OUT_SCALE = 14, W_NORM2 = 15,
-  W_W1 = 16, W_W1_SCALE = 17, W_W3 = 18, W_W3_SCALE = 19, W_W2 = 20,
-  W_W2_SCALE = 21, W_COLUMNS = 24
-};
-
-constexpr int kMaxRows = 8;  // positions of one jamba launch (MAX_RUN)
-
-// One state pointer per position (and tensor) of a jamba launch: each
-// points at (b, ...) of its cache leaf.
-struct StateRows {
-  const void* h[kMaxRows];
-  const float* h_scale[kMaxRows];
-  const void* conv[kMaxRows];
-  void* h_out[kMaxRows];
-  float* h_scale_out[kMaxRows];
-  void* conv_out[kMaxRows];
-};
 
 struct MegaArgs {
   const int64_t* table;  // (L, W_COLUMNS) device pointers
   const void* x0;        // (b, dm) compute type: the embedded tokens
   void* x;               // (b, dm) compute type: the residual stream out
-  // the state: stacked on L (mamba), or per position in rows (jamba)
   const void* h;         // (L, b, di, 16) state storage type
   const float* h_scale;  // (L, b, g) for an int8/fp8 state
   const void* conv;      // (L, b, k-1, di) compute type
   void* h_out;
   float* h_scale_out;
   void* conv_out;
-  StateRows rows;
   float* scratch;
-  int L, b, dm, di, R, k, nx, g, nchunks, d_ff;
+  int L, b, dm, di, R, k, nx, g, nchunks;
   int state_dtype, exp_impl, silu_impl;
 };
 
-// Position l's state: (b, ...) tensors in and out.
+// Layer l's state: (b, ...) tensors in and out.
 struct RowState {
   const void* h;
   const float* h_scale;
@@ -118,11 +90,8 @@ struct RowState {
   void* conv_out;
 };
 
-template <typename T, bool kPerRow>
+template <typename T>
 __device__ __forceinline__ RowState row_state(const MegaArgs& a, int l) {
-  if constexpr (kPerRow)
-    return {a.rows.h[l], a.rows.h_scale[l], a.rows.conv[l], a.rows.h_out[l],
-            a.rows.h_scale_out[l], a.rows.conv_out[l]};
   const int64_t eh = a.state_dtype == SD_F32    ? 4
                      : a.state_dtype == SD_BF16 ? 2
                                                 : 1;
@@ -256,23 +225,23 @@ __device__ void phase_requant(const MegaArgs& a, const RowState& rs) {
   }
 }
 
-template <typename T, typename TW, bool kMlp>
+// a is __grid_constant__: the phases take it by reference without a copy
+// in local memory (without it this kernel spilled 64-76 B and ran 2-4%
+// slower on an H100 80GB HBM3 at 700 W, scripts/torch_k3_jamba.py)
+template <typename T, typename TW>
 __global__ void __launch_bounds__(kMThreads)
-mamba_megakernel(const MegaArgs a) {
+mamba_megakernel(const __grid_constant__ MegaArgs a) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const int kmax = max(a.dm, a.di);
-  float* xs = smem;                           // kSlots * kmax
-  constexpr int kV = kMlp ? kVec : 1;         // columns a thread, at most
-  float* red = xs + kSlots * kmax;            // kMWarps * kSlots * 32 * kV
-  float* redn = red + kMWarps * kSlots * 32 * kV;  // kMWarps * kSlots
+  float* xs = smem;                      // kSlots * kmax
+  float* red = xs + kSlots * kmax;       // kMWarps * kSlots * 32
+  float* redn = red + kMWarps * kSlots * 32;  // kMWarps * kSlots
   const int64_t bdi = (int64_t)a.b * a.di;
   float* xa = a.scratch;
   float* zb = xa + bdi;
   float* dbc = zb + bdi;
   float* yb = dbc + (int64_t)a.b * a.nx;
-  // the MLP hidden (b, d_ff), after the f32 state values
-  float* hid = yb + bdi + (int64_t)a.b * a.nchunks + bdi * kMN;
   const T* x0 = static_cast<const T*>(a.x0);
   T* x = static_cast<T*>(a.x);
   const int k1 = a.k - 1;
@@ -280,19 +249,19 @@ mamba_megakernel(const MegaArgs a) {
   for (int l = 0; l < a.L; ++l) {
     const int64_t* wt = a.table + (int64_t)l * W_COLUMNS;
     const T* xsrc = l == 0 ? x0 : x;
-    const RowState rs = row_state<T, kMlp>(a, l);
+    const RowState rs = row_state<T>(a, l);
     const T* conv = static_cast<const T*>(rs.conv);
     T* conv_out = static_cast<T*>(rs.conv_out);
 
     // A: norm -> in_proj -> conv + SiLU | z
-    if (blockIdx.x < gemv_ntiles<kV>(2 * a.di)) {
+    if (blockIdx.x < gemv_ntiles<1>(2 * a.di)) {
       const float* conv_w = column<float>(wt, W_CONV);
       const float* conv_b = column<float>(wt, W_CONV_B);
       for (int s0 = 0; s0 < a.b; s0 += kSlots) {
         const int nb = min(kSlots, a.b - s0);
         stage_norm<T>(xs, redn, xsrc, column<float>(wt, W_NORM), s0, nb,
                       a.dm);
-        gemv_tiles<T, TW, kV>(
+        gemv_cols<T, TW, 1>(
             xs, nb, a.dm, column<TW>(wt, W_IN), column<float>(wt, W_IN_SCALE),
             2 * a.di, red, [&](int si, int j, float sum) {
               const int s = s0 + si;
@@ -323,16 +292,16 @@ mamba_megakernel(const MegaArgs a) {
     grid.sync();
 
     // B: x_proj -> (dt_low, B, C)
-    if (blockIdx.x < gemv_ntiles<kV>(a.nx)) {
+    if (blockIdx.x < gemv_ntiles<1>(a.nx)) {
       for (int s0 = 0; s0 < a.b; s0 += kSlots) {
         const int nb = min(kSlots, a.b - s0);
         stage_rows(xs, xa, s0, nb, a.di);
-        gemv_tiles<T, TW, kV>(xs, nb, a.di, column<TW>(wt, W_X),
-                          column<float>(wt, W_X_SCALE), a.nx, red,
-                          [&](int si, int j, float sum) {
-                            dbc[(int64_t)(s0 + si) * a.nx + j] =
-                                round_to<T>(sum);
-                          });
+        gemv_cols<T, TW, 1>(xs, nb, a.di, column<TW>(wt, W_X),
+                            column<float>(wt, W_X_SCALE), a.nx, red,
+                            [&](int si, int j, float sum) {
+                              dbc[(int64_t)(s0 + si) * a.nx + j] =
+                                  round_to<T>(sum);
+                            });
       }
     }
     grid.sync();
@@ -349,11 +318,11 @@ mamba_megakernel(const MegaArgs a) {
     }
 
     // D: out_proj, residual
-    if (blockIdx.x < gemv_ntiles<kV>(a.dm)) {
+    if (blockIdx.x < gemv_ntiles<1>(a.dm)) {
       for (int s0 = 0; s0 < a.b; s0 += kSlots) {
         const int nb = min(kSlots, a.b - s0);
         stage_rows(xs, yb, s0, nb, a.di);
-        gemv_tiles<T, TW, kV>(
+        gemv_cols<T, TW, 1>(
             xs, nb, a.di, column<TW>(wt, W_OUT),
             column<float>(wt, W_OUT_SCALE), a.dm, red,
             [&](int si, int j, float sum) {
@@ -362,112 +331,57 @@ mamba_megakernel(const MegaArgs a) {
             });
       }
     }
-    if (kMlp) {
-      grid.sync();
-      // E: norm2 -> w1 and w3 -> SiLU(w1 x) * (w3 x), the rounding points
-      // of blocks.mlp_apply: each dense output, SiLU and the product
-      if (blockIdx.x < gemv_ntiles<kV>(a.d_ff)) {
-        for (int s0 = 0; s0 < a.b; s0 += kSlots) {
-          const int nb = min(kSlots, a.b - s0);
-          stage_norm<T>(xs, redn, x, column<float>(wt, W_NORM2), s0, nb,
-                        a.dm);
-          gemv_tiles<T, TW, kV>(xs, nb, a.dm, column<TW>(wt, W_W1),
-                            column<float>(wt, W_W1_SCALE), a.d_ff, red,
-                            [&](int si, int j, float sum) {
-                              hid[(int64_t)(s0 + si) * a.d_ff + j] =
-                                  round_to<T>(sum);
-                            });
-          // the same tiles and epilogue threads as w1's: each thread reads
-          // back only what it wrote
-          gemv_tiles<T, TW, kV>(
-              xs, nb, a.dm, column<TW>(wt, W_W3),
-              column<float>(wt, W_W3_SCALE), a.d_ff, red,
-              [&](int si, int j, float sum) {
-                float* hp = hid + (int64_t)(s0 + si) * a.d_ff + j;
-                const float act = round_to<T>(apply_silu(*hp, a.silu_impl));
-                *hp = round_to<T>(act * round_to<T>(sum));
-              });
-        }
-      }
-      grid.sync();
-      // F: w2 over the hidden rows (read from global memory), residual
-      if (blockIdx.x < gemv_ntiles<kV>(a.dm)) {
-        for (int s0 = 0; s0 < a.b; s0 += kSlots) {
-          const int nb = min(kSlots, a.b - s0);
-          gemv_tiles<T, TW, kV>(
-              hid + (int64_t)s0 * a.d_ff, nb, a.d_ff, column<TW>(wt, W_W2),
-              column<float>(wt, W_W2_SCALE), a.dm, red,
-              [&](int si, int j, float sum) {
-                const int64_t i = (int64_t)(s0 + si) * a.dm + j;
-                x[i] = from_f32<T>(to_f32(x[i]) + round_to<T>(sum));
-              });
-        }
-      }
-    }
     if (l + 1 < a.L) grid.sync();
   }
 }
 
 // Shared memory of one block: the staged rows, the tile reduction and the
 // norm / absmax partials.
-size_t smem_bytes(int dm, int di, int mlp) {
+size_t smem_bytes(int dm, int di) {
   const int kmax = dm > di ? dm : di;
-  return sizeof(float) * ((size_t)kSlots * kmax +
-                          kMWarps * kSlots * 32 * (mlp ? kVec : 1) +
-                          kMWarps * kSlots);
+  return sizeof(float) *
+         ((size_t)kSlots * kmax + kMWarps * kSlots * 32 + kMWarps * kSlots);
 }
 
-// scratch floats: x_a, z, (dt_low|B|C), y, chunk absmax, f32 state values
-// and the MLP hidden (d_ff 0 without one)
-int64_t scratch_floats(int b, int di, int nx, int nchunks, int d_ff) {
-  return (int64_t)b *
-         (3 * (int64_t)di + nx + nchunks + (int64_t)di * kMN + d_ff);
+// scratch floats: x_a, z, (dt_low|B|C), y, chunk absmax and f32 state values
+int64_t scratch_floats(int b, int di, int nx, int nchunks) {
+  return (int64_t)b * (3 * (int64_t)di + nx + nchunks + (int64_t)di * kMN);
 }
 
 using KernelFn = void (*)(const MegaArgs);
 
-template <bool kMlp>
-KernelFn pick_mlp(int dtype, int weight_dtype) {
+KernelFn pick(int dtype, int weight_dtype) {
   using bf = __nv_bfloat16;
   if (dtype == DT_F32 && weight_dtype == 0)
-    return mamba_megakernel<float, float, kMlp>;
+    return mamba_megakernel<float, float>;
   if (dtype == DT_F32 && weight_dtype == 1)
-    return mamba_megakernel<float, int8_t, kMlp>;
+    return mamba_megakernel<float, int8_t>;
   if (dtype == DT_BF16 && weight_dtype == 0)
-    return mamba_megakernel<bf, float, kMlp>;
+    return mamba_megakernel<bf, float>;
   if (dtype == DT_BF16 && weight_dtype == 1)
-    return mamba_megakernel<bf, int8_t, kMlp>;
+    return mamba_megakernel<bf, int8_t>;
   return nullptr;
 }
 
-KernelFn pick(int dtype, int weight_dtype) {
-  return pick_mlp<false>(dtype, weight_dtype);
+// blocks per SM, grid and shared memory of a launch; 0 or an error code
+int configure(KernelFn fn, int dm, int di, int* per_sm, int* grid,
+              size_t* smem) {
+  *smem = smem_bytes(dm, di);
+  return coop_grid((const void*)fn, *smem, per_sm, grid);
 }
-
-int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
-              size_t* smem);
 
 // Checks the launch, sizes the grid and launches; 0 or a CUDA error.
 int launch(KernelFn fn, MegaArgs& a, int64_t scratch_len, void* stream) {
   const bool quant = a.state_dtype == SD_INT8 || a.state_dtype == SD_FP8;
   if (fn == nullptr || a.L < 1 || a.b < 1 || a.dm < 1 || a.di < 1 ||
-      a.R < 1 || a.k < 1 || a.d_ff < 0 || a.state_dtype < SD_INT8 ||
+      a.R < 1 || a.k < 1 || a.state_dtype < SD_INT8 ||
       a.state_dtype > SD_BF16 ||
-      scratch_len < scratch_floats(a.b, a.di, a.nx, a.nchunks, a.d_ff))
-    return cudaErrorInvalidValue;
-  const bool per_row = a.d_ff > 0;  // the jamba instance
-  for (int l = 0; per_row && l < a.L; ++l)
-    if (a.rows.h[l] == nullptr || a.rows.conv[l] == nullptr ||
-        a.rows.h_out[l] == nullptr || a.rows.conv_out[l] == nullptr ||
-        (quant && (a.rows.h_scale[l] == nullptr ||
-                   a.rows.h_scale_out[l] == nullptr)))
-      return cudaErrorInvalidValue;
-  if (!per_row && quant && (a.h_scale == nullptr || a.h_scale_out == nullptr))
+      scratch_len < scratch_floats(a.b, a.di, a.nx, a.nchunks) ||
+      (quant && (a.h_scale == nullptr || a.h_scale_out == nullptr)))
     return cudaErrorInvalidValue;
   int per_sm = 0, grid = 0;
   size_t smem = 0;
-  const int rc = configure(fn, a.dm, a.di, a.d_ff > 0, &per_sm, &grid,
-                           &smem);
+  const int rc = configure(fn, a.dm, a.di, &per_sm, &grid, &smem);
   if (rc != 0) return rc;
   void* params[] = {(void*)&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
@@ -475,13 +389,6 @@ int launch(KernelFn fn, MegaArgs& a, int64_t scratch_len, void* stream) {
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// blocks per SM, grid and shared memory of a launch; 0 or an error code
-int configure(KernelFn fn, int dm, int di, int mlp, int* per_sm, int* grid,
-              size_t* smem) {
-  *smem = smem_bytes(dm, di, mlp);
-  return coop_grid((const void*)fn, *smem, per_sm, grid);
 }
 
 int coop_grid(const void* fn, size_t smem, int* per_sm, int* grid,
@@ -590,12 +497,13 @@ int launch(KernelFn fn, int weight_dtype, MegaArgs& a, int64_t scratch_len,
 }  // namespace marca
 
 // The launch configuration K3 would use on the current device: out[0]
-// blocks per SM, out[1] the grid, out[2] dynamic shared memory bytes.
-// weight_dtype 0 is f32, 1 int8; mlp 1 is the jamba instance.
+// blocks per SM, out[1] the grid, out[2] dynamic shared memory bytes,
+// out[3] threads per block.  weight_dtype 0 is f32, 1 int8; mlp 1 is the
+// jamba instance.
 extern "C" int marca_mamba_stacked_grid(int d_model, int d_inner,
                                         int dt_rank, int dtype,
                                         int weight_dtype, int mlp, int* out) {
-  int per_sm = 0, grid = 0;
+  int per_sm = 0, grid = 0, threads = marca::kMThreads;
   size_t smem = 0;
   if (d_model < 1 || d_inner < 1 || dt_rank < 1) return cudaErrorInvalidValue;
   int rc;
@@ -603,17 +511,19 @@ extern "C" int marca_mamba_stacked_grid(int d_model, int d_inner,
     const marca::mb::KernelFn fn = marca::mb::pick(dtype, weight_dtype);
     if (fn == nullptr) return cudaErrorInvalidValue;
     rc = marca::mb::configure(fn, d_inner, dt_rank,
-                              dt_rank + 2 * marca::mb::kMN,
+                              dt_rank + 2 * marca::kMN,
                               weight_dtype ? 1 : 4, &per_sm, &grid, &smem);
+    threads = marca::mb::kThreads;
   } else {
     const marca::KernelFn fn = marca::pick(dtype, weight_dtype);
     if (fn == nullptr) return cudaErrorInvalidValue;
-    rc = marca::configure(fn, d_model, d_inner, 0, &per_sm, &grid, &smem);
+    rc = marca::configure(fn, d_model, d_inner, &per_sm, &grid, &smem);
   }
   if (rc != 0) return rc;
   out[0] = per_sm;
   out[1] = grid;
   out[2] = (int)smem;
+  out[3] = threads;
   return 0;
 }
 
@@ -653,7 +563,6 @@ extern "C" int marca_mamba_stacked_step(
   a.nx = dt_rank + 2 * kMN;
   a.g = (d_inner + kScaleGroup - 1) / kScaleGroup;
   a.nchunks = (d_inner + kChunk - 1) / kChunk;
-  a.d_ff = 0;
   a.state_dtype = state_dtype;
   a.exp_impl = exp_impl;
   a.silu_impl = silu_impl;
@@ -675,7 +584,7 @@ extern "C" int marca_jamba_stacked_run(
     int weight_dtype, int state_dtype, int exp_impl, int silu_impl,
     void* stream) {
   namespace mb = marca::mb;
-  if (d_state != mb::kMN || nrows < 1 || nrows > mb::kMaxRows || d_ff < 1 ||
+  if (d_state != marca::kMN || nrows < 1 || nrows > mb::kMaxRows || d_ff < 1 ||
       rows == nullptr)
     return cudaErrorInvalidValue;
   mb::MegaArgs a{};
@@ -697,7 +606,7 @@ extern "C" int marca_jamba_stacked_run(
   a.di = d_inner;
   a.R = dt_rank;
   a.k = d_conv;
-  a.nx = dt_rank + 2 * mb::kMN;
+  a.nx = dt_rank + 2 * marca::kMN;
   a.g = (d_inner + marca::kScaleGroup - 1) / marca::kScaleGroup;
   a.d_ff = d_ff;
   a.state_dtype = state_dtype;

@@ -75,7 +75,7 @@
 // per engine.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/torch_k3_jamba.py,
-// PERF.md, PR 19): one bf16 position at 4 slots in 481 us with f32
+// PERF.md): one bf16 position at 4 slots in 481 us with f32
 // weights and state (the previous design: 544) and 354 us with int8
 // weights and state (488).  The f32 weights stream at 2.8-3.0 TB/s inside
 // the phases; each phase adds 10-30 us of staging, finishing and waiting,
@@ -89,14 +89,29 @@
 namespace cg = cooperative_groups;
 
 namespace marca {
+
+// Shared by K3's mamba instance (megakernel_mamba.cu) and its jamba
+// instance (below)
+constexpr int kMN = 16;                      // d_state
+constexpr float kSoftplusThreshold = 20.0f;  // F.softplus
+
+// Columns of the per-layer weight table (repro_torch/kernels/megakernel.py
+// TABLE_COLUMNS); a scale column is 0 for f32 weights.
+// (MLP_COLUMNS, for the jamba instance: norm2 and the MLP)
+enum WeightColumn {
+  W_NORM = 0, W_IN = 1, W_IN_SCALE = 2, W_CONV = 3, W_CONV_B = 4, W_X = 5,
+  W_X_SCALE = 6, W_DT = 7, W_DT_SCALE = 8, W_DT_BIAS = 9, W_A = 10,
+  W_A_SCALE = 11, W_D = 12, W_OUT = 13, W_OUT_SCALE = 14, W_NORM2 = 15,
+  W_W1 = 16, W_W1_SCALE = 17, W_W3 = 18, W_W3_SCALE = 19, W_W2 = 20,
+  W_W2_SCALE = 21, W_COLUMNS = 24
+};
+
 namespace mb {
 
 // A block: 384 threads, so a thread may hold 168 registers (512 threads
 // cap it at 128, and the streamed GEMVs then spilled 1-3 KB)
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMN = 16;                      // d_state
-constexpr float kSoftplusThreshold = 20.0f;  // F.softplus
 constexpr int kCW = 128;                     // columns of a GEMV tile
 constexpr int kStage = 4096;                 // input rows staged at once
 constexpr int kPhases = 5;                   // GEMV phases with counters
@@ -109,17 +124,6 @@ constexpr int kMaxConv = 4;                  // widest d_conv
 // a weight of at most this many bytes is latency-bound: its GEMV runs
 // whole tiles (no split, so no partial sums) where they fill half the grid
 constexpr int64_t kSmallWeight = 16ll << 20;
-
-// Columns of the per-layer weight table (repro_torch/kernels/megakernel.py
-// TABLE_COLUMNS); a scale column is 0 for f32 weights.
-// (MLP_COLUMNS, for the jamba instance: norm2 and the MLP)
-enum WeightColumn {
-  W_NORM = 0, W_IN = 1, W_IN_SCALE = 2, W_CONV = 3, W_CONV_B = 4, W_X = 5,
-  W_X_SCALE = 6, W_DT = 7, W_DT_SCALE = 8, W_DT_BIAS = 9, W_A = 10,
-  W_A_SCALE = 11, W_D = 12, W_OUT = 13, W_OUT_SCALE = 14, W_NORM2 = 15,
-  W_W1 = 16, W_W1_SCALE = 17, W_W3 = 18, W_W3_SCALE = 19, W_W2 = 20,
-  W_W2_SCALE = 21, W_COLUMNS = 24
-};
 
 constexpr int kMaxRows = 8;  // positions of one jamba launch (MAX_RUN)
 
@@ -259,11 +263,6 @@ __device__ __forceinline__ Smem smem_map(float* smem) {
 // ---------------------------------------------------------------------------
 // Loads, copies and counters
 // ---------------------------------------------------------------------------
-
-template <typename P>
-__device__ __forceinline__ const P* column(const int64_t* row, int c) {
-  return reinterpret_cast<const P*>(row[c]);
-}
 
 // a value another block wrote in this launch: from L2, never a stale L1 line
 __device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
@@ -1107,12 +1106,9 @@ __device__ void phase_step(const MegaArgs& a, int l, const int64_t* wt,
 // The kernel
 // ---------------------------------------------------------------------------
 
-// kMlp: the jamba instance, the only one instantiated (K3's mamba instance
-// runs megakernel_mamba.cu's kernel, which measured faster at mamba-130m)
-template <typename T, typename TW, bool kMlp>
+template <typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
 mamba_megakernel(const MegaArgs a) {
-  static_assert(kMlp, "the split-K kernel runs jamba positions");
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const Smem sm = smem_map(smem);
@@ -1211,40 +1207,38 @@ mamba_megakernel(const MegaArgs a) {
           const int64_t i = (int64_t)s * a.dm + j;
           x[i] = from_f32<T>(ld_cg(xsrc + i) + round_to<T>(sum));
         });
-    {
-      grid.sync();
-      // E: norm2 -> w1 and w3 -> SiLU(w1 x) * (w3 x), the rounding points
-      // of blocks.mlp_apply: each dense output, SiLU and the product
-      const float* n2 = column<float>(wt, W_NORM2);
-      if (threadIdx.x == 0) *sm.rs0 = -1;
-      gemv<T, TW, 2>(
-          a, l, a.d_ff, a.dm, column<TW>(wt, W_W1), column<TW>(wt, W_W3),
-          column<float>(wt, W_W1_SCALE), column<float>(wt, W_W3_SCALE), sc,
-          sc.cnt + 3 * sc.tmax, nullptr, sm,
-          [&](int s0, int nb) { norm_prep<T>(sm, x, s0, nb, a.dm); },
-          [&](float4* xs4, int c0, int c1, int s0, int nb) {
-            stage_norm<T>(sm, xs4, n2, c0, c1, nb, a.dm);
-          },
-          [&](int s, int j, float s1, float s3) {
-            const float act =
-                round_to<T>(apply_silu(round_to<T>(s1), a.silu_impl));
-            sc.hid[(int64_t)s * a.d_ff + j] =
-                round_to<T>(act * round_to<T>(s3));
-          });
-      grid.sync();
-      // F: w2 over each block's rows of the hidden, residual
-      gemv<T, TW, 1>(
-          a, l, a.dm, a.d_ff, column<TW>(wt, W_W2), column<TW>(wt, W_W2),
-          column<float>(wt, W_W2_SCALE), column<float>(wt, W_W2_SCALE), sc,
-          sc.cnt + 4 * sc.tmax, nullptr, sm, no_prep,
-          [&](float4* xs4, int c0, int c1, int s0, int nb) {
-            stage_rows(sm, xs4, sc.hid, c0, c1, s0, nb, a.d_ff);
-          },
-          [&](int s, int j, float sum, float) {
-            const int64_t i = (int64_t)s * a.dm + j;
-            x[i] = from_f32<T>(ld_cg(x + i) + round_to<T>(sum));
-          });
-    }
+    grid.sync();
+    // E: norm2 -> w1 and w3 -> SiLU(w1 x) * (w3 x), the rounding points
+    // of blocks.mlp_apply: each dense output, SiLU and the product
+    const float* n2 = column<float>(wt, W_NORM2);
+    if (threadIdx.x == 0) *sm.rs0 = -1;
+    gemv<T, TW, 2>(
+        a, l, a.d_ff, a.dm, column<TW>(wt, W_W1), column<TW>(wt, W_W3),
+        column<float>(wt, W_W1_SCALE), column<float>(wt, W_W3_SCALE), sc,
+        sc.cnt + 3 * sc.tmax, nullptr, sm,
+        [&](int s0, int nb) { norm_prep<T>(sm, x, s0, nb, a.dm); },
+        [&](float4* xs4, int c0, int c1, int s0, int nb) {
+          stage_norm<T>(sm, xs4, n2, c0, c1, nb, a.dm);
+        },
+        [&](int s, int j, float s1, float s3) {
+          const float act =
+              round_to<T>(apply_silu(round_to<T>(s1), a.silu_impl));
+          sc.hid[(int64_t)s * a.d_ff + j] =
+              round_to<T>(act * round_to<T>(s3));
+        });
+    grid.sync();
+    // F: w2 over each block's rows of the hidden, residual
+    gemv<T, TW, 1>(
+        a, l, a.dm, a.d_ff, column<TW>(wt, W_W2), column<TW>(wt, W_W2),
+        column<float>(wt, W_W2_SCALE), column<float>(wt, W_W2_SCALE), sc,
+        sc.cnt + 4 * sc.tmax, nullptr, sm, no_prep,
+        [&](float4* xs4, int c0, int c1, int s0, int nb) {
+          stage_rows(sm, xs4, sc.hid, c0, c1, s0, nb, a.d_ff);
+        },
+        [&](int s, int j, float sum, float) {
+          const int64_t i = (int64_t)s * a.dm + j;
+          x[i] = from_f32<T>(ld_cg(x + i) + round_to<T>(sum));
+        });
     if (l + 1 < a.L) grid.sync();
   }
 }

@@ -22,7 +22,7 @@ using TWgt = int8_t;
 #endif
 
 KernelFn MB_NAME(MB_ACT, MB_W)() {
-  return mamba_megakernel<TAct, TWgt, true>;
+  return mamba_megakernel<TAct, TWgt>;
 }
 
 }  // namespace mb

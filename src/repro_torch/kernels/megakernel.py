@@ -88,43 +88,14 @@ _TABLE_WIDTH = 24
 #: attention position)
 MAX_RUN = 8
 
-#: what a block of K3's jamba instance (384 threads, 12 warps) keeps in
-#: shared memory (csrc megakernel_mamba.cuh): 512 bytes of per-block
-#: values, then the larger of a GEMV's 4096 staged input rows (4 slots,
-#: f32) with its warps' sums over a 128-column tile and the raw rows it
-#: copies in first (4 slots' residual rows or segment rows, a segment's
-#: norm scales), and the S6 item's operands (its chunk of dt_proj's
-#: columns and A's rows, 4 slots' state rows (at most f32) and new f32
-#: values, x_a and z, (dt_low | B | C) and dt, dt's partial sums); Hopper
-#: gives one block at most 227 KB
+#: Hopper gives one block at most 227 KB of shared memory
 _SMEM_LIMIT = 232448
-_SMALL = 512
-_STAGE = 4096
-_THREADS = 384
 _TILE = 128      # columns of a GEMV tile (csrc kCW)
 _PHASES = 5      # GEMV phases with tile counters (csrc kPhases)
-_SLOTS_PER_PASS = 4     # csrc megakernel_common.cuh kSlots
 #: the widest d_model and d_conv K3's jamba instance takes (csrc
 #: kMaxModel, kMaxConv)
 MAX_MODEL = 4096
 MAX_CONV = 4
-#: the H100's SMs: the fewest blocks K3's grid has there (one an SM), which
-#: sizes the S6 item's chunk of channels
-H100_SMS = 132
-
-
-def _a16(n: int) -> int:
-    return (n + 15) & ~15
-
-
-def chunk_of(d_inner: int, grid: int) -> int:
-    """Channels of one S6 item: the smallest power of two that gives the
-    grid at most one item a block (csrc ``chunk_of``)."""
-    need = -(-d_inner // grid)
-    ch = 1
-    while ch < need:
-        ch *= 2
-    return ch
 
 
 def mamba_smem_bytes(d_model: int, d_inner: int) -> int:
@@ -132,22 +103,6 @@ def mamba_smem_bytes(d_model: int, d_inner: int) -> int:
     megakernel_mamba.cu ``smem_bytes``, 512 threads): 4 slots of the
     widest vector, the tile reduction and the norm partials (f32)."""
     return 4 * (4 * max(d_model, d_inner) + 16 * 4 * 32 + 16 * 4)
-
-
-def smem_bytes(d_inner: int, dt_rank: int, int8: bool,
-               sms: int = H100_SMS) -> int:
-    """Dynamic shared memory of one block of K3's jamba instance (csrc
-    megakernel_mamba.cuh ``smem_bytes``) on a card of ``sms`` SMs."""
-    ch, w, nx = chunk_of(d_inner, sms), 1 if int8 else 4, dt_rank + 32
-    step = (_a16(dt_rank * ch * w) + _a16(ch * 16 * w)
-            + 2 * _a16(_SLOTS_PER_PASS * ch * 16 * 4)
-            + 2 * _a16(_SLOTS_PER_PASS * ch * 4)
-            + _a16(4 * _SLOTS_PER_PASS * nx) + _a16(4 * _SLOTS_PER_PASS * ch)
-            + 4 * _THREADS * _SLOTS_PER_PASS)
-    raw = _SLOTS_PER_PASS * (_STAGE + 8) + _STAGE + 8
-    gemv = (16 * _STAGE + 4 * (_THREADS // 32) * _SLOTS_PER_PASS * _TILE
-            + 4 * raw)
-    return _SMALL + max(step, gemv)
 
 
 def _shapes(cfg, int8: bool, mlp: bool) -> dict:
@@ -229,11 +184,6 @@ def _check_cfg(cfg, family):
                  f"d_model {cfg.d_model} > {MAX_MODEL}")
     _lib.require(cfg.d_conv <= MAX_CONV,
                  f"K3 takes d_conv up to {MAX_CONV}, not {cfg.d_conv}")
-    need = smem_bytes(cfg.d_inner, cfg.dt_rank, False)
-    _lib.require(need <= _SMEM_LIMIT,
-                 f"K3's S6 item stages its chunk of dt_proj (dt_rank "
-                 f"{cfg.dt_rank}, d_inner {cfg.d_inner}) in shared memory: "
-                 f"{need} bytes > {_SMEM_LIMIT}")
 
 
 def _table(rows, columns, shapes, denses, width, leaf):
@@ -413,7 +363,10 @@ class JambaRun:
     MLP) in a ``(positions, 24)`` device table of pointers, built once
     per engine (``registry.stack_params``) over the same tensors.  Checks
     and refuses as ``MambaStack``, and a position that is not a mamba
-    block with a swiglu MLP."""
+    block with a swiglu MLP, a d_model above ``MAX_MODEL`` or a d_conv
+    above ``MAX_CONV``; the card refuses, at the first launch, a dt_rank
+    and d_inner whose S6 item needs more shared memory than a block
+    gets."""
 
     def __init__(self, cfg, rows):
         _check_cfg(cfg, "jamba")
@@ -520,8 +473,9 @@ def jamba_stacked_run(cfg, x0, run: JambaRun, states, outs):
 def launch_config(cfg, dtype, int8: bool, device="cuda") -> dict:
     """The grid K3 takes on ``device`` for this model (its jamba instance
     for a jamba config): blocks per SM, blocks, dynamic shared memory
-    bytes per block."""
-    out = (ctypes.c_int * 3)()
+    bytes and threads per block.  A configuration whose shared memory
+    the card cannot give one block is refused here (and at launch)."""
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         rc = _lib.lib().marca_mamba_stacked_grid(
             cfg.d_model, cfg.d_inner, cfg.dt_rank, _lib.DTYPES[dtype],
@@ -529,7 +483,8 @@ def launch_config(cfg, dtype, int8: bool, device="cuda") -> dict:
             ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"marca_mamba_stacked_grid: CUDA error {rc}")
-    return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2]}
+    return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2],
+            "threads": out[3]}
 
 
 # ---------------------------------------------------------------------------

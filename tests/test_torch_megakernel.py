@@ -22,6 +22,8 @@ K3 itself is held against the plain version on the card in
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -380,30 +382,74 @@ def test_stack_holds_the_weights_without_copying(weights):
     assert sp["layers"] is tp["layers"]
 
 
+_MB_HEADER = (pathlib.Path(megakernel.__file__).parent.parent / "csrc"
+              / "megakernel_mamba.cuh")
+
+
+def _csrc_jamba_scratch(b, dm, di, nx, d_ff, g, grid):
+    """csrc megakernel_mamba.cuh's jamba scratch on a ``grid``-block
+    launch, read from the source: the float offset of each region
+    ``scratch_of`` lays out (and of the end of its last, the scale
+    groups' counters), the counters the kernel zeroes (``ncnt``), and
+    the size the launch demands (``scratch_floats``)."""
+    text = _MB_HEADER.read_text()
+    env = {k: int(v) for k, v in
+           re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    env.update(max=max, b=b, dm=dm, di=di, nx=nx, d_ff=d_ff, g=g, G=grid,
+               grid=grid)
+
+    def ev(expr):
+        expr = re.sub(r"\(int64_t\)|\b[as]\.|\s+", " ", expr)
+        return eval(expr.replace("/", "//"), {}, env)
+
+    def body(signature):
+        return re.search(re.escape(signature) + r"[^{]*\{(.*?)\n\}", text,
+                         re.S).group(1)
+
+    tb = body("int tile_bound(")
+    for name, expr in re.findall(r"const int (\w+) = ([^;]+);", tb):
+        env[name] = ev(expr)
+    env["tmax"] = ev(re.search(r"return ([^;]+);", tb).group(1))
+    off = {"scratch": 0}
+    for field, base, expr in re.findall(
+            r"s\.(\w+) = (?:reinterpret_cast<int\*>\()?(?:s\.(\w+)|"
+            r"a\.scratch)(?: \+ ([^;]*?))?\)?;", body("scratch_of(")):
+        off[field] = off[base or "scratch"] + (ev(expr) if expr else 0)
+    ncnt = ev(re.search(r"s\.ncnt = ([^;]+);", body("scratch_of(")).group(1))
+    sf = body("int64_t scratch_floats(")
+    for name in re.findall(r"const int64_t (\w+) = tile_bound\(", sf):
+        env[name] = env["tmax"]
+    floats = ev(re.search(r"return ([^;]+);", sf).group(1))
+    return off, off["grp"] + g, ncnt, floats
+
+
 @pytest.mark.parametrize("slots", range(1, 10))
 def test_jamba_scratch_holds_partials_and_counters_unpadded(slots):
-    """K3's jamba scratch at jamba-v0.1's widths on a 132-block grid (csrc
-    megakernel_mamba.cuh ``scratch_floats``): the per-slot vectors with
-    the hidden exactly (slots, d_ff) (w2's items stage their rows of it in
-    shared memory: no padding rows; the S6 items keep the new state's f32
-    values in shared memory), the chunks' absmax one a slot and block, a
-    partial sum for every (block + tile) index of the widest GEMV (its
-    tiles 128 to 32 columns wide) for 2 matrices and every slot, and the
-    int counters: 5 phases' tiles, x_proj's done count, one a scale
-    group."""
-    dm, di, nx, ff = 4096, 8192, 288, 14336
-    grid = 132
-    tiles = -(-max(2 * di, nx, dm, ff) // 32)
-    vectors = slots * (3 * di + nx + ff)     # x_a z y, dbc, the hidden
-    absmax = slots * grid
-    partials = (grid + tiles) * 2 * slots * 128
-    counters = 5 * tiles + 1 + -(-di // 512)
-    got = megakernel.scratch_floats(slots, dm, di, nx, ff, grid)
-    assert got == vectors + absmax + partials + counters
-    # every GEMV's partial index (block + tile) fits its region, at its
-    # narrowest tiles
-    for n in (2 * di, nx, dm, ff):
-        assert (grid - 1) + (-(-n // 32) - 1) < grid + tiles
+    """The wrapper's jamba scratch is exactly what csrc's ``scratch_of``
+    lays out (read from megakernel_mamba.cuh and evaluated) and what the
+    launch demands, on odd grids and at jamba-v0.1's and the card tests'
+    ragged widths: the hidden exactly (slots, d_ff) (no padding rows:
+    w2's items stage their rows of it), room for the partial sums of
+    every (block + tile) index of each GEMV at its narrowest tiles (32
+    columns), and every counter zeroed."""
+    for dm, di, nx, ff in ((4096, 8192, 288, 14336), (550, 1100, 67, 1000)):
+        g = -(-di // 512)
+        for grid in (1, 7, 132, 264):
+            off, end, ncnt, floats = _csrc_jamba_scratch(slots, dm, di, nx,
+                                                         ff, g, grid)
+            got = megakernel.scratch_floats(slots, dm, di, nx, ff, grid)
+            assert got == floats == end, (dm, grid)
+            order = ("xa", "zb", "dbc", "yb", "hid", "amax", "part", "cnt",
+                     "done", "grp")
+            sizes = [off[b] - off[a] for a, b in zip(order, order[1:])]
+            assert sizes[:6] == [slots * di, slots * di, slots * nx,
+                                 slots * di, slots * ff, slots * grid]
+            for n in (2 * di, nx, dm, ff):
+                parts = grid + -(-n // 32) - 1
+                assert off["cnt"] - off["part"] >= parts * 2 * slots * 128
+            assert off["grp"] - off["cnt"] == 5 * -(-max(2 * di, nx, dm,
+                                                          ff) // 32) + 1
+            assert ncnt == end - off["cnt"]
 
 
 @pytest.mark.parametrize("slots", range(1, 10))
