@@ -18,7 +18,10 @@ Phases, each fatal on failure:
    the build log (phases 5, 5x and 5j's kernels lines carry them);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving shapes of mamba-130m, in f32 and bf16, for every exp/SiLU
-   variant, within the printed tolerances: the scan, the conv (one
+   variant, within the printed tolerances: the scan (also at lengths 1,
+   2, 31, 32, 33, 127, 300, 512 and 576 around its time segments, b 1
+   and 3, with and without h0, each launch repeated bit for bit and one
+   device kernel a call), the conv (one
    launch that writes y and its tail, which is held bitwise; also at L 2
    and 3, with and without x_prev; each launch repeated bit for bit and
    one device kernel a call), the
@@ -29,8 +32,11 @@ Phases, each fatal on failure:
    operations (byte views) against exact fp8 results; the cross-layer
    megakernel (K3) at 4 slots in f32 and bf16 with f32 or int8 weights and
    an f32, bf16, int8 or fp8 state, at full width (24 layers), at
-   mamba-2.8b's widths and at a ragged width (d_model 550) with 2 layers,
-   and one launch repeated bit for bit;
+   mamba-2.8b's widths (whose in_proj panels wrap the weight ring) and at
+   a ragged width (d_model 550, whose weights take the copy path, not
+   TMA) with 2 layers, each width's streaming paths checked against the
+   weights' strides and the panels the card cuts against the columns
+   they must cover once, and one launch repeated bit for bit;
 3. run mamba-130m at full width in f32 (prefill + 8 decode steps) through
    the kernel path on the card, per layer and through K3, and through the
    plain path on the CPU, on the same weights, and compare the logits:
@@ -45,7 +51,9 @@ Phases, each fatal on failure:
    ``Engine``; each run checks the launch counts of every kernel, that no
    plain version ran, and the slot size, and a K3 run prints its token
    agreement with the per-layer run of its setup;
-5. time each kernel on the card (device time from a CUDA graph replay,
+5. time each kernel on the card (the scan at L 512, 64, 127 and 256 and
+   at jamba's d_inner 8192, its bound the larger of its bytes and its
+   exponentials at the SFU rate; device time from a CUDA graph replay,
    eager per-call time, and the device kernels one wrapper call runs:
    the kernel nodes of a graph that captures it) beside its bound, its
    plain version
@@ -614,6 +622,40 @@ def check_k3(name, cfg, got, want) -> float:
     return e
 
 
+def check_k3_stream(label, cfg, wd, stack, dev):
+    """The path K3's mamba instance streams each dense weight by at this
+    width, as the stack chose it per stride (TMA where a row is a
+    multiple of 16 bytes, else the copy path), and its layout as the card
+    sizes it (``megakernel.launch_config``): each weight's panels, a
+    multiple of 16 bytes wide, cover its columns once in one round of the
+    grid the stack's tensor maps were cut for; the ring's slots against a
+    panel's items (a panel with more items than slots wraps the ring)."""
+    from repro_torch.kernels import megakernel
+    esize = 1 if wd == "int8" else 4
+    widths = (2 * cfg.d_inner, cfg.dt_rank + 2 * cfg.d_state, cfg.d_model)
+    want = sum(1 << w for w, n in enumerate(widths) if n * esize % 16 == 0)
+    lc = megakernel.launch_config(cfg, torch.bfloat16, wd == "int8", dev)
+    panels = [lc["panels"][w] for w in megakernel.STREAMED]
+    cover = all(p["cols"] * esize % 16 == 0 and p["blocks"] <= lc["grid"]
+                and (p["blocks"] - 1) * p["cols"] < n <= p["blocks"]
+                * p["cols"] and p["items"] >= 1
+                for p, n in zip(panels, widths))
+    items = [p["items"] for p in panels]
+    paths = ", ".join(f"{w} {'TMA' if stack.tma >> i & 1 else 'copy'}"
+                      for i, w in enumerate(megakernel.STREAMED))
+    ok = (stack.tma == want and cover and lc["ring_slots"] >= 2
+          and stack.map_grid == lc["grid"])
+    log(f"  K3 {label} {wd} w stream: {paths} (want mask {want:03b}); "
+        f"panels {[p['cols'] for p in panels]} columns on "
+        f"{[p['blocks'] for p in panels]} of {lc['grid']} blocks"
+        f"{'' if cover else ' (do not cover)'}; ring {lc['ring_slots']} "
+        f"slots, items a panel {items}"
+        f"{' (wraps)' if max(items) > lc['ring_slots'] else ''}; "
+        f"{lc['smem_bytes']} B shared  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"K3 {label} {wd} stream")
+
+
 def check_megakernel(cfg, dev, serving):
     """K3 against ref.mamba_stacked_step on the card, 4 slots, every
     activation x weight x state setup at each of K3_WIDTHS; then one launch
@@ -626,6 +668,7 @@ def check_megakernel(cfg, dev, serving):
                                    dt_rank=r)
         for wd in ("f32", "int8"):
             p = k3_params(base, wd, dev)
+            check_k3_stream(label, base, wd, p["stack"], dev)
             for dtype in ("float32", "bfloat16"):
                 for sd in K3_STATES:
                     c = dataclasses.replace(base, dtype=dtype,
@@ -752,10 +795,67 @@ def phase_kernels(cfg, dev):
                         if (dtype == torch.bfloat16 and sd == "int8"
                                 and dd == d and a8 and ei == "exact"):
                             serving["decode_step_q"] = e
+    check_scan_edges(d, n, r, dev)
     check_encoding(dev)
     check_fp8_slot_ops(dev)
     check_megakernel(cfg, dev, serving)
     return serving
+
+
+# K4's segment edges: lengths around its 32 segments (1, a segment of 1, of
+# 2, a ragged last one) and the longest prompt the serve phases admit
+SCAN_LENGTHS = (1, 2, 31, 32, 33, 127, 300, 512, 576)
+
+
+def check_scan_edges(d, n, r, dev):
+    """K4 at SCAN_LENGTHS, b 1 and 3, with h0 and without, on the strided
+    x/z and B/C views the Mamba block passes, f32 and bf16, exact exp:
+    against its plain version (y 5e-4 f32 / 2e-2 bf16, h_last 5e-4), each
+    launch repeated bit for bit, one device kernel a call."""
+    from repro_torch.kernels import ref, selective_scan
+    gen = torch.Generator().manual_seed(SEED + 7)
+    kernels = shared_inputs().graph_kernels
+    bad, n_cases = [], 0
+    for dtype, tol in ((torch.float32, 5e-4), (torch.bfloat16, 2e-2)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for L in SCAN_LENGTHS:
+            for b in (1, 3):
+                for h0 in (True, False):
+                    x, dt, A, B, C, D, z, hi = scan_inputs(b, L, d, n, r,
+                                                           dtype, gen, dev,
+                                                           h0=h0)
+                    kw = dict(D=D, z=z, h0=hi)
+                    y1, h1 = selective_scan.selective_scan(x, dt, A, B, C,
+                                                           **kw)
+                    y2, h2 = selective_scan.selective_scan(x, dt, A, B, C,
+                                                           **kw)
+                    y0, hr = ref.selective_scan(x, dt, A, B, C, **kw)
+                    nk = kernels(lambda: selective_scan.selective_scan(
+                        x, dt, A, B, C, **kw))
+                    torch.cuda.synchronize()
+                    ey = (y1.float() - y0.float()).abs()
+                    eh = (h1 - hr).abs()
+                    ok = (bool(torch.isfinite(y1.float()).all())
+                          and bool((ey <= tol + tol * y0.float().abs()).all())
+                          and bool((eh <= 5e-4 + 5e-4 * hr.abs()).all())
+                          and torch.equal(y1, y2) and torch.equal(h1, h2)
+                          and nk == 1)
+                    n_cases += 1
+                    if not ok:
+                        bad.append(f"{tag} L={L} b={b} h0={h0}")
+                    if L in (1, 33, 576) and b == 3:
+                        same = torch.equal(y1, y2)
+                        log(f"  scan edge {tag} L={L} b={b} h0={h0}: y err "
+                            f"{float(ey.max()):.3e}, h_last err "
+                            f"{float(eh.max()):.3e}, repeated "
+                            f"{'bitwise equal' if same else 'differs'}"
+                            f", {nk} device kernel(s) a call  "
+                            f"{'ok' if ok else 'FAIL'}")
+    log(f"  scan edges: {n_cases} cases (L {SCAN_LENGTHS}, b 1/3, h0 or "
+        f"none, strided views, f32/bf16), {len(bad)} failed {bad}  "
+        f"{'ok' if not bad else 'FAIL'}")
+    if bad:
+        FAILURES.append("scan edges")
 
 
 # (weights, state, kv cache, logits tolerance, why): each run of phase 3
@@ -1169,14 +1269,26 @@ DESIGNS = {
 
 
 DESIGNS["mlstm_stacked_run_q_int8w"] = DESIGNS["mlstm_stacked_run"]
+DESIGNS["selective_scan"] = (
+    "a chunked scan in one launch: time cut into 32 segments (16 for calls "
+    "wider than the card holds at once), one thread a (channel, segment) "
+    "with the channel's 16 states in registers; every segment but the last "
+    "folds its steps into (prod dA, h from zero), each segment combines "
+    "the pairs before it in order from h0 and reruns its steps writing y "
+    "and the gate; each step's dA the same exp_impl(dt A) in both passes; "
+    "B and C in 16-byte words where the rows allow")
 DESIGNS["mamba_stacked_step"] = (
-    "The first design, kept: one block of 512 threads an SM, 4 grid barriers "
-    "a layer (5 with an int8/fp8 state): A norm + in_proj column tiles "
-    "with the conv + SiLU epilogue, B x_proj tiles, C one block per (slot, "
-    "32 channels) for dt and the S6 step, C2 the group requantize, D "
-    "out_proj tiles and the residual; the split-K design of the jamba "
-    "instance measured slower at mamba-130m's widths, where each phase's "
-    "time is its chain of dependent steps")
+    "one block of 512 threads an SM, 4 grid barriers a layer (5 with an "
+    "int8/fp8 state), phases A-D as the first design's; each dense weight "
+    "one panel of columns a block (the grid's share rounded up to 16 "
+    "bytes, one round), streamed into a ring of 32 KB shared-memory slots "
+    "by 2-D TMA (a tensor map a weight and layer, encoded once a stack), "
+    "thread 0 refilling each slot as soon as it is read with the item a "
+    "ring further on, across phases and layers; weights whose rows are no "
+    "multiple of 16 bytes take a copy path into the same ring; the GEMV "
+    "rows read their 4 slots' inputs in one 16-byte load, int8 codes and "
+    "bf16 rounding on the integer and FMA pipes; norm scales read beside "
+    "the rows, conv taps and the residual while the rows are summed")
 DESIGNS["mamba_stacked_step_q_int8a"] = DESIGNS["mamba_stacked_step"]
 DESIGNS["jamba_stacked_run"] = (
     "one block of 384 threads (168 registers) an SM, 5 grid barriers a "
@@ -1235,17 +1347,28 @@ def phase_timing(cfg, dev, counts, errs):
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = {}
 
-    # scan at prefill: b=1, L=512, h0=None (prefill starts from zero state)
-    x, dt, A, B, C, D, z, _ = scan_inputs(1, 512, d, n, r, bf, gen, dev,
-                                          h0=False)
-    nbytes, ops, exps = s6_work(1, 512, d, n, 2, False)
-    log(f"  selective_scan: its exponentials alone at the SFU rate take "
-        f"{1e3 * exps / SFU_PER_S:.4f} ms")
-    rows["selective_scan"] = [measure(
-        "selective_scan", "b=1 L=512 d=1536 n=16 bf16, h0=None (prefill)",
-        lambda: selective_scan.selective_scan(x, dt, A, B, C, D=D, z=z),
-        lambda: ref.selective_scan(x, dt, A, B, C, D=D, z=z), None,
-        (nbytes, ops), 10)]
+    # scan at prefill: b=1, h0=None (prefill starts from zero state), L=512
+    # then the served prompt lengths 64, 127, 256 and jamba's d_inner 8192;
+    # its bound is the larger of its bytes and its exponentials at the SFU
+    # rate
+    rows["selective_scan"] = []
+    for L, ds in ((512, d), (64, d), (127, d), (256, d), (512, 8192)):
+        x, dt, A, B, C, D, z, _ = scan_inputs(1, L, ds, n, r, bf, gen, dev,
+                                              h0=False)
+        nbytes, ops, exps = s6_work(1, L, ds, n, 2, False)
+        row = measure(
+            "selective_scan",
+            f"b=1 L={L} d={ds} n=16 bf16, h0=None (prefill)",
+            lambda: selective_scan.selective_scan(x, dt, A, B, C, D=D, z=z),
+            lambda: ref.selective_scan(x, dt, A, B, C, D=D, z=z), None,
+            (nbytes, ops), 10)
+        t_exp = 1e3 * exps / SFU_PER_S
+        if t_exp > row["bound_ms"]:
+            row["bound_ms"], row["bound_by"] = t_exp, "operations"
+            row["bound_note"] = "its exponentials at the SFU rate"
+        log(f"  selective_scan L={L} d={ds}: bound {row['bound_ms']:.4f} ms "
+            f"(exponentials at the SFU rate {t_exp:.4f} ms)")
+        rows["selective_scan"].append(row)
 
     # conv at decode (4 slots, L=1) and at prefill (b=1, L=512); the
     # library call is F.conv1d(groups=d) on the history-padded input in

@@ -49,11 +49,13 @@ import chip_smoke as cs  # noqa: E402
 import torch_k3_xlstm as txl  # noqa: E402
 
 ENTRIES = ("marca_mamba_stacked_step", "marca_mamba_stacked_grid",
-           "marca_jamba_stacked_run")
+           "marca_mamba_stack_maps", "marca_jamba_stacked_run")
 # the bf16 rows timed: (instance, weights, state)
 ROWS = (("jamba", "f32", "f32"), ("jamba", "int8", "int8"),
         ("mamba", "f32", "f32"), ("mamba", "int8", "int8"))
 MAMBA_LAYERS = 24
+# marks at each streamed item's arrival and refill (--item-marks)
+ITEM_MARKS = False
 # (pattern, replacement, count expected) on megakernel_mamba.cu's text: a
 # stamp when a block starts, one before and one after every grid barrier
 # (after the block's own threads are done), one when the block ends
@@ -79,6 +81,18 @@ MARK_EDITS = (
      r"\1\2XL_MARK();\n"),
     (r"if \(arrive_last\(", "XL_MARK(); if (arrive_last("),
     (r"(\n\s*)(wait_count\()", r"\1XL_MARK(); \2"),
+    # the mamba instance's streamed GEMVs: inputs staged, rows summed
+    (r"(\n(\s*)stage_norm4<T>\(xs4, redn, xsrc, [^;]*;\n)",
+     r"\1\2XL_MARK();\n"),
+    (r"(\n(\s*)stage_rows4\(xs4, (?:xa|yb), s0, nb, a\.di\);\n)",
+     r"\1\2XL_MARK();\n"),
+    (r"(\n(\s*))(for \(int e = threadIdx\.x; e < nb \* ncv;)",
+     r"\1XL_MARK();\2\3"),
+    # its items: arrived, refilled (``--item-marks`` only)
+    (r"(\n(\s*)ring_wait\(smem_addr\(&r\.full\[slot_at\]\), parity\);\n)",
+     r"\1\2ITEM_MARK();\n"),
+    (r"(\n(\s*)if \(threadIdx\.x == 0 && r\.left > 0\) "
+     r"ring_issue<TW>\(a, r\);\n)", r"\1\2ITEM_MARK();\n"),
 )
 # phase names of one layer (position) by design: the parent's 4/5 and
 # 6/7 phases, this tree's (a leading "zero" phase: the counters zeroed
@@ -97,6 +111,228 @@ PHASES = {
     "new": {("jamba", False): ("A norm+in_proj+conv", "BC x_proj+S6",
                                "D out_proj", "E norm2+w1|w3", "F w2")},
 }
+
+
+# The streaming probe: how fast one block an SM (512 threads, K3's launch
+# shape) can stream device memory into a ring of shared-memory stages fed
+# by one producer warp while 15 consumer warps read every stage.  Modes: 0
+# TMA bulk copies (one cp.async.bulk a 16 KB stage by one thread, an
+# mbarrier a stage for its bytes), 1 cp.async 16-byte copies (the producer
+# warp's 32 lanes, each arriving on the stage's mbarrier), 2 TMA tensor
+# copies of a column panel (a 2-D tensor map over a row-major f32 matrix,
+# each block its own 24 columns, 96 bytes of each row: the shape of K3's
+# in_proj panels at mamba-130m).
+PROBE_SRC = r"""
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t su32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// a wait that traps after some 10 s rather than hang the card
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+__global__ void __launch_bounds__(512, 1)
+probe(const char* src, long long per_block, int stages, int stage_bytes,
+      int mode, float* sink, const __grid_constant__ CUtensorMap map,
+      int box_rows, int box_cols) {
+  extern __shared__ __align__(1024) char ring[];
+  __shared__ __align__(8) uint64_t full[8], empty[8];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(su32(&full[s])), "r"(mode == 1 ? 32 : 1));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(su32(&empty[s])), "r"(15));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int n = (int)(per_block / stage_bytes);
+  const char* base = src + blockIdx.x * per_block;
+  if (warp == 0) {
+    for (int i = 0; i < n; ++i) {
+      const int s = i % stages;
+      if (i >= stages) wait(su32(&empty[s]), ((i / stages) & 1) ^ 1);
+      char* dst = ring + (size_t)s * stage_bytes;
+      const uint32_t fb = su32(&full[s]);
+      if (mode == 1) {
+        for (int k = lane * 16; k < stage_bytes; k += 512)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                       :: "r"(su32(dst + k)),
+                          "l"(base + (size_t)i * stage_bytes + k)
+                       : "memory");
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];"
+                     :: "r"(fb) : "memory");
+      } else if (lane == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(fb), "r"(stage_bytes) : "memory");
+        if (mode == 0)
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+              "::bytes [%0], [%1], %2, [%3];"
+              :: "r"(su32(dst)), "l"(base + (size_t)i * stage_bytes),
+                 "r"(stage_bytes), "r"(fb) : "memory");
+        else
+          asm volatile(
+              "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+              "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];"
+              :: "r"(su32(dst)), "l"(reinterpret_cast<uint64_t>(&map)),
+                 "r"(fb), "r"(blockIdx.x * box_cols), "r"(i * box_rows)
+              : "memory");
+      }
+    }
+  } else {
+    float acc = 0.0f;
+    const float4* v = reinterpret_cast<const float4*>(ring);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % stages;
+      wait(su32(&full[s]), (i / stages) & 1);
+      const int nv = stage_bytes / 16;
+      for (int k = threadIdx.x - 32; k < nv; k += 480) {
+        const float4 u = v[(size_t)s * nv + k];
+        acc += u.x + u.y + u.z + u.w;
+      }
+      __syncwarp();
+      if (lane == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                     :: "r"(su32(&empty[s])) : "memory");
+    }
+    if (acc == 1234.5f) sink[0] = acc;
+  }
+}
+
+typedef CUresult (*EncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                             void*, const cuuint64_t*, const cuuint64_t*,
+                             const cuuint32_t*, const cuuint32_t*,
+                             CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion,
+                             CUtensorMapFloatOOBfill);
+
+extern "C" int probe_run(const void* src, long long per_block, int stages,
+                         int stage_bytes, int mode, int blocks, void* sink,
+                         long long rows, int box_rows, int box_cols,
+                         void* stream) {
+  CUtensorMap map{};
+  if (mode == 2) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || p == nullptr) return -1;
+    const cuuint64_t dims[2] = {(cuuint64_t)blocks * box_cols,
+                                (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)blocks * box_cols * 4};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t ones[2] = {1, 1};
+    if (reinterpret_cast<EncodeFn>(p)(
+            &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<void*>(src), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return -2;
+  }
+  const int smem = 160 * 1024;
+  cudaFuncSetAttribute(probe, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  probe<<<blocks, 512, smem, (cudaStream_t)stream>>>(
+      (const char*)src, per_block, stages, stage_bytes, mode, (float*)sink,
+      map, box_rows, box_cols);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def probe(dev):
+    """The streaming probe's table: GB/s a block and TB/s over the card
+    for each mode and ring depth (stages of 16 KB; the panel mode's
+    stages are 160 rows of 96 bytes, 15 KB)."""
+    import ctypes
+    out = HERE / "build" / "k3_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(PROBE_SRC)
+    so = out / "libprobe.so"
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+                    "-Xptxas", "-v", "-o", str(so), str(out / "probe.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.probe_run.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                              + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p])
+    lib.probe_run.restype = ctypes.c_int
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    box_rows = 160
+    per_block = 96 * box_rows * 256           # 3.9 MB a block
+    rows = box_rows * 256
+    buf = torch.empty(blocks * per_block, dtype=torch.uint8, device=dev)
+    buf.random_(0, 255)
+    sink = torch.zeros(1, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    log(f"  streaming probe: {blocks} blocks of 512 threads, "
+        f"{per_block / 1e6:.2f} MB a block ({buf.numel() / 1e6:.0f} MB in "
+        f"all, beyond L2), one producer warp, 15 consumer warps reading "
+        f"every stage")
+    # (mode, columns, rows) of each table row's stages: 16 KB bulk copies,
+    # 16 KB of cp.async, 2-D boxes of 24 f32 x 160 rows (96-byte rows:
+    # K3's in_proj panel at mamba-130m) and of 4 f32 x 256 rows (16-byte
+    # rows: its f32 x_proj and int8 x_proj / out_proj panels)
+    shapes = ((0, 0, 0), (1, 0, 0), (2, 24, box_rows), (2, 4, 256))
+    for mode, cols, brows in shapes:
+        name = ("TMA bulk (16 KB)" if mode == 0 else "cp.async 16 B (16 KB)"
+                if mode == 1 else f"TMA 2-D panel ({cols} f32 x {brows} rows)")
+        for stages in (1, 2, 4, 8):
+            sb = 4 * cols * brows if mode == 2 else 16384
+            pb = per_block // sb * sb
+            if mode == 2:
+                pb = min(pb, (buf.numel() // (blocks * cols * 4)) // brows
+                         * brows * cols * 4)
+            nrows = pb // (cols * 4) if mode == 2 else rows
+
+            def run():
+                rc = lib.probe_run(buf.data_ptr(), pb, stages, sb, mode,
+                                   blocks, sink.data_ptr(), nrows, brows,
+                                   cols, stream)
+                if rc != 0:
+                    raise RuntimeError(f"probe_run: {rc}")
+            for _ in range(2):
+                run()
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            reps = 5
+            t0.record()
+            for _ in range(reps):
+                run()
+            t1.record()
+            torch.cuda.synchronize()
+            s = t0.elapsed_time(t1) / reps * 1e-3
+            log(f"    {name:<36} {stages} stage(s): "
+                f"{pb / s / 1e9:7.2f} GB/s a block, "
+                f"{blocks * pb / s / 1e12:5.2f} TB/s over the card "
+                f"({s * 1e6:.1f} µs a launch)")
+    del buf
 
 
 def log(*a):
@@ -150,7 +386,10 @@ def patched_csrc(root, dest):
         shutil.rmtree(dest)
     shutil.copytree(src, dest)
     macro = ("#ifndef MB_STAMP_ONCE\n#define MB_STAMP_ONCE\n" +
-             txl.STAMP_MACRO + "#endif\n")
+             txl.STAMP_MACRO + ("#define ITEM_MARK() XL_MARK()\n"
+                                if ITEM_MARKS else
+                                "#define ITEM_MARK() do {} while (0)\n")
+             + "#endif\n")
     for name in ("megakernel_mamba.cuh", "megakernel_mamba.cu"):
         path = dest / name
         if not path.exists() or "cg::this_grid()" not in path.read_text():
@@ -188,12 +427,16 @@ def sass_report(so, dump=None):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = cs.mamba_kernel_name(m.group(1))
+            if fn in ("jamba bf16 act, int8 w", "mamba bf16 act, int8 w",
+                      "mamba bf16 act, f32 w"):
+                keep.append(f"// {fn}")
             if fn:
                 counts[fn] = dict.fromkeys(ops + ("all",), 0)
             continue
         if not fn:
             continue
-        if fn == "jamba bf16 act, int8 w":
+        if fn in ("jamba bf16 act, int8 w", "mamba bf16 act, int8 w",
+                  "mamba bf16 act, f32 w"):
             keep.append(line)
         m = re.search(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
@@ -204,7 +447,7 @@ def sass_report(so, dump=None):
     if dump is not None:
         dump.parent.mkdir(parents=True, exist_ok=True)
         dump.write_text("\n".join(keep))
-        log(f"  SASS of jamba bf16 act, int8 w in {dump}")
+        log(f"  SASS of the bf16 kernels with int8 weights in {dump}")
     for fn, n in sorted(counts.items()):
         log(f"  SASS {fn}: {n}")
 
@@ -213,9 +456,10 @@ def registers(lib):
     return cs.kernel_registers(lib.build_log(), cs.mamba_kernel_name)
 
 
-def row_inputs(kind, wd, sd, dtype, dev, seed):
+def row_inputs(kind, wd, sd, dtype, dev, seed, width=None):
     """(cfg, launch, plain, work) of one row: K3-jamba one position at
-    jamba-v0.1 widths or K3-mamba at mamba-130m, 4 slots."""
+    jamba-v0.1 widths or K3-mamba at mamba-130m, 4 slots (``width``: an
+    entry of chip_smoke's K3_WIDTHS instead)."""
     from repro_torch.kernels import megakernel, ref
     if kind == "jamba":
         c = cs.jamba_cfg(n_experts=0, dtype=dtype, weight_dtype=wd,
@@ -231,6 +475,9 @@ def row_inputs(kind, wd, sd, dtype, dev, seed):
     c = dataclasses.replace(configs.get_config(cs.ARCH), dtype=dtype,
                             weight_dtype=wd, state_dtype=sd,
                             n_layers=MAMBA_LAYERS)
+    if width is not None:
+        _, dm, layers, r = width
+        c = dataclasses.replace(c, d_model=dm, n_layers=layers, dt_rank=r)
     p = cs.k3_params(c, wd, dev)
     gen = torch.Generator().manual_seed(seed)
     x0, h, h_scale, conv = cs.k3_inputs(c, 4, gen, dev)
@@ -243,12 +490,17 @@ def row_inputs(kind, wd, sd, dtype, dev, seed):
 
 def checks(dev):
     """f32 against the plain version within K3_TOL, and a bf16 launch
-    repeated bit for bit, for each row's setup."""
-    for kind, wd, sd in ROWS:
+    repeated bit for bit, for each row's setup (K3-mamba at every width of
+    chip_smoke's K3_WIDTHS)."""
+    cases = [(kind, wd, sd, None) for kind, wd, sd in ROWS]
+    cases += [("mamba", wd, sd, w) for w in cs.K3_WIDTHS[1:]
+              for _, wd, sd in ROWS[2:]]
+    for kind, wd, sd, width in cases:
         for dtype in ("float32", "bfloat16"):
             c, launch, plain, _, ins = row_inputs(kind, wd, sd, dtype, dev,
-                                                  cs.SEED + 700)
-            name = f"K3-{kind} {dtype} {wd} w {sd} state"
+                                                  cs.SEED + 700, width)
+            name = f"K3-{kind} {dtype} {wd} w {sd} state" + (
+                f" ({width[0]})" if width else "")
             got = launch()
             if kind == "jamba":
                 run, x0, states, outs = ins
@@ -288,20 +540,33 @@ def checks(dev):
 
 
 def timing(dev):
-    """The bf16 rows (chip_smoke's ``measure``)."""
+    """The bf16 rows (chip_smoke's ``measure``), then K3-mamba at
+    mamba-2.8b's widths (2 layers)."""
     from repro_torch.kernels import megakernel
-    for kind, wd, sd in ROWS:
+    wide = cs.K3_WIDTHS[1]
+    for kind, wd, sd, width in ([(k, w, s, None) for k, w, s in ROWS]
+                                + [("mamba", w, s, wide)
+                                   for _, w, s in ROWS[2:]]):
         c, launch, plain, work, ins = row_inputs(kind, wd, sd, "bfloat16",
-                                                 dev, cs.SEED + 6)
+                                                 dev, cs.SEED + 6, width)
         lc = megakernel.launch_config(c, torch.bfloat16, wd == "int8", dev)
         what = ("1 position, jamba-v0.1" if kind == "jamba"
-                else f"{MAMBA_LAYERS} layers, mamba-130m")
-        row = cs.measure(f"{kind} {wd}/{sd}",
+                else f"{MAMBA_LAYERS} layers, mamba-130m" if width is None
+                else f"{width[2]} layers, mamba-{width[0]}")
+        row = cs.measure(f"{kind} {wd}/{sd}" + (" wide" if width else ""),
                          f"{what}, 4 slots, bf16; grid {lc['grid']} x "
                          f"{lc.get('threads', 512)}, "
                          f"{lc['smem_bytes']} B shared", launch, plain, None,
                          work, 5)
-        log(f"    K3-{kind} {wd} w {sd} state: {row['ms'] * 1e3:.2f} µs "
+        if kind == "mamba":
+            stack = ins[0]["stack"]
+            log(f"    K3-mamba {wd} w: TMA mask "
+                f"{getattr(stack, 'tma', None)} (bit w: in_proj, x_proj, "
+                f"out_proj by TMA), grid {getattr(stack, 'map_grid', None)}"
+                f", ring {lc.get('ring_slots')} slots, items a panel "
+                f"{[p['items'] for p in lc.get('panels', {}).values()]}")
+        log(f"    K3-{kind}{' ' + width[0] if width else ''} {wd} w {sd} "
+            f"state: {row['ms'] * 1e3:.2f} µs "
             f"device, {row['eager_ms'] * 1e3:.2f} eager, bound "
             f"{row['bound_ms'] * 1e3:.2f} ({row['bound_ms'] / row['ms']:.0%}"
             f" reached), plain {row['plain_ms'] * 1e3:.1f}; "
@@ -497,6 +762,11 @@ def main() -> int:
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--no-stamps", action="store_true",
                     help="skip the stamped build and the phase breakdown")
+    ap.add_argument("--item-marks", action="store_true",
+                    help="in the stamped build, mark each streamed item's "
+                    "arrival and refill (K3-mamba at 8 layers)")
+    ap.add_argument("--probe", action="store_true",
+                    help="run only the streaming probe")
     ap.add_argument("--sass", type=Path, default=None,
                     help="write the bf16 jamba kernel's (int8 weights) SASS "
                     "listing here")
@@ -511,6 +781,13 @@ def main() -> int:
         raise RuntimeError(f"repro_torch came from {_lib.__file__}")
     dev = torch.device("cuda")
     log(cs.card_line())
+    if args.item_marks:
+        global MAMBA_LAYERS, ITEM_MARKS
+        MAMBA_LAYERS, ITEM_MARKS = 8, True
+    if args.probe:
+        probe(dev)
+        log(cs.card_line())
+        return 0
     log(f"tree: {root} (K3-jamba: {design(root, 'jamba')} design, K3-mamba: "
         f"{design(root, 'mamba')})")
     so = configure(_lib, everything=args.decode)

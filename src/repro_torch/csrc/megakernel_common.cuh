@@ -1,8 +1,9 @@
 // Shared device code of the cross-layer decode megakernels (K3): the
-// block-wide stages and the column-tile GEMV that csrc/megakernel_mamba.cu
-// (the mamba instance) and csrc/megakernel_xlstm.cuh (mLSTM and sLSTM
-// instances) build their layer phases from, and the cooperative launch's
-// grid sizing.  Every kernel that includes it runs blocks of kMThreads
+// block-wide stages and the column-tile GEMV that csrc/megakernel_xlstm.cuh
+// (mLSTM and sLSTM instances) builds its layer phases from, the sizes and
+// helpers csrc/megakernel_mamba.cu (the mamba instance, whose GEMVs read a
+// weight stream of their own) shares, and the cooperative launch's grid
+// sizing.  Every kernel that includes it runs blocks of kMThreads
 // threads and stages kSlots slots of a vector in shared memory at a time.
 #pragma once
 
@@ -18,48 +19,6 @@ constexpr float kNormEps = 1e-5f;                      // blocks.apply_norm
 template <typename P>
 __device__ __forceinline__ const P* column(const int64_t* row, int c) {
   return reinterpret_cast<const P*>(row[c]);
-}
-
-// The residual rows s0 .. s0+nb-1 normalised into shared memory, xs[si][i]
-// (blocks.apply_norm with rmsnorm: x * rsqrt(mean(x^2) + eps) * scale,
-// rounded to the compute type).
-template <typename T>
-__device__ void stage_norm(float* xs, float* redn, const T* src,
-                           const float* scale, int s0, int nb, int dm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float ss[kSlots];
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) ss[si] = 0.0f;
-  for (int i = threadIdx.x; i < dm; i += kMThreads) {
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si) {
-      if (si < nb) {
-        const float v = to_f32(src[(int64_t)(s0 + si) * dm + i]);
-        xs[si * dm + i] = v;
-        ss[si] += v * v;
-      }
-    }
-  }
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    const float v = group_sum<32>(ss[si]);
-    if (lane == 0) redn[warp * kSlots + si] = v;
-  }
-  __syncthreads();
-  float r[kSlots];
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    float tot = 0.0f;
-    for (int w = 0; w < kMWarps; ++w) tot += redn[w * kSlots + si];
-    r[si] = rsqrtf(tot / (float)dm + kNormEps);
-  }
-  for (int i = threadIdx.x; i < dm; i += kMThreads) {
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si)
-      if (si < nb) xs[si * dm + i] = round_to<T>(xs[si * dm + i] * r[si] *
-                                                 scale[i]);
-  }
-  __syncthreads();
 }
 
 // rows s0 .. s0+nb-1 of a (b, K) scratch vector into shared memory
@@ -79,20 +38,13 @@ __host__ __device__ __forceinline__ int pick_tj(int n, int grid) {
 
 // kVec adjacent weight columns one thread of the xLSTM instances loads at
 // once: a float4 of f32 weights or a char4 of int8 codes, which put 2-4
-// times the bytes in flight.  The mamba instance loads
-// one column a thread: at mamba-130m a thread has 3-24 rows of a weight,
-// and 4 columns a thread (with their 4 times larger tile reduction and
-// code) measured 10-19% slower on an H100 (700 W).
+// times the bytes in flight.
 constexpr int kVec = 4;
 
 template <typename TW, int V> struct WVec;
-template <> struct WVec<float, 1> { using type = float; };
 template <> struct WVec<float, 4> { using type = float4; };
-template <> struct WVec<int8_t, 1> { using type = int8_t; };
 template <> struct WVec<int8_t, 4> { using type = char4; };
 
-__device__ __forceinline__ float lane_of(float v, int) { return v; }
-__device__ __forceinline__ float lane_of(int8_t v, int) { return (float)v; }
 __device__ __forceinline__ float lane_of(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }

@@ -88,21 +88,14 @@ _TABLE_WIDTH = 24
 #: attention position)
 MAX_RUN = 8
 
-#: Hopper gives one block at most 227 KB of shared memory
-_SMEM_LIMIT = 232448
 _TILE = 128      # columns of a GEMV tile (csrc kCW)
 _PHASES = 5      # GEMV phases with tile counters (csrc kPhases)
-#: the widest d_model and d_conv K3's jamba instance takes (csrc
-#: kMaxModel, kMaxConv)
+#: the widest d_model K3's mamba and jamba instances take (csrc
+#: megakernel_mamba.cu kNormPer x kMThreads, megakernel_mamba.cuh
+#: kMaxModel) and the widest d_conv the jamba instance takes (kMaxConv;
+#: the mamba instance's is one more)
 MAX_MODEL = 4096
 MAX_CONV = 4
-
-
-def mamba_smem_bytes(d_model: int, d_inner: int) -> int:
-    """Dynamic shared memory of one block of K3's mamba instance (csrc
-    megakernel_mamba.cu ``smem_bytes``, 512 threads): 4 slots of the
-    widest vector, the tile reduction and the norm partials (f32)."""
-    return 4 * (4 * max(d_model, d_inner) + 16 * 4 * 32 + 16 * 4)
 
 
 def _shapes(cfg, int8: bool, mlp: bool) -> dict:
@@ -174,10 +167,13 @@ def _check_cfg(cfg, family):
     _lib.require(cfg.norm == "rmsnorm",
                  f"K3 takes rmsnorm, got norm {cfg.norm!r}")
     if family == "mamba":
-        need = mamba_smem_bytes(cfg.d_model, cfg.d_inner)
-        _lib.require(need <= _SMEM_LIMIT,
-                     f"K3 stages 4 slots of d_inner {cfg.d_inner} in shared "
-                     f"memory: {need} bytes > {_SMEM_LIMIT}")
+        _lib.require(cfg.d_conv <= MAX_CONV + 1,
+                     f"K3's mamba instance takes d_conv up to "
+                     f"{MAX_CONV + 1}, not {cfg.d_conv}")
+        _lib.require(cfg.d_model <= MAX_MODEL,
+                     f"K3 stages 4 slots' rows in shared memory and holds "
+                     f"8 norm scales a thread: d_model {cfg.d_model} > "
+                     f"{MAX_MODEL}")
         return
     _lib.require(cfg.d_model <= MAX_MODEL,
                  f"K3 copies 4 slots' residual rows into shared memory: "
@@ -233,18 +229,31 @@ def _pointer_table(cfg, rows, int8, mlp):
                   lambda row, path: _leaf(row, path, int8, names))
 
 
+#: the dense weights K3's mamba instance streams through its ring, in the
+#: order of ``StreamedWeight`` in csrc/megakernel_mamba.cu
+STREAMED = ("in_proj", "x_proj", "out_proj")
+
+
 class MambaStack:
     """The per-layer weights of a Mamba stack as K3 reads them.
 
     Built once per engine, never per token.  Checks every weight
     (shape, dtype, contiguity, one device, f32 or int8 throughout) and
     refuses what K3 does not take: a d_state other than 16, a norm other
-    than rmsnorm, dense biases, and a d_inner too wide for one block's
-    shared memory.  On the card it writes a ``(L, 24)`` int64 table of
-    the weights' device pointers; ``layers`` keeps a copy of the layer
-    dicts' structure over the same tensors, so the tensors the table
-    points at live as long as the stack, whatever the caller later does
-    with its own dicts.  No weight is copied."""
+    than rmsnorm, dense biases, a d_model above ``MAX_MODEL`` and a d_conv
+    above ``MAX_CONV`` + 1; the card refuses, at launch, a width whose
+    panels or shared memory one block cannot take (``launch_config``
+    reports the layout it sizes).  On the card it writes a ``(L, 24)``
+    int64 table of
+    the weights' device pointers and ``maps``, the ``(L, 3)`` TMA tensor
+    maps (128 bytes each) of the streamed weights ``STREAMED`` over the
+    panels each block fetches; ``tma`` is the mask of the weights TMA can
+    read (bit w: every layer's base and row stride a multiple of 16
+    bytes; the others take the kernel's copy path) and ``map_grid`` the
+    grid the panels were cut for.  ``layers`` keeps a copy of the layer
+    dicts' structure over the same tensors, so the tensors the table and
+    maps point at live as long as the stack, whatever the caller later
+    does with its own dicts.  No weight is copied."""
 
     def __init__(self, cfg, layers):
         _check_cfg(cfg, "mamba")
@@ -255,6 +264,27 @@ class MambaStack:
         self.device, self.table = _pointer_table(cfg, layers, self.int8,
                                                  mlp=False)
         self.layers = [_copy_dicts(lp) for lp in layers]
+        self.maps, self.tma, self.map_grid = None, 0, None
+        if self.table is not None:
+            self._encode_maps(cfg)
+
+    def _encode_maps(self, cfg):
+        L = len(self.layers)
+        ptrs = (ctypes.c_int64 * (L * len(STREAMED)))(*[
+            _lib.ptr(lp["mixer"][w]["w"]) for lp in self.layers
+            for w in STREAMED])
+        buf = torch.zeros(L * len(STREAMED) * 128, dtype=torch.uint8)
+        info = (ctypes.c_int * 2)()
+        with torch.cuda.device(self.device):
+            rc = _lib.lib().marca_mamba_stack_maps(
+                ctypes.cast(ptrs, ctypes.c_void_p), L, cfg.d_model,
+                cfg.d_inner, cfg.dt_rank, int(self.int8),
+                ctypes.c_void_p(buf.data_ptr()),
+                ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"marca_mamba_stack_maps: CUDA error {rc}")
+        self.maps = buf.to(self.device)
+        self.tma, self.map_grid = info[0], info[1]
 
 
 def _dims(cfg):
@@ -339,7 +369,8 @@ def mamba_stacked_step(cfg, x0, stack: MambaStack, h, h_scale, conv):
     scratch = torch.empty(mamba_scratch_floats(slots, di, r + 2 * n),
                           dtype=torch.float32, device=x0.device)
     _lib.call("marca_mamba_stacked_step", x0.device,
-              _lib.ptr(stack.table), _lib.ptr(x0), _lib.ptr(x), _lib.ptr(h),
+              _lib.ptr(stack.table), _lib.ptr(stack.maps), stack.tma,
+              _lib.ptr(x0), _lib.ptr(x), _lib.ptr(h),
               _lib.ptr(h_scale), _lib.ptr(conv), _lib.ptr(h_out),
               _lib.ptr(scale_out), _lib.ptr(conv_out), _lib.ptr(scratch),
               scratch.numel(), L, slots, dm, di, n, r, k,
@@ -473,9 +504,12 @@ def jamba_stacked_run(cfg, x0, run: JambaRun, states, outs):
 def launch_config(cfg, dtype, int8: bool, device="cuda") -> dict:
     """The grid K3 takes on ``device`` for this model (its jamba instance
     for a jamba config): blocks per SM, blocks, dynamic shared memory
-    bytes and threads per block.  A configuration whose shared memory
-    the card cannot give one block is refused here (and at launch)."""
-    out = (ctypes.c_int * 4)()
+    bytes and threads per block; for the mamba instance also its weight
+    ring's slots and, for each weight of ``STREAMED``, its panels as the
+    card cuts them: columns a block, blocks with a panel and ring items
+    a panel.  A configuration whose panels or shared memory the card
+    cannot give one block is refused here (and at launch)."""
+    out = (ctypes.c_int * 14)()
     with torch.cuda.device(device):
         rc = _lib.lib().marca_mamba_stacked_grid(
             cfg.d_model, cfg.d_inner, cfg.dt_rank, _lib.DTYPES[dtype],
@@ -483,8 +517,14 @@ def launch_config(cfg, dtype, int8: bool, device="cuda") -> dict:
             ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"marca_mamba_stacked_grid: CUDA error {rc}")
-    return {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2],
-            "threads": out[3]}
+    got = {"blocks_per_sm": out[0], "grid": out[1], "smem_bytes": out[2],
+           "threads": out[3]}
+    if cfg.family != "jamba":
+        got["ring_slots"] = out[4]
+        got["panels"] = {w: {"cols": out[5 + 3 * i], "blocks": out[6 + 3 * i],
+                             "items": out[7 + 3 * i]}
+                         for i, w in enumerate(STREAMED)}
+    return got
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,59 @@ def test_cuda_scan_matches_plain(cuda, dtype, tol, exp_impl, silu_impl):
     close(h1.cpu(), h0.cpu().numpy(), 5e-4)
 
 
+# K4's segment edges: around its 32 time segments and the longest prompt
+K4_LENGTHS = (1, 2, 31, 32, 33, 127, 300, 512, 576)
+
+
+def _strided_scan(b, L, d, r, dtype, device, seed, h0):
+    """A scan's inputs as the Mamba block hands them over: x and z halves
+    of one (b, L, 2d) tensor, B and C inside one (b, L, r + 32) tensor
+    after dt_rank r columns (r 48: 16-byte rows; 35: no)."""
+    dt_ = getattr(torch, dtype)
+    xz = torch.from_numpy(np_input(seed, b, L, 2 * d)).to(device, dt_)
+    dbc = torch.from_numpy(np_input(seed + 1, b, L, r + 32)).to(device, dt_)
+    x, z = xz[..., :d], xz[..., d:]
+    return dict(
+        x=x, z=z, B=dbc[..., r:r + 16], C=dbc[..., r + 16:],
+        dt=torch.from_numpy(np_input(seed + 2, b, L, d, softplus=True)).to(
+            device, dt_),
+        A=torch.from_numpy(np_input(seed + 3, d, 16, neg_exp=True)).to(
+            device),
+        D=torch.from_numpy(np_input(seed + 4, d)).to(device),
+        h0=torch.from_numpy(np_input(seed + 5, b, d, 16)).to(device)
+        if h0 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", K4_LENGTHS)
+@pytest.mark.parametrize("b,d", [(1, 198), (3, 1536)])
+@pytest.mark.parametrize("r", [48, 35])
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zero"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 5e-4), ("bfloat16", 2e-2)])
+def test_cuda_scan_segments_match_plain_and_repeat(cuda, L, b, d, r, h0,
+                                                   dtype, tol):
+    """K4's chunked scan at lengths around its segment edges (one step,
+    segments of one and two steps, a ragged last segment, 576), one
+    sequence of 198 channels (32 segments, a ragged last block of
+    channels) and 3 of 1536 (16 segments: a call wider than the card holds
+    at once), on the strided views of the Mamba block with B and C read in
+    16-byte words (dt_rank 48) or element by element (35), from h0 or
+    zero: the plain version's y within tol and h_last within 5e-4, each
+    launch repeated bit for bit, one device kernel a call."""
+    from _torch_inputs import graph_kernels
+    t = _strided_scan(b, L, d, r, dtype, cuda, 40 + L, h0)
+    args = (t["x"], t["dt"], t["A"], t["B"], t["C"])
+    kw = dict(D=t["D"], z=t["z"], h0=t["h0"])
+    y1, h1 = tscan.selective_scan(*args, **kw)
+    y2, h2 = tscan.selective_scan(*args, **kw)
+    y0, hr = ref.selective_scan(*args, **kw)
+    torch.cuda.synchronize()
+    close(y1.cpu(), y0.cpu().float().numpy(), tol)
+    close(h1.cpu(), hr.cpu().numpy(), 5e-4)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert graph_kernels(lambda: tscan.selective_scan(*args, **kw)) == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
 @pytest.mark.parametrize("b,L", [(4, 1), (1, 300)])
@@ -539,7 +592,8 @@ def test_cuda_jamba_run_repeats_bitwise(cuda):
 
 def _k3_case(cuda, instance, d_model, n, slots, dtype, wd, sd, seed):
     """(cfg, launch, plain, outs) of one K3 call: a mamba stack of n layers
-    or a jamba run of n positions; ``outs`` the jamba outputs' dicts."""
+    or a jamba run of n positions; ``outs`` the jamba outputs' dicts, or
+    the mamba stack."""
     from repro_torch.kernels import megakernel
     if instance == "mamba":
         cfg = _mega_cfg(d_model, n, dtype, wd, sd)
@@ -548,7 +602,7 @@ def _k3_case(cuda, instance, d_model, n, slots, dtype, wd, sd, seed):
         return (cfg, lambda: megakernel.mamba_stacked_step(
             cfg, x0, p["stack"], h, h_scale, conv),
             lambda: ref.mamba_stacked_step(cfg, x0, p["stack"].layers, h,
-                                           h_scale, conv), None)
+                                           h_scale, conv), p["stack"])
     cfg = _jamba_cfg(d_model, {64: 128, 550: 1000}[d_model], dtype, wd, sd)
     run, x0, states, outs = jamba_run_inputs(cfg, n, slots, seed=seed,
                                              device=cuda)
@@ -625,6 +679,74 @@ def test_cuda_k3_runs_of_other_lengths_back_to_back(cuda, instance):
              for n in lengths}
     for n in reversed(lengths):
         again = _k3_bits(instance, cases[n][1](), cases[n][3])
+        assert all(torch.equal(u, v) for u, v in zip(first[n], again)), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model", [550, 2560], ids=["ragged", "2.8b"])
+@pytest.mark.parametrize("slots", [1, 3, 5, 8])
+@pytest.mark.parametrize("wd,sd", [("int8", "int8"), ("int8", "fp8"),
+                                   ("f32", "f32")])
+def test_cuda_k3_stream_widths_match_plain_and_repeat(cuda, d_model, slots,
+                                                      wd, sd):
+    """K3-mamba's weight stream at the ragged width (every int8 weight and
+    the f32 x_proj and out_proj by the copy path, no TMA) and at
+    mamba-2.8b's widths (in_proj panels of more items than the ring has
+    slots: the stream wraps inside a phase), at 1, 3, 5 and 8 slots (one
+    or two 4-slot passes over each panel), an int8, fp8 or f32 state: f32
+    against the plain version, a bf16 launch repeated bit for bit.  The
+    stack chose each weight's path by its stride, and the card's panels
+    cover each weight's columns once in one round."""
+    from repro_torch.kernels import megakernel
+    cfg, launch, plain, stack = _k3_case(cuda, "mamba", d_model, 2, slots,
+                                         "float32", wd, sd, seed=50 + slots)
+    got = launch()
+    want = plain()
+    torch.cuda.synchronize()
+    _k3_check(cfg, "mamba", got, None, want,
+              f"mamba {d_model} slots={slots} {wd}/{sd}")
+    _, launch, _, _ = _k3_case(cuda, "mamba", d_model, 2, slots, "bfloat16",
+                               wd, sd, seed=60 + slots)
+    first = _k3_bits("mamba", launch(), None)
+    again = _k3_bits("mamba", launch(), None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+    assert stack.tma == (0b111 if d_model == 2560 else 0b001 if wd == "f32"
+                         else 0)
+    lc = megakernel.launch_config(cfg, torch.float32, wd == "int8", cuda)
+    assert lc["ring_slots"] >= 2 and stack.map_grid == lc["grid"]
+    widths = (2 * cfg.d_inner, cfg.dt_rank + 2 * cfg.d_state, cfg.d_model)
+    for w, n in zip(megakernel.STREAMED, widths):
+        p = lc["panels"][w]
+        cols = [j for b in range(p["blocks"])
+                for j in range(b * p["cols"], min(n, (b + 1) * p["cols"]))]
+        assert cols == list(range(n)) and p["blocks"] <= lc["grid"], w
+        assert p["cols"] * (1 if wd == "int8" else 4) % 16 == 0, w
+    if d_model == 2560:
+        assert lc["panels"]["in_proj"]["items"] > lc["ring_slots"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model", [550, 2560], ids=["ragged", "2.8b"])
+@pytest.mark.parametrize("sd", ["int8", "fp8"])
+def test_cuda_k3_stream_runs_back_to_back(cuda, d_model, sd):
+    """K3-mamba's ring starts empty at every launch: stacks of 3, 1, 5 and
+    2 layers launched in turn each match the plain version (f32), and in
+    bf16 each gives the bits it gave when launched first in another
+    order."""
+    lengths = (3, 1, 5, 2)
+    for n in lengths:
+        cfg, launch, plain, _ = _k3_case(cuda, "mamba", d_model, n, 3,
+                                         "float32", "int8", sd, seed=70 + n)
+        got = launch()
+        want = plain()
+        torch.cuda.synchronize()
+        _k3_check(cfg, "mamba", got, None, want, f"{d_model} run of {n}")
+    cases = {n: _k3_case(cuda, "mamba", d_model, n, 3, "bfloat16", "int8",
+                         sd, seed=80 + n) for n in lengths}
+    first = {n: _k3_bits("mamba", cases[n][1](), None) for n in lengths}
+    for n in reversed(lengths):
+        again = _k3_bits("mamba", cases[n][1](), None)
         assert all(torch.equal(u, v) for u, v in zip(first[n], again)), n
 
 

@@ -463,6 +463,31 @@ def test_mamba_scratch_holds_its_vectors_and_state(slots):
     assert megakernel.mamba_scratch_floats(slots, di, nx) == want
 
 
+@pytest.mark.parametrize("family,d_model,d_conv,refused", [
+    ("mamba", 4096, 4, None), ("mamba", 4097, 4, "d_model 4097"),
+    ("mamba", 8192, 4, "shared memory"), ("mamba", 768, 5, None),
+    ("mamba", 768, 6, "d_conv up to 5"), ("mamba", 768, 2, None),
+    ("jamba", 4096, 4, None), ("jamba", 4097, 4, "d_model 4097"),
+    ("jamba", 768, 5, "d_conv up to 4")])
+def test_k3_takes_d_model_and_d_conv_up_to_its_limits(family, d_model,
+                                                      d_conv, refused):
+    """What the wrapper refuses by width before the card is asked: a
+    d_model above ``MAX_MODEL`` (4096, the mamba instance's 8 norm scales
+    a thread of 512, the jamba instance's kMaxModel) and a d_conv above
+    the conv tail a thread reads (5 in the mamba instance, 4 in the
+    jamba instance).  The panels and shared memory of a width are the
+    card's to size (``launch_config``), and it refuses at launch what one
+    block cannot take."""
+    arch = "mamba-130m" if family == "mamba" else "jamba-v0.1-52b"
+    cfg = dataclasses.replace(tconfigs.get_config(arch), d_model=d_model,
+                              d_conv=d_conv)
+    if refused is None:
+        megakernel._check_cfg(cfg, family)
+    else:
+        with pytest.raises(ValueError, match=refused):
+            megakernel._check_cfg(cfg, family)
+
+
 @pytest.mark.parametrize("kind,slots,d_model,n_heads,want", [
     ("mlstm", 4, 1024, 4, 452176),     # xlstm-350m as served
     ("mlstm", 6, 96, 4, 26692),        # the card tests' ragged width
