@@ -3,7 +3,7 @@
 
 Builds only the megakernel sources (``megakernel_*.cu``) and the conv
 (``conv1d.cu``, which the per-layer decode step runs), prints the
-compiler's register and spill report for every ``xlstm_megakernel``
+compiler's register and spill report for every K3-xLSTM kernel
 instantiation, holds the kernels against their plain versions at
 xlstm-350m's widths with 4 slots (``chip_smoke.py``'s rules: f32 over a
 7-layer run, bf16 layer by layer with the run's one launch bitwise equal
@@ -85,23 +85,35 @@ static __device__ unsigned long long* xl_stamp_base;
 #define XL_STAMP() XL_STAMP_AT(0)
 #define XL_MARK() XL_STAMP_AT(1)
 """ % (STAMP_ROW, STAMP_ROW // 4, STAMP_ROW // 4, STAMP_ROW // 2)
-# (pattern, replacement, count expected) on the header's text: a stamp
-# when a block starts, one before and one after every grid barrier (after
-# the block's own threads are done), one when the block ends
+# (pattern, replacement, count expected or None for any) on the header's
+# text: a stamp when a block starts, one before and one after every grid
+# barrier (after the block's own threads are done), one when the block
+# ends; in each kernel (one, xlstm_megakernel, in a tree before the sLSTM
+# had a kernel of its own; mlstm_megakernel and slstm_megakernel after)
 STAMP_EDITS = (
     (r"cg::grid_group grid = cg::this_grid\(\);",
      "cg::grid_group grid = cg::this_grid();\n  if (threadIdx.x == 0)\n"
      "    xl_stamp_base = (unsigned long long*)a.scratch - (size_t)%d * %d;\n"
-     "  XL_STAMP();" % (STAMP_BLOCKS, STAMP_ROW), 1),
+     "  XL_STAMP();" % (STAMP_BLOCKS, STAMP_ROW), None),
     (r"if \(l \+ 1 < a\.L\) grid\.sync\(\);\n  \}\n",
      "if (l + 1 < a.L) grid.sync();\n  }\n  __syncthreads();\n  XL_STAMP();\n",
-     1),
+     None),
     (r"grid\.sync\(\);",
      "{ __syncthreads(); XL_STAMP(); grid.sync(); XL_STAMP(); }", None),
 )
-# marks inside the mLSTM's phases (where the anchors exist): the end of
-# C''s q/k GEMV, and every item's arrival at its counter (C', E)
+# marks inside the phases (where the anchors exist).  mLSTM: the end of
+# C''s q/k GEMV, and every item's arrival at its counter (C', E).  sLSTM:
+# LN(x) staged, each strip GEMV's tile in (wx, R; out), the cell begun,
+# y staged (phase 2)
 MARK_EDITS = (
+    (r"(column<float>\(wt, S_NORM_B\), s0, nb, dm\);\n)",
+     r"\1      XL_MARK();\n"),
+    (r"(      cp_async_wait_group<0>\(\);\n    \}\n    __syncthreads\(\);\n)",
+     r"\1    XL_MARK();\n"),
+    (r"(      if \(cell\) \{\n        const float\* pre)",
+     r"      XL_MARK();\n\1"),
+    (r"(stage_gnorm<T>\(sm\.xs4, h, column<float>\(wt, S_GN\), s0, nb, "
+     r"a\.nh, a\.dh\);\n)", r"\1      XL_MARK();\n"),
     (r"(column<float>\(wt, M_NORM_B\), s0, nb, a\.dm\);\n)",
      r"\1      XL_MARK();\n"),
     (r"(    cp_async_wait_all\(\);\n    __syncthreads\(\);\n)",
@@ -118,7 +130,8 @@ MARK_EDITS = (
 PHASES = {("mlstm", 5): ("A norm+up+conv", "B q/k", "C cell", "D h+gnorm",
                          "E down"),
           ("mlstm", 3): ("A norm+up+conv", "C' q/k+cell+h", "E down"),
-          ("slstm", 4): ("A norm+wx", "B R h", "C cell", "D out")}
+          ("slstm", 4): ("A norm+wx", "B R h", "C cell", "D out"),
+          ("slstm", 2): ("1 norm+wx+Rh+cell", "2 gnorm+out")}
 
 
 def log(*a):
@@ -186,7 +199,7 @@ def sass_report(so):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = (cs.xlstm_kernel_name(m.group(1))
-                  if "xlstm_megakernel" in m.group(1) else None)
+                  if cs.is_xlstm_kernel(m.group(1)) else None)
             if fn and fn.startswith("mlstm"):
                 counts[fn] = {"LDL": 0, "STL": 0, "instructions": 0}
             else:
@@ -300,10 +313,12 @@ def phase_stamps(lib, dev, root, rows=ROWS[:2] + ROWS[4:5],
             run = megakernel.XlstmRun(c, kind, [run.rows[0]] * n)
         grid = megakernel.xlstm_launch_config(c, kind, torch.bfloat16,
                                               wd == "int8", dev)["grid"]
-        stamps = torch.zeros(
-            STAMP_BLOCKS * STAMP_ROW + -(-megakernel.xlstm_scratch_floats(
-                kind, 4, c.d_model, c.n_heads) // 2), dtype=torch.int64,
-            device=dev)
+        # the scratch after the stamps holds at least one float, so its
+        # address lies inside the buffer (an sLSTM launch needs none)
+        n_scratch = max(1, megakernel.xlstm_scratch_floats(
+            kind, 4, c.d_model, c.n_heads))
+        stamps = torch.zeros(STAMP_BLOCKS * STAMP_ROW + -(-n_scratch // 2),
+                             dtype=torch.int64, device=dev)
 
         def launch():
             launch_stamped(lib, megakernel, c, x0, run, states, outs, stamps)

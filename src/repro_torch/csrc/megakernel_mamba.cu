@@ -449,15 +449,15 @@ __device__ void stage_rows4(float4* xs4, const float* src, int s0, int nb,
 // a weight as the dense layer consumes it, on the FMA and integer pipes:
 // an int8 code made a float exactly by the 1.5 * 2^23 bias (no I2F), times
 // its column's scale with one rounded multiply, then rounded to the compute
-// type by mb::round_int (no F2F); f32 weights only rounded
+// type by round_int (no F2F); f32 weights only rounded
 template <typename T, typename TW>
 __device__ __forceinline__ float weight_of(TW raw, float scale) {
   if constexpr (sizeof(TW) == 1) {
     const float code = __fadd_rn(__int_as_float(0x4b400000 + (int)raw),
                                  -12582912.0f);
-    return mb::round_int<T>(__fmul_rn(code, scale));
+    return round_int<T>(__fmul_rn(code, scale));
   } else {
-    return mb::round_int<T>(raw);
+    return round_int<T>(raw);
   }
 }
 

@@ -441,14 +441,8 @@ template <> struct WVec<int8_t, 8> {
   static __device__ __forceinline__ type load(const int8_t* p) {
     return __ldg(reinterpret_cast<const uint2*>(p));
   }
-  // the code's byte (sign bit flipped) under 2^23's exponent is 2^23 +
-  // code + 128 exactly; less 2^23 + 128 it is the code (I2F, like F2F,
-  // runs at 16 results a clock an SM)
   static __device__ __forceinline__ float raw(const type& v, int c) {
-    const unsigned w = (c >> 2) == 0 ? v.x : v.y;
-    return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4b000000u,
-                                       0x7540u | (c & 3))) -
-           8388736.0f;
+    return i8_value((c >> 2) == 0 ? v.x : v.y, c);
   }
 };
 template <> struct WVec<int8_t, 1> {
@@ -521,19 +515,6 @@ __device__ __forceinline__ int ntiles_of(int N, int K) {
 // blocks (each block then holds at least one)
 __device__ __forceinline__ int block_of(int64_t u, int64_t U, int G) {
   return (int)(((u + 1) * G + U - 1) / U) - 1;
-}
-
-// round_to<T> of a finite value on the integer pipes: bf16's round to
-// nearest even as 0x7fff plus the kept lowest bit added and the low half
-// cut (the F2F conversion runs at 16 results a clock an SM)
-template <typename T>
-__device__ __forceinline__ float round_int(float v) {
-  if constexpr (sizeof(T) == 4) {
-    return v;
-  } else {
-    const unsigned u = __float_as_uint(v);
-    return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
-  }
 }
 
 template <typename T, typename TW, int V>

@@ -45,7 +45,7 @@ extern "C" int marca_xlstm_stacked_grid(int kind, int d_model, int dtype,
 // part's input of every layer, then its output (megakernel.py XLSTM_PARTS:
 // mLSTM C in the state type, C_scale for an int8/fp8 C, n, m, conv; sLSTM
 // c, n, h, m; f32 but C); scratch at least scratch_floats() f32; q_scale
-// the mLSTM's dh^-0.5 in f32; an mLSTM d_model at most kMaxXModel.
+// the mLSTM's dh^-0.5 in f32; d_model at most kMaxXModel.
 // Returns 0 or a CUDA error; a grid that cannot be co-resident is
 // cudaErrorCooperativeLaunchTooLarge.
 extern "C" int marca_xlstm_stacked_run(
@@ -61,7 +61,7 @@ extern "C" int marca_xlstm_stacked_run(
       di % n_heads != 0 || di / n_heads > xl::kMaxHead ||
       (di / n_heads) % kVec != 0 || d_conv < 1 || state_dtype < SD_INT8 ||
       state_dtype > SD_BF16 || (kind && state_dtype != SD_F32) ||
-      (!kind && d_model > xl::kMaxXModel) ||
+      d_model > xl::kMaxXModel ||
       scratch_len < xl::scratch_floats(kind, slots, d_model, n_heads))
     return cudaErrorInvalidValue;
   const bool quant = state_dtype == SD_INT8 || state_dtype == SD_FP8;

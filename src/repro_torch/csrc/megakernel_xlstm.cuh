@@ -65,15 +65,31 @@
 // 4 slots: 598 us (f32/f32) and 494 us (int8/int8) on an NVIDIA H100 80GB
 // HBM3 at 700 W (PERF.md, PR 18).
 //
-// sLSTM (unchanged): one persistent cooperative kernel of 512-thread
-// blocks on megakernel_common.cuh's column-tile GEMV (gemv_cols), 4
-// barriers a layer:
-//   A   LayerNorm, wx column tiles -> the input gate parts.         barrier
-//   B   per head and gate: R h column tiles (f32) + the input part + bias.
-//                                                                  barrier
-//   C   one block per (slot, head): the cell, the new c, n, h, m, and the
-//       group norm.                                                barrier
-//   D   out column tiles and the residual add.                     barrier
+// sLSTM: one persistent cooperative kernel of its own, 256-thread blocks
+// and all of an SM's shared memory, one block an SM, its Args a
+// __grid_constant__; 2 grid barriers a layer (2L - 1 a launch), no
+// scratch, no counters.  The layer's weights do not depend on its chain,
+// so every block puts its own loads in flight (x and the norm's scale and
+// bias, the head's h, its cells' inputs) and then issues its items' tiles
+// into shared memory by cp.async (about 192 KB of f32, 72 KB of int8 at
+// xlstm-350m): R's and wx's strips as one group, out's tile as another,
+// so phase 1 does not wait for out; the next layer's as soon as this
+// layer's are read.  Weights become floats on the integer and FMA pipes
+// (no I2F or F2F).  Where a block's tiles do not fit, its GEMVs stream
+// them through one buffer instead.
+//   1   Items: (head, tile of cw columns) for all four gates (128 items of
+//       8 columns at xlstm-350m): LayerNorm of x and the head's h staged
+//       for 4 slots, the four gates' wx columns (K = d) and R columns (K =
+//       dh), pre = round(gx) + R h + bias in that order, then the cell of
+//       those columns (it is elementwise): the new c, n, h, m.   barrier
+//   2   Items: out's column tiles (128 of 8 at xlstm-350m): y = the group
+//       norm of h' (each (slot, head)'s mean and variance by one warp, in
+//       a fixed order; every item computes them from h' in L2), the
+//       tile's columns of out and the residual add.  barrier (to the next
+//       layer)
+// Each GEMV sums per thread in row order, then across lanes by a
+// butterfly and across warps in index order: the same inputs give the
+// same bits, and no float atomics.
 // Every rounding point of the per-layer path is kept: the norm, each dense
 // output, the conv and SiLU outputs, q and k, the gated product and x + y
 // round to the compute type; the cells and the gate dots are f32.  Weights
@@ -139,116 +155,6 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
 }
 
-// v summed over the block, in one fixed order; every thread gets the sum.
-// buf holds kMWarps floats.
-static __device__ float block_sum(float v, float* buf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = group_sum<32>(v);
-  if (lane == 0) buf[warp] = v;
-  __syncthreads();
-  float t = 0.0f;
-  for (int w = 0; w < kMWarps; ++w) t += buf[w];
-  __syncthreads();
-  return t;
-}
-
-// The residual rows s0 .. s0+nb-1 layer-normalised into shared memory,
-// xs[si][i] (blocks.apply_norm with "ln": (x - mean) * rsqrt(var + eps) *
-// scale + bias, the variance biased, rounded to the compute type).
-template <typename T>
-__device__ void stage_ln(float* xs, float* redn, const T* src,
-                         const float* scale, const float* bias, int s0,
-                         int nb, int dm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[kSlots], mu[kSlots], r[kSlots];
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) acc[si] = 0.0f;
-  for (int i = threadIdx.x; i < dm; i += kMThreads) {
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si) {
-      if (si < nb) {
-        const float v = to_f32(src[(int64_t)(s0 + si) * dm + i]);
-        xs[si * dm + i] = v;
-        acc[si] += v;
-      }
-    }
-  }
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    const float v = group_sum<32>(acc[si]);
-    if (lane == 0) redn[warp * kSlots + si] = v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    float tot = 0.0f;
-    for (int w = 0; w < kMWarps; ++w) tot += redn[w * kSlots + si];
-    mu[si] = tot / (float)dm;
-    acc[si] = 0.0f;
-  }
-  __syncthreads();  // every thread has read redn before it is written again
-  for (int i = threadIdx.x; i < dm; i += kMThreads) {
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si) {
-      if (si < nb) {
-        const float v = xs[si * dm + i] - mu[si];
-        acc[si] += v * v;
-      }
-    }
-  }
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    const float v = group_sum<32>(acc[si]);
-    if (lane == 0) redn[warp * kSlots + si] = v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int si = 0; si < kSlots; ++si) {
-    float tot = 0.0f;
-    for (int w = 0; w < kMWarps; ++w) tot += redn[w * kSlots + si];
-    r[si] = rsqrtf(tot / (float)dm + kNormEps);
-  }
-  for (int i = threadIdx.x; i < dm; i += kMThreads) {
-#pragma unroll
-    for (int si = 0; si < kSlots; ++si)
-      if (si < nb)
-        xs[si * dm + i] = round_to<T>((xs[si * dm + i] - mu[si]) * r[si] *
-                                      scale[i] + bias[i]);
-  }
-  __syncthreads();
-}
-
-// head hh of rows s0 .. s0+nb-1 of a (b, nh * dh) vector into shared
-// memory, xs[si][e]
-static __device__ void stage_head(float* xs, const float* src, int s0,
-                                  int nb, int hh, int nh, int dh) {
-  for (int i = threadIdx.x; i < nb * dh; i += kMThreads) {
-    const int si = i / dh, e = i % dh;
-    xs[i] = src[((int64_t)(s0 + si) * nh + hh) * dh + e];
-  }
-  __syncthreads();
-}
-
-// x = xsrc + round(W^T y) for the d_model output columns, y (b, K) rounded
-// to the compute type in scratch: the block's last projection and residual
-template <typename T, typename TW>
-__device__ void out_residual(const Args& a, const TW* W, const float* ws,
-                             int K, const float* y, const T* xsrc, float* xs,
-                             float* red) {
-  if (blockIdx.x >= gemv_ntiles<kVec>(a.dm)) return;
-  T* x = static_cast<T*>(a.x);
-  for (int s0 = 0; s0 < a.b; s0 += kSlots) {
-    const int nb = min(kSlots, a.b - s0);
-    stage_rows(xs, y, s0, nb, K);
-    gemv_cols<T, TW, kVec>(xs, nb, K, W, ws, a.dm, red,
-                            [&](int si, int j, float sum) {
-                              const int64_t i = (int64_t)(s0 + si) * a.dm + j;
-                              x[i] = from_f32<T>(to_f32(xsrc[i]) +
-                                                 round_to<T>(sum));
-                            });
-  }
-}
-
 // ---------------------------------------------------------------------------
 // mLSTM.  Scratch (mlstm_scratch): u, the conv+SiLU output cv and g
 // (b, 2d) each; the C' items' partial sums of C'^T q (b, nh, ntile, dh),
@@ -275,7 +181,9 @@ constexpr int kI8Cols = 8;
 // f32 C of 512 columns, the wq and wk tiles, the staged inputs); A and E
 // stage their weight tiles in what their inputs leave of it
 constexpr int kXSmem = 216 * 1024;
-constexpr int kMaxXModel = 4096;  // widest d_model whose E inputs fit
+// the widest d_model: the mLSTM's E inputs fit, and the sLSTM's staged
+// inputs leave its weight buffer room
+constexpr int kMaxXModel = 4096;
 
 __host__ __device__ __forceinline__ int ntiles_of(int dh) {
   return (dh + kTileRows - 1) / kTileRows;
@@ -328,12 +236,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-template <int kBytes>
+template <int kBytes, int kThreads>
 __device__ __forceinline__ void copy_pieces(char* dst, const char* src,
                                             int64_t stride, int rows,
                                             int row_bytes, int dst_row) {
   const int per = row_bytes / kBytes;
-  for (int t = threadIdx.x; t < rows * per; t += kXThreads) {
+  for (int t = threadIdx.x; t < rows * per; t += kThreads) {
     const int r = t / per, c = t % per;
     cp_async<kBytes>(dst + (int64_t)r * dst_row + c * kBytes,
                      src + r * stride + c * kBytes);
@@ -342,7 +250,8 @@ __device__ __forceinline__ void copy_pieces(char* dst, const char* src,
 
 // rows x row_bytes bytes, the rows stride bytes apart at src, into dst
 // dst_row bytes apart (both multiples of 4), in the widest pieces the
-// alignments allow
+// alignments allow, by a block of kThreads threads
+template <int kThreads = kXThreads>
 __device__ __forceinline__ void copy_rows(void* dst, const void* src,
                                           int64_t stride, int rows,
                                           int row_bytes, int dst_row) {
@@ -352,11 +261,11 @@ __device__ __forceinline__ void copy_rows(void* dst, const void* src,
                                reinterpret_cast<uintptr_t>(d)) |
                      stride | row_bytes | dst_row;
   if ((al & 15) == 0)
-    copy_pieces<16>(d, s, stride, rows, row_bytes, dst_row);
+    copy_pieces<16, kThreads>(d, s, stride, rows, row_bytes, dst_row);
   else if ((al & 7) == 0)
-    copy_pieces<8>(d, s, stride, rows, row_bytes, dst_row);
+    copy_pieces<8, kThreads>(d, s, stride, rows, row_bytes, dst_row);
   else
-    copy_pieces<4>(d, s, stride, rows, row_bytes, dst_row);
+    copy_pieces<4, kThreads>(d, s, stride, rows, row_bytes, dst_row);
 }
 
 __device__ __forceinline__ size_t align16(size_t n) {
@@ -530,10 +439,11 @@ __device__ void gemv_tile(const float* xs4, int nb, int k0, int k1,
   __syncthreads();
 }
 
-// The residual rows s0 .. s0+nb-1 layer-normalised (stage_ln's arithmetic)
-// into shared memory interleaved, xs4[i][si], 0 for si >= nb; sb holds
-// the norm's scale and bias (2 x dm).  Each thread loads all of its
-// values before it adds any.
+// The residual rows s0 .. s0+nb-1 layer-normalised into shared memory
+// interleaved, xs4[i][si], 0 for si >= nb (blocks.apply_norm with "ln":
+// (x - mean) * rsqrt(var + eps) * scale + bias, the variance biased,
+// rounded to the compute type); sb holds the norm's scale and bias (2 x
+// dm).  Each thread loads all of its values before it adds any.
 template <typename T>
 __device__ void stage_ln4(float* xs4, float* sb, float* redn, const T* src,
                           const float* scale, const float* bias, int s0,
@@ -1318,139 +1228,679 @@ __device__ void mlstm_layer(const Args& a, cg::grid_group& grid, int l,
     mlstm_down<T, TW, kV>(a, wt, xsrc, smem, sc);
 }
 
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kXThreads) mlstm_megakernel(const Args a) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const T* x0 = static_cast<const T*>(a.x0);
+  const T* x = static_cast<const T*>(a.x);
+  for (int l = 0; l < a.L; ++l) {
+    const T* xsrc = l == 0 ? x0 : x;
+    mlstm_layer<T, TW>(a, grid, l, xsrc, smem);
+    if (l + 1 < a.L) grid.sync();
+  }
+}
+
 // ---------------------------------------------------------------------------
-// sLSTM.  Scratch: the input gate parts gx and the pre-activations (b, 4d)
-// each, y (b, d).
+// sLSTM.  No scratch: an item keeps its input gate parts and
+// pre-activations in shared memory, and phase 2 reads h back from the new
+// state.
 // ---------------------------------------------------------------------------
 
-template <typename T, typename TW>
-__device__ void slstm_layer(const Args& a, cg::grid_group& grid, int l,
-                            const T* xsrc, float* xs, float* red,
-                            float* redn) {
-  const int64_t* wt = a.table + (int64_t)l * kColumns;
-  const int nh = a.nh, dh = a.dh, dm = a.dm, d4 = 4 * dm;
-  float* gx = a.scratch;
-  float* pre = gx + (int64_t)a.b * d4;
-  float* y = pre + (int64_t)a.b * d4;
-  // A: LayerNorm -> wx
-  if (blockIdx.x < gemv_ntiles<kVec>(d4)) {
-    for (int s0 = 0; s0 < a.b; s0 += kSlots) {
-      const int nb = min(kSlots, a.b - s0);
-      stage_ln<T>(xs, redn, xsrc, column<float>(wt, S_NORM),
-                  column<float>(wt, S_NORM_B), s0, nb, dm);
-      gemv_cols<T, TW, kVec>(xs, nb, dm, column<TW>(wt, S_WX),
-                              column<float>(wt, S_WX_SCALE), d4, red,
-                              [&](int si, int j, float sum) {
-                                gx[(int64_t)(s0 + si) * d4 + j] =
-                                    round_to<T>(sum);
-                              });
-    }
+// The sLSTM kernel's block (its own: the mLSTM's is kXThreads) and dynamic
+// shared memory, the H100's opt-in maximum, so one block an SM.
+constexpr int kSThreads = 256;
+constexpr int kSWarps = kSThreads / 32;
+constexpr int kSGates = 4;
+constexpr int kSSmem = 227 * 1024;
+// the widest phase-1 tile: 4 slots' cells of its columns take one pass
+constexpr int kSMaxCols = 64;
+static_assert(kSlots * kSMaxCols <= kSThreads, "one cell a thread");
+// x values a thread loads for LayerNorm before the weights are issued, a
+// slot (d_model up to kSLnPer x kSThreads; the rest load after), and h
+// values (a head up to kSHPer x kSThreads, kMaxHead)
+constexpr int kSLnPer = 4;
+constexpr int kSHPer = (kMaxHead + kSThreads - 1) / kSThreads;
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// V adjacent weights of one row as one shared-memory load, and the c-th as
+// a float on the integer and FMA pipes (int8 by i8_value)
+template <typename TW, int V> struct SRow;
+template <> struct SRow<float, 4> {
+  using type = float4;
+  static __device__ __forceinline__ float at(const float4& v, int c) {
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
   }
-  grid.sync();
-  // B: pre = gx + R h + bias per (head, gate), in f32
-  const float* h = static_cast<const float*>(a.rows.in[P_SH][l]);
-  const float* r = column<float>(wt, S_R);
-  const float* bias = column<float>(wt, S_B);
-  if (blockIdx.x < gemv_ntiles<kVec>(dh)) {
-    for (int s0 = 0; s0 < a.b; s0 += kSlots) {
-      const int nb = min(kSlots, a.b - s0);
-      for (int hh = 0; hh < nh; ++hh) {
-        stage_head(xs, h, s0, nb, hh, nh, dh);
-        for (int gate = 0; gate < 4; ++gate) {
-          gemv_cols<float, float, kVec>(
-              xs, nb, dh, r + ((int64_t)gate * nh + hh) * dh * dh, nullptr,
-              dh, red, [&](int si, int j, float sum) {
-                const int col = gate * dm + hh * dh + j;
-                const int64_t i = (int64_t)(s0 + si) * d4 + col;
-                pre[i] = gx[i] + sum + bias[col];
-              });
+};
+template <> struct SRow<int8_t, 8> {
+  using type = uint2;
+  static __device__ __forceinline__ float at(const uint2& v, int c) {
+    return i8_value((c >> 2) == 0 ? v.x : v.y, c);
+  }
+};
+template <> struct SRow<int8_t, 4> {
+  using type = unsigned;
+  static __device__ __forceinline__ float at(unsigned v, int c) {
+    return i8_value(v, c);
+  }
+};
+
+// How a layer is cut into items.  Phase 1: an item takes cw columns of one
+// head for all four gates (cw = lx * vx; lx lanes across a row of wx, cw /
+// 4 across a row of R, which is f32), ntile tiles a head.  Phase 2: an
+// item takes cwo = lo * vo columns of out.  Each the narrowest tiles that
+// still give every block at most one item (128 and 128 at xlstm-350m).
+struct SPlan {
+  int vx, lx, cw, ntile, items1;
+  int vo, lo, cwo, items2;
+};
+
+__device__ __forceinline__ SPlan slstm_plan(int dm, int nh, int dh,
+                                            bool int8) {
+  SPlan p;
+  p.vx = int8 && dh % 8 == 0 ? 8 : 4;
+  p.lx = 1;
+  while (2 * p.lx * p.vx <= kSMaxCols && p.lx * p.vx < dh &&
+         nh * ((dh + p.lx * p.vx - 1) / (p.lx * p.vx)) > (int)gridDim.x)
+    p.lx <<= 1;
+  p.cw = p.lx * p.vx;
+  p.ntile = (dh + p.cw - 1) / p.cw;
+  p.items1 = nh * p.ntile;
+  p.vo = int8 && dm % 8 == 0 ? 8 : 4;
+  p.lo = 1;
+  while (p.lo < 32 && p.lo * p.vo < dm &&
+         (dm + p.lo * p.vo - 1) / (p.lo * p.vo) > (int)gridDim.x)
+    p.lo <<= 1;
+  p.cwo = p.lo * p.vo;
+  p.items2 = (dm + p.cwo - 1) / p.cwo;
+  return p;
+}
+
+// The block's shared memory.  Resident (the tiles of a block's items fit
+// beside its inputs, and every block has at most one item a phase): the
+// four R strips, the four wx strips and the out tile each in a place of
+// their own, issued before the block needs them (the first layer's at
+// launch, the next layer's as soon as this layer's are read).  Otherwise
+// one buffer from R on, that each GEMV streams its strips through.
+struct SLayout {
+  float *xs4, *sb, *hs4, *red, *redn, *gx, *res;
+  char *r, *wx, *wo;
+  size_t buf_bytes;
+  bool resident;
+};
+
+__device__ __forceinline__ SLayout slstm_layout(float* smem, const SPlan& p,
+                                                int dm, int dh, int wbytes) {
+  SLayout s;
+  float* f = smem;
+  s.xs4 = f;  f += kSlots * dm;
+  s.sb = f;   f += 2 * dm;
+  s.hs4 = f;  f += kSlots * dh;
+  s.red = f;  f += kSWarps * kSlots * max(p.cw, p.cwo);
+  s.redn = f; f += kSWarps * kSlots;
+  s.gx = f;   f += kSGates * kSlots * p.cw;
+  s.res = f;  f += kSlots * p.cwo;
+  char* base = reinterpret_cast<char*>(smem);
+  char* c = base + align16((size_t)(reinterpret_cast<char*>(f) - base));
+  s.r = c;
+  s.buf_bytes = kSSmem - (size_t)(c - base);
+  c += align16((size_t)kSGates * dh * p.cw * sizeof(float));
+  s.wx = c;
+  c += align16((size_t)kSGates * dm * p.cw * wbytes);
+  s.wo = c;
+  c += (size_t)dm * p.cwo * wbytes;
+  s.resident = p.items1 <= (int)gridDim.x && p.items2 <= (int)gridDim.x &&
+               (size_t)(c - base) <= (size_t)kSSmem;
+  return s;
+}
+
+// Rows r0 <= i < r1 of NM strips of a weight into wbuf: strip m is ncols
+// columns from W + m * mstride, its rows ld elements apart; its row i goes
+// to wbuf + (m * rows + i - b0) * cw (rows a strip in the buffer, the
+// buffer's first row b0).
+template <typename TW, int NM>
+__device__ __forceinline__ void issue_strips(TW* wbuf, const TW* W,
+                                             int64_t ld, int64_t mstride,
+                                             int r0, int r1, int ncols,
+                                             int cw, int rows, int b0) {
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+    copy_rows<kSThreads>(wbuf + ((int64_t)m * rows + r0 - b0) * cw,
+                         W + m * mstride + (int64_t)r0 * ld,
+                         ld * (int64_t)sizeof(TW), r1 - r0,
+                         ncols * (int)sizeof(TW), cw * (int)sizeof(TW));
+}
+
+// out[m][si][j] = sum over rows 0 <= i < K of xs4[i][si] * w_m(i, j) for
+// the ncols columns of NM strips (issue_strips' W, ld, mstride), the f32
+// sum handed to epi(m, si, j, sum) once for si < nb and j < ncols.  ws
+// (int8 weights) is strip 0's first column's scale, mstride apart as W.
+// Resident, the strips are in wbuf whole (K rows a strip), issued by the
+// caller (this waits for every cp.async group but the newest); else they
+// pass through wbuf cap rows at a time, issued here.  The block's warps split over the NM strips; in a warp, lpr
+// lanes take V adjacent columns each and 32 / lpr rows.  Weights become
+// floats (int8 codes, the scale's rounded multiply, bf16 rounding) on the
+// integer and FMA pipes.  The sum over rows runs per thread in ascending
+// order, then across the warp's rows by a butterfly and across the
+// strip's warps in index order: fixed, so the same inputs give the same
+// bits.  Ends with the block synchronised.
+template <typename T, typename TW, int V, int NM, typename Epi>
+__device__ void strip_gemv(const float* xs4, int nb, int K, const TW* W,
+                           int64_t ld, int64_t mstride, int ncols, int lpr,
+                           const float* ws, TW* wbuf, bool resident,
+                           int cap, float* red, Epi epi) {
+  using R = SRow<TW, V>;
+  using VT = typename R::type;
+  constexpr int kWpm = kSWarps / NM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = warp / kWpm, wl = warp % kWpm;
+  const int cg = lane & (lpr - 1), rpw = 32 / lpr;
+  const int rb = kWpm * rpw;
+  const int cw = lpr * V;
+  const bool col_ok = cg * V < ncols;
+  float sc[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c)
+    sc[c] = sizeof(TW) == 1 && col_ok ? ws[m * mstride + cg * V + c] : 1.0f;
+  float acc[kSlots][V];
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si)
+#pragma unroll
+    for (int c = 0; c < V; ++c) acc[si][c] = 0.0f;
+  if (resident) cap = K;
+  for (int c0 = 0; c0 < K; c0 += cap) {
+    const int c1 = min(K, c0 + cap);
+    const int rows = resident ? K : c1 - c0, b0 = resident ? 0 : c0;
+    if (resident) {
+      cp_async_wait_group<1>();
+    } else {
+      issue_strips<TW, NM>(wbuf, W, ld, mstride, c0, c1, ncols, cw, rows,
+                           b0);
+      cp_async_commit();
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();
+    const TW* tile = wbuf + ((int64_t)m * rows - b0) * cw + cg * V;
+    if (col_ok) {
+#pragma unroll 4
+      for (int i = c0 + wl * rpw + lane / lpr; i < c1; i += rb) {
+        const VT w = *reinterpret_cast<const VT*>(tile + (int64_t)i * cw);
+        const float4 x = *reinterpret_cast<const float4*>(xs4 + 4 * i);
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          const float raw = R::at(w, c);
+          const float wv =
+              round_int<T>(sizeof(TW) == 1 ? __fmul_rn(raw, sc[c]) : raw);
+          acc[0][c] += x.x * wv;
+          acc[1][c] += x.y * wv;
+          acc[2][c] += x.z * wv;
+          acc[3][c] += x.w * wv;
         }
       }
     }
+    if (!resident && c1 < K) __syncthreads();  // read before it is refilled
   }
-  grid.sync();
-  // C: the cell and the group norm per (slot, head)
+  // the butterfly's step outermost, so its kSlots x V shuffles a step are
+  // independent of each other
+  for (int off = lpr; off < 32; off <<= 1) {
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si)
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        acc[si][c] += __shfl_xor_sync(0xffffffffu, acc[si][c], off);
+  }
+  if (lane < lpr) {
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si)
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        red[(warp * kSlots + si) * cw + cg * V + c] = acc[si][c];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < NM * nb * cw; t += kSThreads) {
+    const int mm = t / (nb * cw), si = (t / cw) % nb, cc = t % cw;
+    float s = 0.0f;
+    for (int w = 0; w < kWpm; ++w)
+      s += red[((mm * kWpm + w) * kSlots + si) * cw + cc];
+    if (cc < ncols) epi(mm, si, cc, s);
+  }
+  __syncthreads();
+}
+
+// Phase 1 item t's columns: head hh, its columns e0 .. e0 + ncols - 1
+struct SItem {
+  int hh, e0, ncols;
+};
+__device__ __forceinline__ SItem slstm_item(const SPlan& p, int dh, int t) {
+  SItem it;
+  it.hh = t / p.ntile;
+  it.e0 = (t % p.ntile) * p.cw;
+  it.ncols = min(p.cw, dh - it.e0);
+  return it;
+}
+
+// The resident tiles of layer l for this block's items: phase 1's R and
+// wx strips, one cp.async group (committed even where this block has no
+// item, so every block's groups stay in step)
+template <typename TW>
+__device__ void slstm_issue_front(const Args& a, int l, const SPlan& p,
+                                  const SLayout& sm) {
+  if ((int)blockIdx.x < p.items1) {
+    const int64_t* wt = a.table + (int64_t)l * kColumns;
+    const SItem it = slstm_item(p, a.dh, blockIdx.x);
+    issue_strips<float, kSGates>(
+        reinterpret_cast<float*>(sm.r), column<float>(wt, S_R) +
+        (int64_t)it.hh * a.dh * a.dh + it.e0, a.dh,
+        (int64_t)a.nh * a.dh * a.dh, 0, a.dh, it.ncols, p.cw, a.dh, 0);
+    issue_strips<TW, kSGates>(
+        reinterpret_cast<TW*>(sm.wx), column<TW>(wt, S_WX) + it.hh * a.dh +
+        it.e0, 4 * (int64_t)a.dm, a.dm, 0, a.dm, it.ncols, p.cw, a.dm, 0);
+  }
+  cp_async_commit();
+}
+
+// phase 2's out tile of layer l (a group of its own)
+template <typename TW>
+__device__ void slstm_issue_out(const Args& a, int l, const SPlan& p,
+                                const SLayout& sm) {
+  if ((int)blockIdx.x < p.items2) {
+    const int64_t* wt = a.table + (int64_t)l * kColumns;
+    const int j0 = blockIdx.x * p.cwo;
+    issue_strips<TW, 1>(reinterpret_cast<TW*>(sm.wo),
+                        column<TW>(wt, S_OUT) + j0, a.dm, 0, 0, a.dm,
+                        min(p.cwo, a.dm - j0), p.cwo, a.dm, 0);
+  }
+  cp_async_commit();
+}
+
+// LayerNorm of x rows s0 .. s0+nb-1 in two halves: ln_load puts the first
+// kSLnPer x kSThreads entries of each row and of the norm's scale and bias
+// in flight into registers (before the block issues its weights, so they
+// are not queued behind them), ln_finish stages all of them (the rest
+// loaded there) into xs4[i][si] and sb and normalises them as stage_ln4
+// does.
+struct LnIn {
+  float x[kSLnPer][kSlots], s[kSLnPer], b[kSLnPer];
+};
+
+template <typename T>
+__device__ __forceinline__ void ln_load(LnIn& v, const T* src,
+                                        const float* scale,
+                                        const float* bias, int s0, int nb,
+                                        int dm) {
+#pragma unroll
+  for (int u = 0; u < kSLnPer; ++u) {
+    const int i = threadIdx.x + u * kSThreads;
+    v.s[u] = i < dm ? scale[i] : 0.0f;
+    v.b[u] = i < dm ? bias[i] : 0.0f;
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si)
+      v.x[u][si] = i < dm && si < nb
+                       ? to_f32(src[(int64_t)(s0 + si) * dm + i]) : 0.0f;
+  }
+}
+
+template <typename T>
+__device__ void ln_finish(const LnIn& v, float* xs4, float* sb, float* redn,
+                          const T* src, const float* scale,
+                          const float* bias, int s0, int nb, int dm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[kSlots], mu[kSlots], r[kSlots];
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) acc[si] = 0.0f;
+#pragma unroll
+  for (int u = 0; u < kSLnPer; ++u) {
+    const int i = threadIdx.x + u * kSThreads;
+    if (i < dm) {
+      *reinterpret_cast<float4*>(xs4 + 4 * i) =
+          make_float4(v.x[u][0], v.x[u][1], v.x[u][2], v.x[u][3]);
+      sb[i] = v.s[u];
+      sb[dm + i] = v.b[u];
+#pragma unroll
+      for (int si = 0; si < kSlots; ++si) acc[si] += v.x[u][si];
+    }
+  }
+  for (int i = threadIdx.x + kSLnPer * kSThreads; i < dm; i += kSThreads) {
+    float w[kSlots];
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si)
+      w[si] = si < nb ? to_f32(src[(int64_t)(s0 + si) * dm + i]) : 0.0f;
+    *reinterpret_cast<float4*>(xs4 + 4 * i) =
+        make_float4(w[0], w[1], w[2], w[3]);
+    sb[i] = scale[i];
+    sb[dm + i] = bias[i];
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si) acc[si] += w[si];
+  }
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) {
+    const float s = group_sum<32>(acc[si]);
+    if (lane == 0) redn[warp * kSlots + si] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) {
+    float tot = 0.0f;
+    for (int w = 0; w < kSWarps; ++w) tot += redn[w * kSlots + si];
+    mu[si] = tot / (float)dm;
+    acc[si] = 0.0f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < dm; i += kSThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(xs4 + 4 * i);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si) {
+      const float d = xv[si] - mu[si];
+      acc[si] += si < nb ? d * d : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) {
+    const float s = group_sum<32>(acc[si]);
+    if (lane == 0) redn[warp * kSlots + si] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int si = 0; si < kSlots; ++si) {
+    float tot = 0.0f;
+    for (int w = 0; w < kSWarps; ++w) tot += redn[w * kSlots + si];
+    r[si] = rsqrtf(tot / (float)dm + kNormEps);
+  }
+  for (int i = threadIdx.x; i < dm; i += kSThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(xs4 + 4 * i);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+    float o[4];
+#pragma unroll
+    for (int si = 0; si < kSlots; ++si)
+      o[si] = si < nb ? round_to<T>((xv[si] - mu[si]) * r[si] * sb[i] +
+                                    sb[dm + i])
+                      : 0.0f;
+    *reinterpret_cast<float4*>(xs4 + 4 * i) = make_float4(o[0], o[1], o[2],
+                                                          o[3]);
+  }
+  __syncthreads();
+}
+
+// Phase 1: for each item (head, columns), LayerNorm of x, the four gates'
+// wx columns, the head's h and their R columns (R h, f32), pre = round(gx)
+// + R h + bias (in that order), and the scalar-memory cell of those
+// columns (the new c, n, h, m).  With ``issue``, the block issues its
+// resident tiles of this layer (the first) once its own loads are in
+// flight.
+template <typename T, typename TW, int VX>
+__device__ void slstm_front(const Args& a, int l, const T* xsrc,
+                            const SPlan& p, const SLayout& sm, bool issue) {
+  const int64_t* wt = a.table + (int64_t)l * kColumns;
+  const int nh = a.nh, dh = a.dh, dm = a.dm;
+  const TW* wx = column<TW>(wt, S_WX);
+  const float* wxs = column<float>(wt, S_WX_SCALE);
+  const float* r = column<float>(wt, S_R);
+  const float* bias = column<float>(wt, S_B);
   const float* c_in = static_cast<const float*>(a.rows.in[P_SC][l]);
   const float* n_in = static_cast<const float*>(a.rows.in[P_SN][l]);
+  const float* h_in = static_cast<const float*>(a.rows.in[P_SH][l]);
   const float* m_in = static_cast<const float*>(a.rows.in[P_SM][l]);
   float* c_out = static_cast<float*>(a.rows.out[P_SC][l]);
   float* n_out = static_cast<float*>(a.rows.out[P_SN][l]);
   float* h_out = static_cast<float*>(a.rows.out[P_SH][l]);
   float* m_out = static_cast<float*>(a.rows.out[P_SM][l]);
-  const float* gn = column<float>(wt, S_GN);
-  const int e = threadIdx.x;  // dh <= kMThreads
-  const bool ok = e < dh;
-  for (int sh = blockIdx.x; sh < a.b * nh; sh += gridDim.x) {
-    const int s = sh / nh, hh = sh % nh;
-    float hv = 0.0f;
-    if (ok) {
-      const int64_t gi = (int64_t)s * d4 + hh * dh + e;
-      const int64_t si = (int64_t)sh * dh + e;
-      const float z = tanhf(pre[gi]);
-      const float ig = pre[gi + dm];
-      const float logf = log_sigmoid(pre[gi + 2 * dm]);
-      const float og = 1.0f / (1.0f + expf(-pre[gi + 3 * dm]));
-      const float m0 = m_in[si];
-      const float m1 = fmaxf(logf + m0, ig);
-      const float ip = expf(ig - m1);
-      const float fp = expf(logf + m0 - m1);
-      const float c1 = fp * c_in[si] + ip * z;
-      const float n1 = fp * n_in[si] + ip;
-      hv = og * c1 / fmaxf(n1, 1.0f);
-      c_out[si] = c1;
-      n_out[si] = n1;
-      h_out[si] = hv;
-      m_out[si] = m1;
+  const int cw = p.cw;
+  const int cap_x = (int)(sm.buf_bytes / ((size_t)kSGates * cw * sizeof(TW)));
+  const int cap_r =
+      (int)(sm.buf_bytes / ((size_t)kSGates * cw * sizeof(float)));
+  float* gx = sm.gx;
+  for (int t = blockIdx.x; t < p.items1; t += gridDim.x) {
+    const SItem it = slstm_item(p, dh, t);
+    const int64_t col0 = (int64_t)it.hh * dh + it.e0;
+    for (int s0 = 0; s0 < a.b; s0 += kSlots) {
+      const int nb = min(kSlots, a.b - s0);
+      // this thread's loads first: x and the norm's scale and bias, the
+      // head's h, its (slot, column)'s cell inputs
+      LnIn lin;
+      ln_load<T>(lin, xsrc, column<float>(wt, S_NORM),
+                 column<float>(wt, S_NORM_B), s0, nb, dm);
+      float hv[kSHPer][kSlots];
+#pragma unroll
+      for (int u = 0; u < kSHPer; ++u) {
+        const int i = threadIdx.x + u * kSThreads;
+#pragma unroll
+        for (int si = 0; si < kSlots; ++si)
+          hv[u][si] = i < dh && si < nb
+                          ? h_in[((int64_t)(s0 + si) * nh + it.hh) * dh + i]
+                          : 0.0f;
+      }
+      const int ci = threadIdx.x / it.ncols, cj = threadIdx.x % it.ncols;
+      const bool cell = (int)threadIdx.x < nb * it.ncols;
+      const int64_t si_idx =
+          ((int64_t)(s0 + ci) * nh + it.hh) * dh + it.e0 + cj;
+      float c0v = 0.0f, n0v = 0.0f, m0v = 0.0f;
+      if (cell) {
+        c0v = c_in[si_idx];
+        n0v = n_in[si_idx];
+        m0v = m_in[si_idx];
+      }
+      if (issue) {
+        slstm_issue_front<TW>(a, l, p, sm);
+        slstm_issue_out<TW>(a, l, p, sm);
+        issue = false;
+      }
+#pragma unroll
+      for (int u = 0; u < kSHPer; ++u) {
+        const int i = threadIdx.x + u * kSThreads;
+        if (i < dh)
+          *reinterpret_cast<float4*>(sm.hs4 + 4 * i) =
+              make_float4(hv[u][0], hv[u][1], hv[u][2], hv[u][3]);
+      }
+      ln_finish<T>(lin, sm.xs4, sm.sb, sm.redn, xsrc,
+                   column<float>(wt, S_NORM), column<float>(wt, S_NORM_B),
+                   s0, nb, dm);
+      strip_gemv<T, TW, VX, kSGates>(
+          sm.xs4, nb, dm, wx + col0, 4 * (int64_t)dm, dm, it.ncols,
+          cw / VX, wxs + col0,
+          reinterpret_cast<TW*>(sm.resident ? sm.wx : sm.r), sm.resident,
+          cap_x, sm.red, [&](int g, int si, int j, float sum) {
+            gx[(g * kSlots + si) * cw + j] = round_to<T>(sum);
+          });
+      strip_gemv<float, float, 4, kSGates>(
+          sm.hs4, nb, dh, r + (int64_t)it.hh * dh * dh + it.e0, dh,
+          (int64_t)nh * dh * dh, it.ncols, cw / 4, nullptr,
+          reinterpret_cast<float*>(sm.r), sm.resident, cap_r, sm.red,
+          [&](int g, int si, int j, float sum) {
+            const int i = (g * kSlots + si) * cw + j;
+            gx[i] = gx[i] + sum + bias[g * dm + col0 + j];
+          });
+      if (cell) {
+        const float* pre = gx + ci * cw + cj;
+        const float z = tanhf(pre[0]);
+        const float ig = pre[kSlots * cw];
+        const float logf = log_sigmoid(pre[2 * kSlots * cw]);
+        const float og = 1.0f / (1.0f + expf(-pre[3 * kSlots * cw]));
+        const float m1 = fmaxf(logf + m0v, ig);
+        const float ip = expf(ig - m1);
+        const float fp = expf(logf + m0v - m1);
+        const float c1 = fp * c0v + ip * z;
+        const float n1 = fp * n0v + ip;
+        c_out[si_idx] = c1;
+        n_out[si_idx] = n1;
+        h_out[si_idx] = og * c1 / fmaxf(n1, 1.0f);
+        m_out[si_idx] = m1;
+      }
     }
-    const float mu = block_sum(hv, redn) / (float)dh;
-    const float dv = ok ? hv - mu : 0.0f;
-    const float var = block_sum(dv * dv, redn) / (float)dh;
-    if (ok)
-      y[(int64_t)s * dm + hh * dh + e] =
-          round_to<T>(dv * rsqrtf(var + kNormEps) * gn[hh * dh + e]);
   }
-  grid.sync();
-  // D: out, residual
-  out_residual<T, TW>(a, column<TW>(wt, S_OUT), column<float>(wt, S_OUT_SCALE),
-                      dm, y, xsrc, xs, red);
+  if (issue) {  // a block with no item keeps the groups in step
+    slstm_issue_front<TW>(a, l, p, sm);
+    slstm_issue_out<TW>(a, l, p, sm);
+  }
 }
 
-template <typename T, typename TW, bool kSlstm>
-__global__ void __launch_bounds__(kSlstm ? kMThreads : kXThreads)
-    xlstm_megakernel(const Args a) {
+// Rows s0 .. s0+nb-1 of y = group_norm(h') into shared memory
+// interleaved, xs4[i][si] (0 for si >= nb): h' from this layer's new state
+// (written by other blocks before the barrier, so read past L1) and the
+// norm's scale (into gs) loaded kSLnPer a slot before any is stored, each
+// (slot, head)'s mean and biased variance by one warp, in a fixed order,
+// then (h' - mean) * rsqrt(var + eps) * scale rounded to the compute type.
+template <typename T>
+__device__ void stage_gnorm(float* xs4, float* gs, const float* h,
+                            const float* gn, int s0, int nb, int nh,
+                            int dh) {
+  const int dm = nh * dh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i0 = threadIdx.x; i0 < dm; i0 += kSLnPer * kSThreads) {
+    float v[kSLnPer][kSlots], g[kSLnPer];
+#pragma unroll
+    for (int u = 0; u < kSLnPer; ++u) {
+      const int i = i0 + u * kSThreads;
+      g[u] = i < dm ? gn[i] : 0.0f;
+#pragma unroll
+      for (int si = 0; si < kSlots; ++si)
+        v[u][si] = i < dm && si < nb
+                       ? __ldcg(h + (int64_t)(s0 + si) * dm + i) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kSLnPer; ++u) {
+      const int i = i0 + u * kSThreads;
+      if (i < dm) {
+        gs[i] = g[u];
+        *reinterpret_cast<float4*>(xs4 + 4 * i) =
+            make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int q = warp; q < nb * nh; q += kSWarps) {
+    const int si = q / nh, hh = q % nh;
+    float* col = xs4 + 4 * (int64_t)hh * dh + si;
+    float sum = 0.0f;
+    for (int e = lane; e < dh; e += 32) sum += col[4 * e];
+    const float mu = group_sum<32>(sum) / (float)dh;
+    float sq = 0.0f;
+    for (int e = lane; e < dh; e += 32) {
+      const float dv = col[4 * e] - mu;
+      sq += dv * dv;
+    }
+    const float rs = rsqrtf(group_sum<32>(sq) / (float)dh + kNormEps);
+    for (int e = lane; e < dh; e += 32)
+      col[4 * e] = round_to<T>((col[4 * e] - mu) * rs * gs[hh * dh + e]);
+  }
+  __syncthreads();
+}
+
+// Phase 2: for each item (out columns), y from h', the columns of out and
+// the residual add (the residual's entries loaded first, staged in
+// shared memory once y is).
+template <typename T, typename TW, int VO>
+__device__ void slstm_out(const Args& a, int l, const T* xsrc,
+                          const SPlan& p, const SLayout& sm) {
+  const int64_t* wt = a.table + (int64_t)l * kColumns;
+  const int dm = a.dm;
+  const TW* W = column<TW>(wt, S_OUT);
+  const float* ws = column<float>(wt, S_OUT_SCALE);
+  const float* h = static_cast<const float*>(a.rows.out[P_SH][l]);
+  T* x = static_cast<T*>(a.x);
+  const int cap = (int)(sm.buf_bytes / ((size_t)p.cwo * sizeof(TW)));
+  const int cwo = p.cwo;
+  for (int t = blockIdx.x; t < p.items2; t += gridDim.x) {
+    const int j0 = t * cwo, ncols = min(cwo, dm - j0);
+    for (int s0 = 0; s0 < a.b; s0 += kSlots) {
+      const int nb = min(kSlots, a.b - s0);
+      const int rs = threadIdx.x / cwo, rj = threadIdx.x % cwo;
+      const bool mine = rs < nb && rj < ncols;
+      const float rv =
+          mine ? to_f32(xsrc[(int64_t)(s0 + rs) * dm + j0 + rj]) : 0.0f;
+      stage_gnorm<T>(sm.xs4, sm.sb, h, column<float>(wt, S_GN), s0, nb,
+                     a.nh, a.dh);
+      if (mine) sm.res[rs * cwo + rj] = rv;
+      for (int q = threadIdx.x + kSThreads; q < nb * cwo; q += kSThreads)
+        if (q % cwo < ncols)
+          sm.res[q] = to_f32(xsrc[(int64_t)(s0 + q / cwo) * dm + j0 +
+                                  q % cwo]);
+      strip_gemv<T, TW, VO, 1>(
+          sm.xs4, nb, dm, W + j0, dm, 0, ncols, p.lo, ws + j0,
+          reinterpret_cast<TW*>(sm.resident ? sm.wo : sm.r), sm.resident,
+          cap, sm.red, [&](int, int si, int j, float sum) {
+            x[(int64_t)(s0 + si) * dm + j0 + j] =
+                from_f32<T>(sm.res[si * cwo + j] + round_to<T>(sum));
+          });
+    }
+  }
+}
+
+// One sLSTM layer: phase 1, a grid barrier, phase 2.  Where resident,
+// the next layer's R and wx strips are issued as soon as this layer's
+// are read and its out tile once this one is; every block commits the
+// same groups in the same order (empty where it issued nothing), so each
+// wait knows how many groups came after the one it needs.
+template <typename T, typename TW>
+__device__ void slstm_layer(const Args& a, cg::grid_group& grid, int l,
+                            const T* xsrc, const SPlan& p,
+                            const SLayout& sm) {
+  const bool issue = sm.resident && l == 0;
+  if constexpr (sizeof(TW) == 1) {
+    if (p.vx == 8)
+      slstm_front<T, TW, 8>(a, l, xsrc, p, sm, issue);
+    else
+      slstm_front<T, TW, 4>(a, l, xsrc, p, sm, issue);
+  } else {
+    slstm_front<T, TW, 4>(a, l, xsrc, p, sm, issue);
+  }
+  if (sm.resident) {
+    if (l + 1 < a.L)
+      slstm_issue_front<TW>(a, l + 1, p, sm);
+    else
+      cp_async_commit();
+  }
+  grid.sync();
+  if constexpr (sizeof(TW) == 1) {
+    if (p.vo == 8)
+      slstm_out<T, TW, 8>(a, l, xsrc, p, sm);
+    else
+      slstm_out<T, TW, 4>(a, l, xsrc, p, sm);
+  } else {
+    slstm_out<T, TW, 4>(a, l, xsrc, p, sm);
+  }
+  if (sm.resident) {
+    if (l + 1 < a.L)
+      slstm_issue_out<TW>(a, l + 1, p, sm);
+    else
+      cp_async_commit();
+  }
+}
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kSThreads, 1)
+    slstm_megakernel(const __grid_constant__ Args a) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
-  float* xs = smem;                                // kSlots * d_model
-  float* red = xs + kSlots * a.dm;                 // kMWarps * kSlots * 32 * kVec
-  float* redn = red + kMWarps * kSlots * 32 * kVec;  // kMWarps * kSlots
+  const SPlan p = slstm_plan(a.dm, a.nh, a.dh, sizeof(TW) == 1);
+  const SLayout sm = slstm_layout(smem, p, a.dm, a.dh, sizeof(TW));
   const T* x0 = static_cast<const T*>(a.x0);
   const T* x = static_cast<const T*>(a.x);
   for (int l = 0; l < a.L; ++l) {
     const T* xsrc = l == 0 ? x0 : x;
-    if constexpr (kSlstm)
-      slstm_layer<T, TW>(a, grid, l, xsrc, xs, red, redn);
-    else
-      mlstm_layer<T, TW>(a, grid, l, xsrc, smem);
+    slstm_layer<T, TW>(a, grid, l, xsrc, p, sm);
     if (l + 1 < a.L) grid.sync();
   }
 }
 
-// Shared memory of one block.  sLSTM: the staged rows, the tile reduction
-// and the norm partials.  mLSTM: the larger of A's and E's (4 slots'
-// inputs interleaved, the GEMV reduction, the norm partials) and C''s
-// (the head's staged cv and u, q and k, the gates, the cell's per-warp
-// partials).
-inline size_t smem_bytes(int slstm, int dm) {
-  if (slstm)
-    return sizeof(float) * ((size_t)kSlots * dm +
-                            kMWarps * kSlots * 32 * kVec + kMWarps * kSlots);
-  return kXSmem;
-}
+// Shared memory of one block.  sLSTM: the opt-in maximum (slstm_layout
+// places the inputs and the resident tiles in it, or the streaming
+// buffer).  mLSTM: the larger of A's and E's (4 slots' inputs interleaved,
+// the GEMV reduction, the norm partials) and C''s (the head's staged cv
+// and u, q and k, the gates, the cell's per-warp partials).
+inline size_t smem_bytes(int slstm, int) { return slstm ? kSSmem : kXSmem; }
 
-// f32 scratch of one launch (mlstm_scratch's layout for the mLSTM;
-// repro_torch/kernels/megakernel.py xlstm_scratch_floats)
+// f32 scratch of one launch (mlstm_scratch's layout for the mLSTM, none
+// for the sLSTM; repro_torch/kernels/megakernel.py xlstm_scratch_floats)
 inline int64_t scratch_floats(int slstm, int b, int dm, int nh) {
-  if (slstm) return (int64_t)b * 9 * dm;
+  if (slstm) return 0;
   const int di = 2 * dm, nt = ntiles_of(di / nh), ng = ngroups_of(di / nh);
   const int64_t bdi = (int64_t)b * di, bh = (int64_t)b * nh;
   return bdi * (3 + nt + ng) + (int64_t)kMaxSplit * b * dm + bh * (nt + ng) +
@@ -1458,7 +1908,7 @@ inline int64_t scratch_floats(int slstm, int b, int dm, int nh) {
 }
 
 // threads a block of the mLSTM (slstm 0) or sLSTM (1) kernel
-inline int block_threads(int slstm) { return slstm ? kMThreads : kXThreads; }
+inline int block_threads(int slstm) { return slstm ? kSThreads : kXThreads; }
 
 using KernelFn = void (*)(const Args);
 

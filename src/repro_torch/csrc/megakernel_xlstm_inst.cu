@@ -22,8 +22,7 @@ using TWgt = int8_t;
 #endif
 
 KernelFn XL_NAME(XL_ACT, XL_W)(int slstm) {
-  return slstm ? xlstm_megakernel<TAct, TWgt, true>
-               : xlstm_megakernel<TAct, TWgt, false>;
+  return slstm ? slstm_megakernel<TAct, TWgt> : mlstm_megakernel<TAct, TWgt>;
 }
 
 }  // namespace xl

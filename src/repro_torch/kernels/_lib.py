@@ -54,6 +54,7 @@ _SIGNATURES = {
     "marca_decode_step": [_P] * 11 + [_I] * 3 + [_L] * 5 + [_I] * 3 + [_P],
     "marca_decode_step_q": [_P] * 13 + [_I] * 4 + [_L] * 5 + [_I] * 4
     + [_P],
+    "marca_decode_step_q_shape": [_I, _I, _P],
     "marca_mamba_stacked_step": [_P] * 2 + [_I] + [_P] * 9 + [_L]
     + [_I] * 12 + [_P],
     "marca_mamba_stack_maps": [_P] + [_I] * 5 + [_P] * 2,

@@ -12,6 +12,8 @@ kernel runs (d_state 16); on a CPU tensor the plain version does.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import state_quant
@@ -122,3 +124,15 @@ def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
               _lib.SILU_IMPLS[silu_impl])
     launches_q += 1
     return y, hq_new, scale_new
+
+
+def q_launch_shape(slots: int, d: int) -> dict:
+    """The launch ``selective_state_step_q`` makes on the card for
+    (slots, d): its grid, the blocks of a thread-block cluster (one
+    cluster per (slot, 512-channel group)) and the threads of a block."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib.lib().marca_decode_step_q_shape(
+        slots, d, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"marca_decode_step_q_shape: CUDA error {rc}")
+    return {"grid": (out[0], out[1]), "cluster": out[2], "threads": out[3]}

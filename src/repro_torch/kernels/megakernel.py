@@ -554,9 +554,10 @@ MAX_XLSTM_RUN = 32
 #: the widest head: a C row is one warp's 16 columns a lane, the cell's
 #: reduction holds 16 warps x dh floats, and D's work a thread a column
 MAX_XLSTM_HEAD = 512
-#: the widest d_model of an mLSTM run: E stages 4 slots' rows of y for its
-#: row range in shared memory beside its weight tile (csrc kMaxXModel)
-MAX_MLSTM_MODEL = 4096
+#: the widest d_model of an xLSTM run: the mLSTM's E stages 4 slots' rows
+#: of y for its row range in shared memory beside its weight tile, the
+#: sLSTM stages 4 slots' inputs beside its weight buffer (csrc kMaxXModel)
+MAX_XLSTM_MODEL = 4096
 _XLSTM_ROWS = 16     # rows of C per C' item (csrc kTileRows)
 _XLSTM_GROUP = 8     # C' tiles summed by one block (kGroupTiles)
 _XLSTM_MAX_SPLIT = 32  # K splits of the down projection, at most (kMaxSplit)
@@ -617,7 +618,7 @@ class XlstmRun:
     every weight (shape, dtype, contiguity, one device, f32 or int8
     throughout) and refuses what K3 does not take: a norm other than
     LayerNorm with a bias, dense biases, a head wider than 512, a head or
-    d_model no multiple of 4, an mLSTM d_model above 4096, or more than 32
+    d_model no multiple of 4, a d_model above 4096, or more than 32
     layers."""
 
     def __init__(self, cfg, kind, rows):
@@ -637,9 +638,9 @@ class XlstmRun:
                      f"widths that are multiples of 4 (its tiles load 4 "
                      f"columns a thread): {di} over {nh} heads, d_model "
                      f"{cfg.d_model}")
-        _lib.require(kind == "slstm" or cfg.d_model <= MAX_MLSTM_MODEL,
-                     f"K3's mLSTM instance takes d_model up to "
-                     f"{MAX_MLSTM_MODEL}, not {cfg.d_model}")
+        _lib.require(cfg.d_model <= MAX_XLSTM_MODEL,
+                     f"K3's xLSTM instances take d_model up to "
+                     f"{MAX_XLSTM_MODEL}, not {cfg.d_model}")
         dense = ("up", "down") if kind == "mlstm" else ("wx", "out")
         self.kind = kind
         self.int8 = "w_scale" in _leaf(rows[0], (dense[0],), False)
@@ -656,10 +657,11 @@ def xlstm_scratch_floats(kind, slots, d_model, n_heads) -> int:
     conv output and g, the C' items' partial sums of C'^T q (one per tile
     of 16 rows) and their sums over groups of 8 tiles, the down items'
     partial sums (up to 32 row ranges), the same two sums of n'.q, and the
-    arrival counters (a group of tiles, a 64-column tile of down); sLSTM
-    the input gates, the pre-activations and y."""
+    arrival counters (a group of tiles, a 64-column tile of down).  The
+    sLSTM needs none: its items keep the gates in shared memory and read
+    h' back from the new state."""
     if kind == "slstm":
-        return slots * 9 * d_model
+        return 0
     di = 2 * d_model
     ntile = -(-(di // n_heads) // _XLSTM_ROWS)
     ngroup = -(-ntile // _XLSTM_GROUP)

@@ -14,7 +14,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
 from _torch_inputs import (UNIT_IMPLS, VARIANTS, assert_q_close, close,
-                           code_ordinals, device_kernels, jamba_run_inputs,
+                           code_ordinals, device_kernels, graph_kernels,
+                           jamba_run_inputs,
                            np_input, q_step_tensors, scan_arrays, scan_call,
                            stacked_inputs, step_arrays, to_torch,
                            unit_value_mismatches, xlstm_run_inputs)
@@ -215,6 +216,46 @@ def test_cuda_step_q_matches_plain(cuda, state_dtype, a8, dtype, tol, d):
         torch.cuda.synchronize()
         assert tstep.launches_q == n0 + 1
         assert_q_close(got, want, tol, f"{exp_impl}/{silu_impl}")
+
+
+def _same_bits(a, b):
+    """Whether two (y, payload, scales) results hold the same bits."""
+    def raw(t):
+        return t.view({1: torch.uint8, 2: torch.int16,
+                       4: torch.int32}[t.dtype.itemsize])
+    return all(torch.equal(raw(u), raw(v)) for u, v in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("slots", [1, 4, 9])
+@pytest.mark.parametrize("d", [512, 513, 1536, 1100, 8192])
+def test_cuda_step_q_clusters_match_plain_and_repeat(cuda, d, slots,
+                                                     state_dtype):
+    """K2 runs one thread-block cluster per (slot, 512-channel group) and
+    meets the group's absmax in distributed shared memory: one group
+    (512), a ragged group of one channel (513: seven of its eight blocks
+    own no channel), mamba-130m's 3 groups, a ragged third (1100) and
+    jamba's 16 (8192), by 1, 4 and 9 slots, f32 and int8 A, f32 and
+    bf16.  Each is held to the plain version, repeats bit for bit, and is
+    one device kernel a call."""
+    for a8 in (False, True):
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+            args, kw = q_step_tensors(slots, d, 16, state_dtype,
+                                      seed=d + slots, a8=a8, dtype=dtype,
+                                      device=cuda)
+            kw["state_dtype"] = state_dtype
+            n0 = tstep.launches_q
+            got = tstep.selective_state_step_q(*args, **kw)
+            again = tstep.selective_state_step_q(*args, **kw)
+            want = ref.selective_state_step_q(*args, **kw)
+            torch.cuda.synchronize()
+            assert tstep.launches_q == n0 + 2
+            label = f"d={d} slots={slots} a8={a8} {dtype}"
+            assert_q_close(got, want, tol, label)
+            assert _same_bits(got, again), label
+            assert graph_kernels(
+                lambda: tstep.selective_state_step_q(*args, **kw)) == 1
 
 
 @pytest.mark.gpu
@@ -886,6 +927,49 @@ def test_cuda_xlstm_run_is_its_layers_in_turn(cuda, kind):
         for k in u:
             assert torch.equal(u[k].view(torch.uint8), v[k].view(torch.uint8))
             assert torch.equal(u[k].view(torch.uint8), w[k].view(torch.uint8))
+
+
+# K3-slstm's phase-1 items take a tile of one head's columns for all four
+# gates, the narrowest tile that gives each of the card's blocks at most
+# one item: on an H100 (132 SMs) 8 columns at d_model 1040 (heads of 260:
+# a last tile of 4) with the tiles resident in shared memory, 16 at 1552
+# (heads of 388: a last tile of 4) streamed through one buffer; held to
+# the plain version in f32 over two layers, and in bf16 a launch repeats
+# bit for bit and equals its layers launched in turn.
+@pytest.mark.gpu
+@pytest.mark.parametrize("weight_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("slots", [1, 3])
+@pytest.mark.parametrize("d_model", [1040, 1552])
+def test_cuda_slstm_ragged_items_match_plain_and_repeat(cuda, d_model,
+                                                       slots, weight_dtype):
+    from repro_torch.kernels import megakernel
+    cfg = _xlstm_cfg(d_model, 4, "float32", weight_dtype, "f32")
+    run, x0, states, outs = xlstm_run_inputs(cfg, "slstm", 2, slots,
+                                             seed=d_model + slots,
+                                             device=cuda)
+    x1 = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    x0r, want = ref.xlstm_stacked_run(cfg, x0, "slstm", run.rows, states)
+    torch.cuda.synchronize()
+    label = f"slstm {d_model} x{slots} {weight_dtype}"
+    _xlstm_close(cfg, "slstm", x1, outs, x0r, want, 1e-4, label)
+    cfg = _xlstm_cfg(d_model, 4, "bfloat16", weight_dtype, "f32")
+    run, x0, states, outs = xlstm_run_inputs(cfg, "slstm", 2, slots,
+                                             seed=d_model + slots,
+                                             device=cuda)
+    a = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    first = [{k: v.clone() for k, v in o.items()} for o in outs]
+    b = megakernel.xlstm_stacked_run(cfg, x0, run, states, outs)
+    x, chain = x0, []
+    for row, st in zip(run.rows, states):
+        out = {k: torch.empty_like(v) for k, v in st.items()}
+        x = megakernel.xlstm_stacked_run(
+            cfg, x, megakernel.XlstmRun(cfg, "slstm", [row]), [st], [out])
+        chain.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, x), label
+    for u, v, w in zip(first, outs, chain):
+        for k in u:
+            assert torch.equal(u[k], v[k]) and torch.equal(u[k], w[k]), label
 
 
 # K3-mlstm's items split C by (head, 16-row tile) over every slot, and the

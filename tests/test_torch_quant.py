@@ -137,7 +137,7 @@ def test_quantize_tree_equals_repros_on_the_bridged_tree():
 @pytest.mark.parametrize("state_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("exp_impl,silu_impl", VARIANTS)
 @pytest.mark.parametrize("a8", [False, True], ids=["f32_A", "int8_A"])
-@pytest.mark.parametrize("b,d", [(4, 64), (3, 1100)])
+@pytest.mark.parametrize("b,d", [(4, 64), (3, 1100), (2, 513)])
 def test_step_q_plain_matches_repros_kernel(state_dtype, exp_impl,
                                             silu_impl, a8, b, d):
     args, kw = q_step_tensors(b, d, 16, state_dtype, seed=d, a8=a8)
