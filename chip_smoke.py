@@ -25,8 +25,9 @@ Phases, each fatal on failure:
    launch that writes y and its tail, which is held bitwise; also at L 2
    and 3, with and without x_prev; each launch repeated bit for bit and
    one device kernel a call), the
-   decode step with f32 A and with int8 A (K1), and the quantized-state
-   step (K2) with int8 and fp8 state, f32 and int8 A, at d 1536 and 1100;
+   decode step with f32 A and with int8 A (K1, its launch shape printed)
+   and the quantized-state step (K2) with int8 and fp8 state, f32 and
+   int8 A, each at d 1536 and 1100;
    K2's
    encoding against torch's over the whole code range; the fp8 slot
    operations (byte views) against exact fp8 results; the cross-layer
@@ -793,26 +794,32 @@ def phase_kernels(cfg, dev):
                 FAILURES.append(f"{name} repeat / one kernel")
             if dtype == torch.bfloat16 and L == 1:
                 serving["causal_conv1d"] = e
-        for a8 in (False, True):
-            key = "decode_step_int8a" if a8 else "decode_step"
-            for ei, si in VARIANTS:
-                x, dt, A, B, C, D, z, h = scan_inputs(4, 1, d, n, r, dtype,
-                                                      gen, dev)
-                a_scale = None
-                if a8:
-                    A, a_scale = weight_quant.quantize_rows(A)
-                args = (h, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0])
-                kw = dict(D=D, z_t=z[:, 0], exp_impl=ei, silu_impl=si,
-                          a_scale=a_scale)
-                y1, h1 = decode_step.selective_state_step(*args, **kw)
-                y0, h0r = ref.selective_state_step(*args, **kw)
-                torch.cuda.synchronize()
-                name = (f"step {tag} slots=4 {'int8' if a8 else 'f32'} A "
-                        f"exp={ei} silu={si}")
-                e = check(name + " y", y1, y0, *t["step"])
-                check(name + " h_new", h1, h0r, *tol[torch.float32]["step"])
-                if dtype == torch.bfloat16 and ei == "exact":
-                    serving[key] = e
+        for dd in (d, 1100):
+            if dtype == torch.float32:
+                shp = decode_step.launch_shape(4, dd)
+                log(f"  step launch at slots=4 d={dd}: grid {shp['grid']} x "
+                    f"{shp['threads']}")
+            for a8 in (False, True):
+                key = "decode_step_int8a" if a8 else "decode_step"
+                for ei, si in VARIANTS:
+                    x, dt, A, B, C, D, z, h = scan_inputs(4, 1, dd, n, r,
+                                                          dtype, gen, dev)
+                    a_scale = None
+                    if a8:
+                        A, a_scale = weight_quant.quantize_rows(A)
+                    args = (h, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0])
+                    kw = dict(D=D, z_t=z[:, 0], exp_impl=ei, silu_impl=si,
+                              a_scale=a_scale)
+                    y1, h1 = decode_step.selective_state_step(*args, **kw)
+                    y0, h0r = ref.selective_state_step(*args, **kw)
+                    torch.cuda.synchronize()
+                    name = (f"step {tag} slots=4 d={dd} "
+                            f"{'int8' if a8 else 'f32'} A exp={ei} silu={si}")
+                    e = check(name + " y", y1, y0, *t["step"])
+                    check(name + " h_new", h1, h0r,
+                          *tol[torch.float32]["step"])
+                    if dtype == torch.bfloat16 and dd == d and ei == "exact":
+                        serving[key] = e
         for sd in ("int8", "fp8"):
             for dd in (d, 1100):
                 for a8 in (False, True):
@@ -1321,6 +1328,17 @@ DESIGNS["decode_step_q"] = (
     "block's channels; a relaxed arrival at launch makes sure every peer "
     "has started before the stores; each value's arithmetic as the "
     "12-block design's, so its bits")
+DESIGNS["decode_step"] = (
+    "4 lanes a channel, 4 consecutive states a lane, 32 channels a block of "
+    "128 threads, one block a (slot, 32 channels): one 16-byte load of h, "
+    "one 16-byte load of f32 A (4 bytes of int8 codes and the channel's "
+    "scale), one 16-byte store of h'; x, dt, z and D one broadcast load for "
+    "the 4 lanes, B and C 4 scalar loads a lane, every load issued before "
+    "the first arithmetic (one trip to memory); the sum over the states in "
+    "the order of the 16-lane butterfly (2 shuffle exchanges of 4 values, "
+    "2 adds in the lane), the rounding pinned to that design's, so y and h' "
+    "keep its bits")
+DESIGNS["decode_step_int8a"] = DESIGNS["decode_step"]
 DESIGNS["slstm_stacked_run"] = (
     "its own kernel: blocks of 256 threads, all of an SM's shared memory, "
     "Args __grid_constant__, 2 grid barriers a layer, no scratch, no "
@@ -1550,6 +1568,8 @@ def phase_timing(cfg, dev, counts, errs):
             entry["design"] = DESIGNS[name]
         if name == "decode_step_q":
             entry["launch"] = decode_step.q_launch_shape(4, d)
+        elif name.startswith("decode_step"):
+            entry["launch"] = decode_step.launch_shape(4, d)
         if "stacked" in name:
             instance = name.split("_")[0]
             entry["registers"] = {k: v for k, v in MAMBA_REGS.items()

@@ -52,6 +52,7 @@ _SIGNATURES = {
     + [_I] * 3 + [_P],
     "marca_causal_conv1d": [_P] * 6 + [_I] * 4 + [_L] * 2 + [_I, _P],
     "marca_decode_step": [_P] * 11 + [_I] * 3 + [_L] * 5 + [_I] * 3 + [_P],
+    "marca_decode_step_shape": [_I, _I, _P],
     "marca_decode_step_q": [_P] * 13 + [_I] * 4 + [_L] * 5 + [_I] * 4
     + [_P],
     "marca_decode_step_q_shape": [_I, _I, _P],
@@ -215,6 +216,15 @@ def check_dense(name, t, dtype, shape) -> None:
     check_rows(name, t, dtype, shape)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(nbytes: int, **tensors) -> None:
+    """Each tensor starts on an ``nbytes`` boundary (a kernel that moves
+    it in vectors of that size needs it)."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % nbytes:
+            raise ValueError(f"{name} must start on a {nbytes}-byte "
+                             f"boundary")
 
 
 def check_impls(exp_impl: str, silu_impl: str) -> None:

@@ -4,11 +4,13 @@
 Port of ``repro/kernels/decode_step.py``: ``selective_state_step``
 (Pallas ``_step_kernel``, pallas_call at :316) with f32 A or int8 A
 codes plus ``a_scale``, and ``selective_state_step_q`` (Pallas
-``_step_kernel_q``, pallas_call at :396) on an int8/fp8 state payload.
-The cross-layer megakernel is ROADMAP K3.  Same semantics and layout as
-the plain versions in ``kernels.ref``: h (slots, d, n); x, dt, z
-(slots, d); A (d, n); B, C (slots, n); D (d,) f32.  On a CUDA tensor the
-kernel runs (d_state 16); on a CPU tensor the plain version does.
+``_step_kernel_q``, pallas_call at :396) on an int8/fp8 state payload;
+``launch_shape`` and ``q_launch_shape`` report the launch each makes on
+the card.  The cross-layer megakernel is ROADMAP K3.  Same semantics
+and layout as the plain versions in ``kernels.ref``: h (slots, d, n);
+x, dt, z (slots, d); A (d, n); B, C (slots, n); D (d,) f32.  On a CUDA
+tensor the kernel runs (d_state 16); on a CPU tensor the plain version
+does.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
     with the one multiply ``weight_quant.dequantize_rows`` runs.  h_new
     is a new tensor: masking inactive slots stays with the caller.  x_t,
     dt_t, z_t, B_t and C_t may be strided views (unit stride on the last
-    axis only); h, A, a_scale and D must be contiguous."""
+    axis only); h, A, a_scale and D must be contiguous, and on the card h
+    and A must start on a 16-byte boundary."""
     global launches, launches_int8a
     slots, d, n = _check_step(x_t, dt_t, A, B_t, C_t, D, z_t, a_scale,
                               exp_impl, silu_impl, h=h)
@@ -71,6 +74,8 @@ def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
     _lib.require(n == 16, f"the CUDA decode step takes d_state 16, got {n}")
     y = torch.empty(slots, d, dtype=x_t.dtype, device=x_t.device)
     h_new = torch.empty_like(h)
+    # the kernel moves h, A and h' in 16-byte words
+    _lib.check_aligned(16, h=h, A=A, h_new=h_new)
     _lib.call("marca_decode_step", x_t.device,
               _lib.ptr(h), _lib.ptr(x_t), _lib.ptr(dt_t), _lib.ptr(A),
               _lib.ptr(a_scale), _lib.ptr(B_t), _lib.ptr(C_t), _lib.ptr(D),
@@ -124,6 +129,17 @@ def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
               _lib.SILU_IMPLS[silu_impl])
     launches_q += 1
     return y, hq_new, scale_new
+
+
+def launch_shape(slots: int, d: int) -> dict:
+    """The launch ``selective_state_step`` makes on the card for (slots,
+    d): its grid and the threads of a block (4 lanes a channel)."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib.lib().marca_decode_step_shape(
+        slots, d, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"marca_decode_step_shape: CUDA error {rc}")
+    return {"grid": (out[0], out[1]), "threads": out[2]}
 
 
 def q_launch_shape(slots: int, d: int) -> dict:

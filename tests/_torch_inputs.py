@@ -62,6 +62,30 @@ def device_kernels(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def device_launches(fn):
+    """(name, grid, block) of each device kernel one call of ``fn`` runs
+    on the card, from torch.profiler's trace (its kernel events carry the
+    launch's grid and block as [x, y, z])."""
+    import json
+    import os
+    import tempfile
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return [(e["name"], tuple(e["args"]["grid"]), tuple(e["args"]["block"]))
+            for e in events if e.get("cat") == "kernel"]
+
+
 def graph_kernels(fn) -> int:
     """The number of device kernels one call of ``fn`` launches: the
     kernel nodes of a CUDA graph that captures the call, read through the

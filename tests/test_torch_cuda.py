@@ -14,7 +14,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
 from _torch_inputs import (UNIT_IMPLS, VARIANTS, assert_q_close, close,
-                           code_ordinals, device_kernels, graph_kernels,
+                           code_ordinals, device_kernels, device_launches,
+                           graph_kernels,
                            jamba_run_inputs,
                            np_input, q_step_tensors, scan_arrays, scan_call,
                            stacked_inputs, step_arrays, to_torch,
@@ -162,27 +163,72 @@ def test_cuda_conv_is_one_device_kernel(cuda, b, L, prev):
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
+# K1's shapes: mamba-130m's width at 1, 4 and 16 slots, a ragged last
+# block of 12 channels (1100), one of a single channel (513) at 9 slots,
+# and jamba's width (8192)
+K1_SHAPES = [(4, 1536), (1, 1536), (4, 1100), (9, 513), (16, 1536),
+             (4, 8192)]
+
+
+def _step_tensors(slots, d, dtype, device, seed):
+    """step_arrays as tensors, B_t and C_t columns of one wider x_proj row
+    after dt_rank ceil(d / 32) columns, as the Mamba block passes them
+    (rows that start 2-byte aligned where that rank is odd)."""
+    s = to_torch(step_arrays(slots, d, 16, seed=seed), dtype, device)
+    r = -(-d // 32)
+    dbc = torch.from_numpy(np_input(seed + 8, slots, r + 32)).to(
+        device, getattr(torch, dtype))
+    dbc[:, r:r + 16] = s["B_t"]
+    dbc[:, r + 16:] = s["C_t"]
+    s["B_t"], s["C_t"] = dbc[:, r:r + 16], dbc[:, r + 16:]
+    return s
+
+
+def _check_step_launch(cuda, slots, d, args, kw, got):
+    """A second launch repeats ``got`` bit for bit, and one call is one
+    device kernel at the grid and block ``launch_shape`` reports."""
+    again = tstep.selective_state_step(*args, **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    assert graph_kernels(lambda: tstep.selective_state_step(*args, **kw)) == 1
+    launches = device_launches(
+        lambda: tstep.selective_state_step(*args, **kw))
+    shape = tstep.launch_shape(slots, d)
+    assert len(launches) == 1 and "decode_step_kernel" in launches[0][0]
+    assert launches[0][1:] == ((*shape["grid"], 1), (shape["threads"], 1, 1))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("exp_impl,silu_impl", VARIANTS)
-def test_cuda_step_matches_plain(cuda, dtype, tol, exp_impl, silu_impl):
-    s = to_torch(step_arrays(4, 1536, 16, seed=9), dtype, cuda)
+@pytest.mark.parametrize("slots,d", K1_SHAPES)
+def test_cuda_step_matches_plain(cuda, dtype, tol, exp_impl, silu_impl,
+                                 slots, d):
+    """K1 (f32 A) against its plain version on strided B and C rows; a
+    second launch equal bit for bit; one device kernel a call, at the
+    launch ``launch_shape`` reports."""
+    s = _step_tensors(slots, d, dtype, cuda, seed=9)
     kw = dict(D=s["D"], z_t=s["z_t"], exp_impl=exp_impl, silu_impl=silu_impl)
     args = (s["h"], s["x_t"], s["dt_t"], s["A"], s["B_t"], s["C_t"])
+    n0 = (tstep.launches, tstep.launches_int8a)
     y1, h1 = tstep.selective_state_step(*args, **kw)
     y0, h0 = ref.selective_state_step(*args, **kw)
     torch.cuda.synchronize()
+    assert (tstep.launches, tstep.launches_int8a) == (n0[0] + 1, n0[1])
     close(y1.cpu(), y0.cpu().float().numpy(), tol)
     close(h1.cpu(), h0.cpu().numpy(), 1e-5)
+    _check_step_launch(cuda, slots, d, args, kw, (y1, h1))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("exp_impl,silu_impl", VARIANTS)
+@pytest.mark.parametrize("slots,d", K1_SHAPES)
 def test_cuda_step_int8_a_matches_plain(cuda, dtype, tol, exp_impl,
-                                        silu_impl):
-    """K1's int8-A variant: A as int8 codes + per-row scales."""
-    s = to_torch(step_arrays(4, 1536, 16, seed=19), dtype, cuda)
+                                        silu_impl, slots, d):
+    """K1's int8-A variant: A as int8 codes + per-row scales, as the f32-A
+    test holds it."""
+    s = _step_tensors(slots, d, dtype, cuda, seed=19)
     A_q, a_scale = weight_quant.quantize_rows(s["A"])
     kw = dict(D=s["D"], z_t=s["z_t"], exp_impl=exp_impl, silu_impl=silu_impl,
               a_scale=a_scale)
@@ -194,6 +240,28 @@ def test_cuda_step_int8_a_matches_plain(cuda, dtype, tol, exp_impl,
     assert (tstep.launches, tstep.launches_int8a) == (n0[0], n0[1] + 1)
     close(y1.cpu(), y0.cpu().float().numpy(), tol)
     close(h1.cpu(), h0.cpu().numpy(), 1e-5)
+    _check_step_launch(cuda, slots, d, args, kw, (y1, h1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["h", "A", "A_int8"])
+def test_cuda_step_misaligned_raises(cuda, which):
+    """K1 moves h and A in 16-byte words: an h or A that starts off a
+    16-byte boundary raises before any launch (no fallback)."""
+    s = _step_tensors(4, 1536, "float32", cuda, seed=29)
+    a_scale = None
+    if which == "A_int8":
+        s["A"], a_scale = weight_quant.quantize_rows(s["A"])
+    key = "h" if which == "h" else "A"
+    t = s[key]
+    shifted = torch.empty(t.numel() + 4, dtype=t.dtype, device=cuda)
+    s[key] = shifted[1:1 + t.numel()].view(t.shape)
+    s[key].copy_(t)
+    n0 = (tstep.launches, tstep.launches_int8a)
+    with pytest.raises(ValueError, match="16-byte"):
+        tstep.selective_state_step(s["h"], s["x_t"], s["dt_t"], s["A"],
+                                   s["B_t"], s["C_t"], a_scale=a_scale)
+    assert (tstep.launches, tstep.launches_int8a) == n0
 
 
 @pytest.mark.gpu
@@ -219,7 +287,8 @@ def test_cuda_step_q_matches_plain(cuda, state_dtype, a8, dtype, tol, d):
 
 
 def _same_bits(a, b):
-    """Whether two (y, payload, scales) results hold the same bits."""
+    """Whether two results ((y, h') or (y, payload, scales)) hold the same
+    bits."""
     def raw(t):
         return t.view({1: torch.uint8, 2: torch.int16,
                        4: torch.int32}[t.dtype.itemsize])

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
-chip_smoke.py or scripts/torch_serve_profile.py imports jax or the repro
-package, not even lazily inside a function, and the port's serve path
+chip_smoke.py or the card scripts (scripts/torch_*.py) imports jax or the
+repro package, not even lazily inside a function, and the port's serve path
 imports with jax made unimportable."""
 import ast
 import os
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_serve_profile.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imported_modules(source):

@@ -199,6 +199,22 @@ def test_step_and_conv_wrappers_check_arguments():
         tconv.causal_conv1d(x, torch.ones(4, 8, dtype=torch.float64))
 
 
+@pytest.mark.parametrize("offset,ok", [(0, True), (4, True), (1, False),
+                                       (2, False), (3, False)])
+def test_check_aligned_takes_only_16_byte_starts(offset, ok):
+    """The decode step's alignment check: h, A and h' move in 16-byte
+    words on the card, so a tensor starting off a 16-byte boundary is
+    refused (offset counted in f32 elements of a fresh tensor)."""
+    base = torch.zeros(64)
+    assert base.data_ptr() % 16 == 0
+    t = base[offset:offset + 32]
+    if ok:
+        _lib.check_aligned(16, h=t, A=None)
+    else:
+        with pytest.raises(ValueError, match="h must start on a 16-byte"):
+            _lib.check_aligned(16, h=t, A=None)
+
+
 def test_ops_dispatch_names_and_unported_impls():
     assert ops.resolve_step_impl("auto") == "fused"
     for name in ("fused", "pallas", "xla"):
