@@ -43,6 +43,15 @@ Phases, each fatal on failure:
    plain path on the CPU, on the same weights, and compare the logits:
    f32 weights and state, int8 weights, int8 weights with int8 state, and
    fp8 state;
+3s. speculative decoding's verify window in f32 (f32 weights and state:
+   K1; int8 weights and state: K2): after a 127-token prefill on 4 slots,
+   one window of 5 tokens from 3 starting states, held to phase 3's
+   tolerance against the CPU's window, the card's chained per-layer
+   decode steps and the rollback select of one step per slot (logits,
+   every step's h and conv; an int8 payload within one code), with the
+   tie rule's greedy agreement; K5's tail over the window bitwise the
+   last per-step tail; and K3 at the spec pool's 8 slots at full width
+   (24 layers and the draft's 12) against its plain version;
 4. serve 9 requests at bf16 (4 slots, prompt lengths 64/127/256/512, 32
    new tokens, 8 greedy + 1 sampled) five times: per layer with f32
    weights and state through ``Server``, int8 weights with int8 state and
@@ -52,6 +61,19 @@ Phases, each fatal on failure:
    ``Engine``; each run checks the launch counts of every kernel, that no
    plain version ran, and the slot size, and a K3 run prints its token
    agreement with the per-layer run of its setup;
+4s. speculative serving through ``Engine(..., EngineConfig(draft=
+   DraftConfig(k=4, layers=12)))``, step_impl "auto" (the draft through
+   its own K3 view of 12 layers over the 8-row pool, the verify window per
+   layer): 8 requests on 4 slots (prompts 64 and 127, 32 new tokens, 6
+   greedy and 2 sampled), f32 weights and state, int8 weights and state,
+   and a full-depth draft (layers 24) whose greedy rejections must all be
+   ties; each run checks every kernel's launches against the engine's
+   counters (K3 = draft steps + plain steps, K1/K2 = 24 x verified
+   tokens, K5 = 24 a pass + 24 an admission), that no plain version ran,
+   that every scratch lease came back and the slot size, and prints tok/s
+   beside the plain engine's on the same traffic, tokens per pass, the
+   acceptance rate and the greedy agreement; then the device time of one
+   verify pass against 5 plain decode steps;
 5. time each kernel on the card (the scan at L 512, 64, 127 and 256 and
    at jamba's d_inner 8192, its bound the larger of its bytes and its
    exponentials at the SFU rate; device time from a CUDA graph replay,
@@ -81,12 +103,15 @@ units:
    kernel a call; K8's answer for NaN against ``repro``'s;
 3x. xlstm-350m in f32, prefill 127 + 8 decode steps, per layer and
    through K3 on the card against the CPU: f32, int8 weights with int8
-   state, fp8 state;
+   state, fp8 state; its verify window (f32) against the CPU's, layer
+   0's mLSTM state at every step;
 4x. serve it with phase 4's traffic and checks three times: per layer
    (f32) and through K3 (``"auto"``, f32) via ``Server``, through K3 via
    ``Engine`` (int8 weights, int8 state): 21 conv launches per admission,
    21 per decode step per layer, 3 K3-mlstm and 3 K3-slstm per step
    through K3;
+4xs. one spec serve run as phase 4s's (f32, draft of 12 layers: 2
+   K3-mlstm and 1 K3-slstm a draft step), 8 prompts of 64 tokens;
 5x. time K3-mlstm, K3-slstm, K8 and K9 (beside ``torch.exp`` /
    ``F.silu``), the whole decode step through K3 against per layer, and
    the prefill loop per prompt token;
@@ -108,22 +133,29 @@ generator:
    for bit;
 3j. the dense variant (n_experts 0, 8 layers) in f32, prefill 127 + 8
    decode steps, on the card per layer and through K3 against the CPU,
-   f32 and int8 weights with int8 state and int8 KV;
+   f32 and int8 weights with int8 state and int8 KV; its verify window
+   (f32) against the CPU's, position 0's state at every step;
 4j. serve the 16-expert model three times with mamba's traffic and
    phase 4's checks: per layer (f32) and through K3 (``"auto"``, f32)
    via ``Server``, through K3 via ``Engine`` (int8 weights, int8 state,
    int8 KV);
+4js. one spec serve run as phase 4s's with the full-depth draft (one
+   group: the target's K3 runs), 8 prompts of 64 tokens; its acceptance
+   is printed (expert capacity drops make an MoE layer's output depend
+   on the batch, and the draft's batch is not the verify's);
 5j. time K7 beside SDPA and its bound (and its device kernels a call),
    K3-jamba, and the whole jamba decode step through K3 against the
    per-layer one;
 
 and print one JSON line of every kernel (K5's and K7's with their
-designs, K7's with its SASS counts).
+designs, K7's with its SASS counts, each with its launches in the
+speculative serve runs).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
 prints no result.
 """
+import collections
 import json
 import subprocess
 import sys
@@ -2359,6 +2391,451 @@ def phase_jamba_timing(dev, counts, errs):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Speculative decoding (phases 3s, 4s, 4xs, 4js; the windows of 3x and 3j)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# (weights, state, tolerance) of each verify-window run: phase 3's
+SPEC_WINDOW_RUNS = (("f32", "f32", 2e-3), ("int8", "int8", 2e-2))
+# the tie rule's tolerance on a bf16 served run's logits: a bf16 rounding
+# step is 2^-8 of a value, and a full-depth draft through K3 and the
+# target's per-layer window sum 24 layers' GEMVs and residuals in
+# another order, so a draft and the target may rank two tokens whose
+# logits lie this close either way
+SPEC_BF16_TIE = 0.25
+
+
+def tie_agreement(tag, got, want, tol) -> float:
+    """Greedy agreement of two (positions, V) logit sets under the tie
+    rule: a differing argmax only where ``want``'s top two logits are
+    within ``tol`` (margins printed).  Returns the agreement."""
+    differ = got.argmax(-1) != want.argmax(-1)
+    agree = 1.0 - float(differ.float().mean())
+    top2 = want.topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1])[differ]
+    ok = bool((margins <= tol).all())
+    log(f"  {tag}: greedy agreement over {differ.numel()} positions "
+        f"{agree:.4f} (a differing token only where the reference's top two "
+        f"logits are within {tol:g}; margins {margins.tolist()})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{tag} greedy agreement")
+    return agree
+
+
+def check_spec_state(tag, got, want, tol, dequant):
+    """One verify step's state ({"h"} + "h_scale" + "conv", or any state
+    leaves) against a reference: an int8/fp8 payload within one code and
+    its scales to ``tol`` of themselves (max printed), the dequantized
+    state and every other leaf within ``tol``."""
+    for k in got:
+        if k.endswith("_scale"):
+            continue
+        if got[k].dtype in (torch.int8, torch.float8_e4m3fn):
+            s = k + "_scale"
+            codes = int((code_ordinals(got[k]) - code_ordinals(want[k]))
+                        .abs().max())
+            rel = float(((got[s] - want[s]).abs()
+                         / want[s].abs().clamp_min(1e-30)).max())
+            ok = codes <= 1 and rel <= tol
+            log(f"  {tag + ' ' + k:<52} codes apart {codes} (tol 1), scales "
+                f"max rel diff {rel:.3e} (tol {tol:g})  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"{tag} {k}")
+            check(f"{tag} {k} dequantized", dequant(got[k], got[s]),
+                  dequant(want[k], want[s]), tol, tol)
+        else:
+            check(f"{tag} {k}", got[k], want[k], tol, tol)
+
+
+def phase_spec_window(name, cfg, p32, runs, dev, state_of, dequant=None,
+                      lp=127, slots=4, starts=(0, 3, 6), chained=False):
+    """The verify window of ``name`` at full width in f32: prefill ``lp``
+    tokens on ``slots`` slots on the card, then from each start (the
+    state after that many teacher-forced decode steps) one window of
+    SPEC_K + 1 tokens, held against the CPU's window from the same state
+    (logits, and every step's ``state_of(cache)``); with ``chained``
+    also against the card's chained per-layer decode steps (logits,
+    every step's whole cache) and the rollback select of one step per
+    slot against the chained cache of that step; with the tie rule's
+    greedy agreement printed and held.  ``runs``: (weights, state,
+    tolerance)."""
+    import dataclasses
+    from repro_torch.core import state_quant
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import registry
+    dequant = dequant or state_quant.dequantize_h
+    K1 = SPEC_K + 1
+    total = lp + max(starts) + K1
+    toks = torch.as_tensor(SyntheticLM(cfg.vocab, total, seed=7).batch_at(
+        0, 0, 1, slots)["tokens"], dtype=torch.int64).to(dev)
+    cpu = torch.device("cpu")
+    for wd, sd, tol in runs:
+        c = dataclasses.replace(cfg, dtype="float32", weight_dtype=wd,
+                                state_dtype=sd, step_impl="fused")
+        p = registry.tree_to(registry.quantize_params(c, p32), dev)
+        p_cpu = registry.tree_to(p, cpu)
+        _, cache = registry.prefill(c, p, registry.init_cache(
+            c, slots, total, device=dev), {"tokens": toks[:, :lp]})
+        done = 0
+        for start in starts:
+            for s in range(done, start):
+                _, cache = registry.decode_step(
+                    c, p, cache, {"tokens": toks[:, lp + s:lp + s + 1]})
+            done = start
+            win = toks[:, lp + start:lp + start + K1]
+            tag = f"{name} {wd} w {sd} state, start {start}"
+            t0 = time.perf_counter()
+            logits, steps = registry.verify_scan(c, p, cache, win)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            lc, sc = registry.verify_scan(c, p_cpu, registry.tree_to(
+                cache, cpu), win.cpu())
+            log(f"  {tag}: window of {K1} tokens on {slots} slots, card "
+                f"{ms:.1f} ms; held to {tol:g} (phase 3's)")
+            logits = logits.cpu()
+            check(f"{tag} window logits (card vs CPU)", logits, lc, tol, tol)
+            for t in range(K1):
+                check_spec_state(
+                    f"{tag} step {t} (card vs CPU)",
+                    state_of(registry.tree_to(
+                        registry.tree_map(lambda v: v[t], steps), cpu)),
+                    state_of(registry.tree_map(lambda v: v[t], sc)),
+                    tol, dequant)
+            tie_agreement(f"{tag} window vs CPU window", logits, lc, tol)
+            if not chained:
+                continue
+            lch, sch = registry.verify_chain(c, p, cache, win)
+            lch = lch.cpu()
+            check(f"{tag} window logits (vs chained steps)", logits, lch,
+                  tol, tol)
+            for t in range(K1):
+                check_spec_state(
+                    f"{tag} step {t} (vs chained steps)",
+                    registry.tree_to(registry.tree_map(
+                        lambda v: v[t], steps), cpu),
+                    registry.tree_to(registry.tree_map(
+                        lambda v: v[t], sch), cpu), tol, dequant)
+            tie_agreement(f"{tag} window vs chained steps", logits, lch, tol)
+            idx = torch.arange(slots, device=dev) % K1
+            sel = registry.tree_to(registry.select_step(c, steps, idx), cpu)
+            want = registry.tree_to(registry.tree_zip(
+                lambda ax, v: torch.stack([
+                    v[int(i)].select(ax, s) for s, i in enumerate(idx)], ax),
+                registry.cache_slot_axes(c), sch), cpu)
+            check_spec_state(f"{tag} select_step {idx.tolist()} (vs chained)",
+                             sel, want, tol, dequant)
+            # the window's conv (K5 with the tail passed in) writes the
+            # last per-step tail, bitwise
+            check_window_tail(tag, c, p, cache, win)
+        del p, p_cpu, cache, steps, sc
+
+
+def check_window_tail(tag, c, p, cache, win):
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, mamba
+    lp = p["layers"][0]
+    x = blocks.embed_apply(c, p["embed"], win, torch.float32)
+    x_in, _ = mamba._project(c, lp["mixer"], blocks.apply_norm(
+        c, lp["norm"], x))
+    _, tail = ops.causal_conv1d(x_in, lp["mixer"]["conv_w"],
+                                lp["mixer"]["conv_b"],
+                                x_prev=cache["conv"][0])
+    want = mamba._conv_tail_states(cache["conv"][0], x_in)[:, -1]
+    same = torch.equal(tail, want)
+    log(f"  {tag}: K5's tail over the window == the last per-step tail: "
+        f"{'bitwise equal' if same else 'FAIL'}")
+    if not same:
+        FAILURES.append(f"{tag} window conv tail")
+
+
+def check_k3_eight(cfg, dev):
+    """K3 at the spec pool's 8 rows (4 live + 4 scratch), full width: the
+    target's 24 layers and the draft's view of the first 12 (its own
+    MambaStack), f32 and bf16, f32 weights and state and int8 weights with
+    an int8 state, against the plain version on the card."""
+    import dataclasses
+    from repro_torch.kernels import megakernel, ref
+    from repro_torch.models import registry
+    gen = torch.Generator().manual_seed(SEED + 9)
+    for wd, sd in (("f32", "f32"), ("int8", "int8")):
+        p = k3_params(cfg, wd, dev)
+        for layers in (cfg.n_layers, SPEC_LAYERS):
+            c = dataclasses.replace(cfg, weight_dtype=wd, state_dtype=sd)
+            stack = p["stack"]
+            if layers < cfg.n_layers:
+                c = registry.draft_config(c, layers)
+                stack = registry.stack_params(
+                    c, registry.draft_params(cfg, p, layers))["stack"]
+            for dtype in ("float32", "bfloat16"):
+                ci = dataclasses.replace(c, dtype=dtype)
+                x0, h, h_scale, conv = k3_inputs(ci, 8, gen, dev)
+                got = megakernel.mamba_stacked_step(ci, x0, stack, h,
+                                                    h_scale, conv)
+                want = ref.mamba_stacked_step(ci, x0, stack.layers, h,
+                                              h_scale, conv)
+                torch.cuda.synchronize()
+                act = "f32" if dtype == "float32" else "bf16"
+                check_k3(f"K3 8 slots L={layers} {act} {wd} w {sd} state",
+                         ci, got, want)
+
+
+# (weights, state, draft layers, decode-step kernel, K3 kernel, bytes per
+# slot): each run of phase 4s, all with step_impl "auto" (K3 drafts on
+# the card, the verify window runs per layer)
+SPEC_LAYERS = 12
+SPEC_RUNS = (
+    ("f32", "f32", SPEC_LAYERS, "decode_step", "mamba_stacked_step",
+     2580484),
+    ("int8", "int8", SPEC_LAYERS, "decode_step_q",
+     "mamba_stacked_step_q_int8a", 811300),
+    ("f32", "f32", 24, "decode_step", "mamba_stacked_step", 2580484))
+XLSTM_SPEC_RUNS = (
+    ("f32", "f32", SPEC_LAYERS, None,
+     ("mlstm_stacked_run", "slstm_stacked_run"), 88818004),)
+JAMBA_SPEC_RUNS = (
+    ("f32", "f32", 8, "decode_step", "jamba_stacked_run", 6373380),)
+
+
+def spec_want(cfg, dcfg, s, step_k, k3_k):
+    """The launches a spec serve run must make, from the engine's own
+    counters: A admissions, P passes, D draft steps (the sum of the
+    passes' windows k_eff), W = D + P verified tokens, S plain decode
+    steps (a burst where every slot needs one token).  Everything runs
+    under step_impl "auto": a draft step and a plain step through K3 (a
+    jamba MoE position through its conv and step kernels per token), the
+    verify per layer: a mamba block's window is one conv and W / P step
+    launches, a jamba MoE position chains both per token, an mLSTM
+    block's window one conv and its recurrence in PyTorch."""
+    A, P, D = s.prefill_calls, s.spec_passes, s.spec_draft_steps
+    W = D + P
+    S = s.decode_steps - W
+    want = collections.Counter()
+    if cfg.family == "mamba":
+        L = cfg.n_layers
+        want["selective_scan"] = L * A
+        want["causal_conv1d"] = L * A + L * P
+        want[step_k] = L * W
+        want[k3_k] = D + S
+    elif cfg.family == "xlstm":
+        from repro_torch.models import xlstm
+        M = sum(1 for i in range(cfg.n_layers) if not xlstm._is_slstm(cfg, i))
+        want["causal_conv1d"] = M * A + M * P
+        for kind, name in zip(("mlstm", "slstm"), k3_k):
+            want[name] = sum(k == kind for k, _ in xlstm._kind_runs(dcfg)) * D
+            want[name] += sum(k == kind for k, _ in xlstm._kind_runs(cfg)) * S
+    else:
+        from repro_torch.models import jamba
+        kinds = [jamba._pos_kind(cfg, i) for i in range(jamba._period(cfg))]
+        G = jamba._n_groups(cfg)
+        ssm = sum(not a for a, _ in kinds)
+        pure = sum(not a and not m for a, m in kinds)
+        moe = sum(not a and m for a, m in kinds)
+        runs = sum(k == "mega" for k, _ in jamba._megakernel_plan(cfg))
+        want["selective_scan"] = G * ssm * A
+        want["flash_attention"] = G * (len(kinds) - ssm) * A
+        want["causal_conv1d"] = G * (ssm * A + moe * (D + S) + pure * P
+                                     + moe * W)
+        want[step_k] = G * (moe * (D + S) + (pure + moe) * W)
+        want[k3_k] = G * runs * (D + S)
+    return want
+
+
+def spec_prompts(cfg, lens):
+    """8 prompts, as many of each length in ``lens``, 32 new tokens each;
+    the 4th and 7th sampled (temperature 0.8, top_k 40), the others greedy
+    with their top two logprobs kept for the tie rule."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.sampling import SamplingParams
+    per = 8 // len(lens)
+    prompts = [row for L in lens for row in SyntheticLM(
+        cfg.vocab, L, seed=4).batch_at(0, 0, 1, per)["tokens"]]
+    return [(p, SamplingParams(temperature=0.8, top_k=40, seed=1234 + i,
+                               max_new=32) if i in (3, 6) else
+             SamplingParams(max_new=32, logprobs=True, top_logprobs=2))
+            for i, p in enumerate(prompts)]
+
+
+def spec_serve_one(eng, cfg, traffic):
+    """Warm ``eng`` up, then serve ``traffic`` with every launch count at 0
+    just before and read just after.  Returns (requests, counts, stats)."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.metrics import ServeStats
+    warm = SyntheticLM(cfg.vocab, 16, seed=3).batch_at(0, 0, 1, 2)["tokens"]
+    for row in warm:
+        eng.submit(row, max_new=6)
+    eng.run()
+    eng.stats = ServeStats()
+    dispatch_count.reset()
+    torch.cuda.synchronize()
+    reqs = [eng.submit(p, sp) for p, sp in traffic]
+    eng.run()
+    torch.cuda.synchronize()
+    return reqs, dispatch_count.snapshot(), eng.stats
+
+
+def spec_full_depth_ties(tag, passes, tol):
+    """A full-depth draft accepts every greedy proposal but at ties: each
+    rejected greedy draft token's target logprob lies within ``tol`` of
+    the target's best (a token outside the target's top 5 fails)."""
+    margins, sampled_rej = [], 0
+    for p in passes:
+        for s in p["live"]:
+            i = int(p["n_acc"][s])
+            if i >= int(p["limit"][s]):
+                continue
+            if p["temperature"][s] > 0:
+                sampled_rej += 1
+                continue
+            d = int(p["drafts"][i, s])
+            ids = p["ti"][i, s].tolist()
+            tv = p["tv"][i, s]
+            margins.append(float(tv[0] - tv[ids.index(d)]) if d in ids
+                           else float("inf"))
+    ok = all(m <= tol for m in margins)
+    log(f"  {tag}: full-depth draft, greedy rejections {len(margins)} with "
+        f"target margins {margins} (each must be a tie, within {tol:g}); "
+        f"sampled rejections {sampled_rej} (printed)  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{tag} full-depth acceptance")
+
+
+def phase_spec_serves(num, cfg, params, runs, lens, dev, card, spec_counts):
+    """Phase ``num``: for each run, the plain engine and the spec engine
+    (DraftConfig(k=SPEC_K, layers)) of one setup on the same traffic (8
+    requests on 4 slots, prompts of ``lens``), bf16, step_impl "auto".
+    The spec run's launches are held to ``spec_want``, no plain version
+    may run, every scratch lease must come back and the bytes a slot
+    must be the run's; tok/s of both, tokens per pass, the acceptance
+    rate and the greedy agreement with the plain run are printed.
+    Keeps in ``spec_counts`` each kernel's launches from the first spec
+    run that launched it."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import dispatch_count
+    from repro_torch.models import registry
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.spec_decode import DraftConfig
+    name = f"{cfg.name} (L={cfg.n_layers})"
+    traffic = spec_prompts(cfg, lens)
+    for i, (wd, sd, layers, step_k, k3_k, want_spb) in enumerate(runs):
+        setup = (f"{wd} weights, {sd} state, draft k={SPEC_K} "
+                 f"layers={layers}")
+        log(f"== phase {num}.{i + 1}: spec serve {name} bf16, {setup}, "
+            f"step_impl 'auto'")
+        common = dict(n_slots=4, max_seq=SERVE_MAX_SEQ, weight_dtype=wd,
+                      state_dtype=sd, step_impl="auto", device=str(dev))
+        plain = Engine(cfg, params, EngineConfig(**common))
+        preqs, _, ps = spec_serve_one(plain, cfg, traffic)
+        del plain
+        eng = Engine(cfg, params, EngineConfig(
+            **common, draft=DraftConfig(k=SPEC_K, layers=layers)))
+        passes, real = [], eng._spec.verify
+
+        def verify(prm, cache, x0, d_toks, d_logits, active, sp, step, lim,
+                   real=real, passes=passes):
+            out = real(prm, cache, x0, d_toks, d_logits, active, sp, step,
+                       lim)
+            passes.append({"live": np.flatnonzero(active), "drafts": d_toks,
+                           "n_acc": out[1], "limit": lim, "tv": out[5],
+                           "ti": out[6], "temperature": sp["temperature"]})
+            return out
+
+        eng._spec.verify = verify
+        reqs, snap, s = spec_serve_one(eng, cfg, traffic)
+        passes = passes[len(passes) - s.spec_passes:]
+        want = spec_want(eng.cfg, eng._spec.dcfg, s, step_k, k3_k)
+        plain_steps = s.decode_steps - s.spec_passes - s.spec_draft_steps
+        log(f"  {name}, {setup}: admissions {s.prefill_calls}, passes "
+            f"{s.spec_passes}, draft steps {s.spec_draft_steps}, decode "
+            f"steps {s.decode_steps} ({plain_steps} in plain bursts)")
+        for k in dispatch_count.COUNTERS:
+            ok = snap[k] == want[k]
+            if snap[k] or want[k] or not ok:
+                log(f"  launches {k:<26} {snap[k]:>6} (expected {want[k]})  "
+                    f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"{name} spec launch count {k} ({setup})")
+            if snap[k] and not spec_counts.get(k):
+                spec_counts[k] = snap[k]
+        if s.spec_passes == 0 or s.spec_draft_steps == 0:
+            FAILURES.append(f"{name} ({setup}): no speculative pass ran")
+        plain_calls = sum(v for k, v in snap.items() if k.startswith("plain "))
+        scratch = eng.pool.n_scratch_free == eng.pool.n_scratch == 4
+        spb = eng.pool.state_bytes_per_slot()
+        good = all(r.finished and len(r.tokens) == 32
+                   and all(0 <= t < cfg.vocab for t in r.tokens) for r in reqs)
+        for label, ok in (
+                (f"plain-version calls {plain_calls}", plain_calls == 0),
+                (f"scratch leases back ({eng.pool.n_scratch_free} of "
+                 f"{eng.pool.n_scratch} free)", scratch),
+                (f"state_bytes_per_slot {spb} (expected {want_spb})",
+                 spb == want_spb),
+                (f"{len(reqs)} requests finished with 32 in-vocab tokens",
+                 good)):
+            log(f"  {label}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"{name} spec {label.split(' (')[0]} "
+                                f"({setup})")
+        if layers == cfg.n_layers and cfg.family == "mamba":
+            spec_full_depth_ties(f"{name} {setup}", passes, SPEC_BF16_TIE)
+        same = sum(a == b for r, q in zip(reqs, preqs)
+                   if r.params.temperature == 0
+                   for a, b in zip(r.tokens, q.tokens))
+        n = sum(len(q.tokens) for q in preqs if q.params.temperature == 0)
+        sp_, pp_ = s.summary(), ps.summary()
+        log(f"  serve {name} bf16, {setup} on {card}: spec "
+            f"{sp_['useful_tokens']} tokens in {sp_['wall_s']:.3f} s = "
+            f"{sp_['tokens_per_s']:.1f} tok/s against plain "
+            f"{pp_['tokens_per_s']:.1f} tok/s ({pp_['wall_s']:.3f} s); "
+            f"accepted per pass {sp_['spec_accepted_per_pass']:.3f}, "
+            f"acceptance rate {sp_['spec_acceptance_rate']:.3f}; TTFT mean "
+            f"{sp_['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
+            f"{sp_['tpot_mean_s'] * 1e3:.2f} ms; greedy agreement with the "
+            f"plain run {same}/{n} (printed: bf16)")
+        del eng
+        torch.cuda.empty_cache()
+        if not phase_ok():
+            return False
+    return True
+
+
+def time_verify(cfg, params, dev):
+    """Device time of one verify pass (the window of SPEC_K + 1 tokens over
+    the spec pool's 8 rows, per layer) against SPEC_K + 1 plain decode
+    steps through K3 and through the per-layer path, bf16, f32 weights
+    and state, on one cache."""
+    import dataclasses
+    from repro_torch.models import registry
+    c = dataclasses.replace(cfg, dtype="bfloat16")
+    p = registry.stack_params(c, registry.tree_to(params, dev))
+    cache = registry.init_cache(c, 8, 64, device=dev)
+    win = torch.arange(8 * (SPEC_K + 1), device=dev).reshape(8, -1) % c.vocab
+    out = {}
+
+    def chain(ci):
+        cc = cache
+        for t in range(SPEC_K + 1):
+            _, cc = registry.decode_step(ci, p, cc,
+                                         {"tokens": win[:, t:t + 1]})
+
+    for label, fn in (
+            ("verify window", lambda: registry.verify_scan(c, p, cache, win)),
+            ("plain K3 steps", lambda: chain(dataclasses.replace(
+                c, step_impl="megakernel"))),
+            ("plain per-layer steps", lambda: chain(dataclasses.replace(
+                c, step_impl="fused")))):
+        ms, how = device_time(fn, 3)
+        out[label] = (ms, time_ms(fn, 10), how)
+        log(f"  {label} ({SPEC_K + 1} tokens, 8 rows, bf16): {ms:.4f} ms "
+            f"device ({how}), {out[label][1]:.4f} ms eager")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2395,11 +2872,26 @@ def main() -> int:
     phase_model("mamba-130m", cfg, params, MODEL_RUNS, dev, lambda c: c)
     if not phase_ok():
         return 1
+    log("== phase 3s: mamba-130m f32 verify window (card) vs CPU, vs chained "
+        "steps and select_step; K3 at 8 slots")
+    check_k3_eight(cfg, dev)
+    phase_spec_window("mamba-130m", cfg, params, SPEC_WINDOW_RUNS, dev,
+                      lambda c: {k: v for k, v in c.items() if k != "pos"},
+                      chained=True)
+    if not phase_ok():
+        return 1
     # the launches reported per kernel, from the serve run that serves it
     counts = {}
     if not phase_serves(4, MAMBA, cfg, params, SERVE_RUNS, dev, card,
                         counts):
         return 1
+    # and from the first speculative serve run that runs it
+    spec_counts = {}
+    if not phase_spec_serves("4s", cfg, params, SPEC_RUNS, (64, 127), dev,
+                             card, spec_counts):
+        return 1
+    log("== phase 4s.t: one verify pass against plain decode steps")
+    time_verify(cfg, params, dev)
     log("== phase 5: kernel timing (CUDA events)")
     kernels = phase_timing(cfg, dev, counts, errs)
     if not phase_ok():
@@ -2426,10 +2918,17 @@ def main() -> int:
                     "h_scale": c["layers"][0]["mlstm"].get("C_scale"),
                     "conv": c["layers"][0]["mlstm"]["conv"]},
                 lp=XLSTM_PROMPT, dequant=state_quant.dequantize_mat)
+    log("  xlstm-350m verify window (card) vs CPU, layer 0's mLSTM state")
+    phase_spec_window("xlstm-350m", xlstm_cfg(), xlstm_params(dev),
+                      SPEC_WINDOW_RUNS[:1], dev, lambda c: c["layers"][0][
+                          "mlstm"], slots=2, starts=(0,))
     if not phase_ok():
         return 1
     if not phase_serves("4x", XLSTM_SERVED, xlstm_cfg(), xlstm_params(dev),
                         XLSTM_SERVE_RUNS, dev, card, counts):
+        return 1
+    if not phase_spec_serves("4xs", xlstm_cfg(), xlstm_params(dev),
+                             XLSTM_SPEC_RUNS, (64,), dev, card, spec_counts):
         return 1
     log("== phase 5x: xLSTM kernel, unit and decode-step timing")
     kernels += phase_xlstm_timing(dev, counts, errs)
@@ -2448,6 +2947,10 @@ def main() -> int:
         "CPU")
     phase_model("dense jamba", jamba_cfg(n_experts=0), jamba_params(True, dev),
                 JAMBA_MODEL_RUNS, dev, lambda c: c["layers"]["pos0"])
+    log("  dense jamba verify window (card) vs CPU, position 0's state")
+    phase_spec_window("dense jamba", jamba_cfg(n_experts=0),
+                      jamba_params(True, dev), SPEC_WINDOW_RUNS[:1], dev,
+                      lambda c: c["layers"]["pos0"], slots=2, starts=(0,))
     jamba_free("dense")
     if not phase_ok():
         return 1
@@ -2455,11 +2958,17 @@ def main() -> int:
                         jamba_params(False, dev), JAMBA_SERVE_RUNS, dev,
                         card, counts):
         return 1
+    if not phase_spec_serves("4js", jamba_cfg(), jamba_params(False, dev),
+                             JAMBA_SPEC_RUNS, (64,), dev, card, spec_counts):
+        return 1
     log("== phase 5j: jamba kernel and decode-step timing")
     kernels += phase_jamba_timing(dev, counts, errs)
     log(f"total {time.perf_counter() - T_START:.1f} s")
     if not phase_ok():
         return 1
+    for entry in kernels:
+        # the launches of the speculative serve runs (phases 4s, 4xs, 4js)
+        entry["spec_launches"] = spec_counts.get(entry["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -141,7 +141,8 @@ def conv_math(x, w, b=None, x_prev=None):
         y = y + xp[:, i:i + L, :].float() * w[i].float()
     if b is not None:
         y = y + b.float()
-    return y.to(x.dtype), xp[:, L:, :]
+    # the tail a contiguous tensor of its own, as the kernel writes it
+    return y.to(x.dtype), xp[:, L:, :].contiguous()
 
 
 def mamba_stacked_step(cfg, x0, layers, h, h_scale, conv):

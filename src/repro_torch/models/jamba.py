@@ -27,8 +27,11 @@ and MoE positions staying on their per-sublayer path.  The new cache is
 written into fresh stacked leaves, K3 writing its positions' states
 there itself.
 
-Not ported yet (ROADMAP A8): ``sublayer_verify``, ``verify_window`` and
-the self-speculative ``draft_*`` views.
+Speculative decoding: ``verify_window`` runs a K-token window through
+each group, the pure-SSM positions through ``sublayer_verify`` (the
+mamba block's batched verify window and the MLP over the window), the
+attention and MoE positions chained per token through
+``_sublayer_apply``, as in ``repro``.  A draft is whole groups.
 """
 from __future__ import annotations
 
@@ -96,6 +99,28 @@ def _sublayer_apply(cfg, p, pos, x, positions, state=None, dpos=None):
     else:
         hm = blocks.mlp_apply(cfg, p["mlp"], xn)
     return x + hm, new_state, aux
+
+
+def sublayer_verify(cfg, p, pos, x, state):
+    """K-token verify window of one mamba sublayer (``repro``
+    jamba.py:72): ``mamba.mamba_block_verify``, then the MLP or MoE over
+    the window.  Attention positions have no window and raise
+    (``verify_window`` chains them per token).  Returns (x (b, K, d),
+    states stacked per step on axis 1)."""
+    is_attn, is_moe = _pos_kind(cfg, pos)
+    if is_attn:
+        raise NotImplementedError(
+            "jamba attention sublayers have no K-token verify window; "
+            "verify_window chains them per token")
+    xn = blocks.apply_norm(cfg, p["norm1"], x)
+    h, states = mamba.mamba_block_verify(cfg, p["mamba"], xn, state)
+    x = x + h
+    xn = blocks.apply_norm(cfg, p["norm2"], x)
+    if is_moe:
+        hm, _ = moe.moe_apply(cfg, p["moe"], xn)
+    else:
+        hm = blocks.mlp_apply(cfg, p["mlp"], xn)
+    return x + hm, states
 
 
 def init(cfg, gen):
@@ -332,3 +357,79 @@ def decode_step(cfg, p, cache, batch):
             for k, v in ns.items():
                 new[key][k][g].copy_(v)
     return _logits(cfg, p, x), {"layers": new, "pos": dpos + 1}
+
+
+def verify_window(cfg, p, cache, tokens):
+    """The speculative verify over a K-token window (``repro``
+    jamba.py:391).  Pure-SSM positions run ``sublayer_verify``; attention
+    positions (K sequential KV writes) and MoE positions (routing couples
+    the batch) chain ``_sublayer_apply`` per token.  Returns (logits
+    (b, K, V), caches), the cache tree with a leading per-step axis
+    (layers' leaves (K, G, b, ...))."""
+    K = tokens.shape[1]
+    dpos = cache["pos"]
+    x = blocks.embed_apply(cfg, p["embed"], tokens, _dtype(cfg))
+    per_group = {f"pos{i}": [] for i in range(_period(cfg))}
+    for g, gp in enumerate(p["groups"]):
+        for i in range(_period(cfg)):
+            key = f"pos{i}"
+            is_attn, is_moe = _pos_kind(cfg, i)
+            st = _group_state(cache["layers"], key, g)
+            if is_attn or is_moe:
+                xs, steps = [], []
+                for t in range(K):
+                    xt, st, _ = _sublayer_apply(
+                        cfg, gp[key], i, x[:, t:t + 1], (dpos + t)[:, None],
+                        state=st, dpos=dpos + t)
+                    xs.append(xt)
+                    steps.append(st)
+                x = torch.cat(xs, dim=1)
+                per_group[key].append({k: torch.stack([s[k] for s in steps])
+                                       for k in steps[0]})
+            else:
+                x, states = sublayer_verify(cfg, gp[key], i, x, st)
+                per_group[key].append({k: v.movedim(1, 0)
+                                       for k, v in states.items()})
+    layers = {key: {k: torch.stack([grp[k] for grp in groups], dim=1)
+                    for k in groups[0]}
+              for key, groups in per_group.items()}
+    pos = (dpos[None, :] + torch.arange(1, K + 1, dtype=torch.int32,
+                                        device=tokens.device)[:, None])
+    return _logits(cfg, p, x), {"layers": layers, "pos": pos}
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative draft views (``repro`` jamba.py:221-249): whole groups,
+# so each group keeps its mamba/attention/MoE pattern.  A megakernel
+# draft builds its own K3 runs over them, once; the port's one-group
+# configs draft at full depth and reuse the target's.
+# ---------------------------------------------------------------------------
+
+def _n_draft_groups(cfg, n):
+    period = _period(cfg)
+    if n % period or not 0 < n <= cfg.n_layers:
+        raise ValueError(
+            f"jamba draft layers must be a multiple of the group period "
+            f"({period}) in (0, {cfg.n_layers}]; got {n}")
+    return n // period
+
+
+def draft_params(cfg, p, n):
+    out = {k: v for k, v in p.items() if k != "stack"}
+    out["groups"] = p["groups"][:_n_draft_groups(cfg, n)]
+    return out
+
+
+def draft_cache(cfg, cache, n):
+    ng = _n_draft_groups(cfg, n)
+    return {"layers": {key: {k: v[:ng] for k, v in leaves.items()}
+                       for key, leaves in cache["layers"].items()},
+            "pos": cache["pos"]}
+
+
+def draft_cache_merge(cfg, full, sub, n):
+    ng = _n_draft_groups(cfg, n)
+    return {"layers": {key: {k: torch.cat([sub["layers"][key][k], v[ng:]])
+                             for k, v in leaves.items()}
+                       for key, leaves in full["layers"].items()},
+            "pos": sub["pos"]}

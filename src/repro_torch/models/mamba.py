@@ -1,6 +1,7 @@
 """Mamba block (Gu & Dao 2023): the port of ``repro/models/mamba.py``
-(block apply :103, step :131, megastep :173, state init :280), with f32
-or int8 weights and f32, bf16, int8 or fp8 pooled state.
+(block apply :103, step :131, megastep :173, the speculative verify
+window :222-278, state init :280), with f32 or int8 weights and f32,
+bf16, int8 or fp8 pooled state.
 
 Per block: in_proj -> [x | z] -> causal depthwise conv (CUDA kernel) ->
 SiLU -> x_proj -> (dt, B, C) -> softplus(dt_proj) -> selective scan at
@@ -23,7 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import approx, state_quant, weight_quant
+from repro_torch.core import approx, selective_scan, state_quant
+from repro_torch.core import weight_quant
 from repro_torch.kernels import ops, ref
 from repro_torch.models import blocks
 
@@ -180,6 +182,55 @@ def mamba_block_megastep(cfg, p, x_t, state):
         new_state = write_state_h(cfg, h)
     out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
     return out, {**new_state, "conv": new_conv}
+
+
+def _conv_tail_states(conv_state, x_in):
+    """Per-step conv tails over a K-token window: conv_state (b, k-1, di)
+    the tail entering the window, x_in (b, K, di) the window's raw conv
+    inputs.  Returns (b, K, k-1, di), entry t the tail the conv returns
+    after tokens 0..t, so a rollback to step t restores the tail a
+    per-token decode would hold."""
+    k1, K = conv_state.shape[1], x_in.shape[1]
+    full = torch.cat([conv_state, x_in.to(conv_state.dtype)], dim=1)
+    idx = (torch.arange(K, device=full.device)[:, None]
+           + torch.arange(k1, device=full.device)[None, :] + 1)
+    return full[:, idx]
+
+
+def mamba_block_verify(cfg, p, x, state):
+    """K-token verify window (speculative decoding): K chained
+    ``mamba_block_step`` calls in meaning, with the front end
+    (projections, one conv launch over the window with the tail passed
+    in, dt/B/C) run over the whole window and only the SSM recurrence
+    chained, as the micro-scan ``core.selective_scan.decode_scan`` (one
+    decode-step launch a token) that returns every intermediate state.
+
+    x (b, K, d_model); state as in ``mamba_block_step``.  Returns (out
+    (b, K, d_model), states), each state leaf stacked per step on axis 1
+    (states[:, t] the state after token t).  A megakernel config runs
+    the per-layer step kernels here (``ops.resolve_cell_impl``)."""
+    silu = approx.get_silu(cfg.silu_impl)
+    x_in, z = _project(cfg, p, x)                         # (b, K, di)
+    x_c, _ = ops.causal_conv1d(x_in, p["conv_w"], p["conv_b"],
+                               x_prev=state["conv"], impl=cfg.conv_impl)
+    conv_all = _conv_tail_states(state["conv"], x_in)
+    x_a = silu(x_c)
+    dt, B, C = _ssm_inputs(cfg, p, x_a)
+    A, a_scale = _a_and_scale(p)
+    impl = ops.resolve_cell_impl(cfg.step_impl, x.device)
+    common = dict(D=p["D"], z_seq=z, impl=impl, exp_impl=cfg.exp_impl,
+                  silu_impl=cfg.silu_impl, a_scale=a_scale)
+    if state_quant.is_quantized(cfg.state_dtype):
+        y, hq_all, scale_all = selective_scan.decode_scan_q(
+            state["h"], state["h_scale"], x_a, dt, A, B, C,
+            state_dtype=cfg.state_dtype, **common)
+        out = blocks.dense(p["out_proj"], y, x.dtype)
+        return out, {"h": hq_all, "h_scale": scale_all, "conv": conv_all}
+    y, h_all = selective_scan.decode_scan(read_state_h(cfg, state), x_a, dt,
+                                          A, B, C, **common)
+    out = blocks.dense(p["out_proj"], y, x.dtype)
+    return out, {"h": h_all.to(ops.storage_dtype(cfg.state_dtype)),
+                 "conv": conv_all}
 
 
 def mamba_state_init(cfg, batch, dtype, device):

@@ -13,6 +13,10 @@ per layer, the conv and the step) or as one launch of the cross-layer
 kernel K3 for the whole stack (``stacked_step``, "megakernel", which
 reads the layers through ``p["stack"]`` from
 ``registry.stack_params``).
+
+Speculative decoding adds the draft views (the target's first n layers,
+embed and final norm shared) and ``verify_window``, which runs a K-token
+window through every layer's ``mamba.mamba_block_verify``.
 """
 from __future__ import annotations
 
@@ -151,3 +155,64 @@ def decode_step(cfg, p, cache, batch):
         h, ns = _layer_apply(cfg, lp, h, state=state, step=True)
         states.append(ns)
     return _logits(cfg, p, h), _stack(cfg, states, cache["pos"] + 1)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the self-speculative draft is the target's first
+# n layers (embed / final norm / unembed shared), so a draft needs no
+# second parameter set, only a slice of the layer list and of the pooled
+# cache that merges back leaf for leaf (``repro`` mamba_lm.py:118-137).
+# ---------------------------------------------------------------------------
+
+def draft_params(cfg, p, n):
+    """First-``n``-layers view of a param tree.  The target's ``"stack"``
+    (K3's view of all its layers) is left out: a megakernel draft builds
+    its own over these layers, once (``SpecDecoder``)."""
+    out = {k: v for k, v in p.items() if k != "stack"}
+    out["layers"] = p["layers"][:n]
+    return out
+
+
+def draft_cache(cfg, cache, n):
+    """First-``n``-layers view of a pooled cache (pos shared): leading-axis
+    slices, contiguous as K3 takes them."""
+    out = {k: cache[k][:n] for k in _state_keys(cfg)}
+    out["pos"] = cache["pos"]
+    return out
+
+
+def draft_cache_merge(cfg, full, sub, n):
+    """``full`` with its first ``n`` layers replaced by ``sub``'s (the
+    inverse of ``draft_cache``); a new tree, layers from n on shared."""
+    out = {k: torch.cat([sub[k], full[k][n:]]) for k in _state_keys(cfg)}
+    out["pos"] = sub["pos"]
+    return out
+
+
+def verify_window(cfg, p, cache, tokens):
+    """The speculative verify over a K-token window (``repro``
+    mamba_lm.py:214): one embed, then per layer ``mamba_block_verify``
+    (projections, conv and dt over the window, the SSM recurrence as the
+    micro-scan), then the final norm and unembed over the window.
+
+    tokens (b, K).  Returns (logits (b, K, V), caches): the cache tree
+    with a leading per-step axis, caches[t] the cache after tokens[:, t]
+    (h (K, L, b, di, n) ...).  A (b, K, d) matmul need not give each row
+    the bits of the (b, 1, d) one in PyTorch, so the logits equal K
+    chained decode steps' to rounding, not bitwise."""
+    K = tokens.shape[1]
+    x = blocks.embed_apply(cfg, p["embed"], tokens, _dtype(cfg))
+    states = []
+    for l, lp in enumerate(p["layers"]):
+        xn = blocks.apply_norm(cfg, lp["norm"], x)
+        y, st = mamba.mamba_block_verify(
+            cfg, lp["mixer"], xn, {k: cache[k][l] for k in _state_keys(cfg)})
+        x = x + y
+        states.append(st)
+    # each leaf (b, K, ...) a layer -> the chained layout (K, L, b, ...)
+    out = {k: torch.stack([s[k] for s in states]).movedim(2, 0)
+           for k in _state_keys(cfg)}
+    out["pos"] = (cache["pos"][None, :]
+                  + torch.arange(1, K + 1, dtype=torch.int32,
+                                 device=tokens.device)[:, None])
+    return _logits(cfg, p, x), out

@@ -13,9 +13,16 @@ and xlstm families.  Other families raise ``NotImplementedError``
       slot contract over cache_slot_axes (nested cache trees: jamba's
       {"layers": {"pos{i}": {...}}, "pos"}, xLSTM's {"layers": [{"mlstm":
       {...}} | {"slstm": {...}}, ...], "pos"})
+  verify_scan / verify_chain / select_step -> the speculative verify
+      window over K tokens, with every step's cache, and the per-slot
+      rollback to one step
+  supports_draft / draft_config / draft_params / draft_cache /
+      draft_cache_merge -> the self-speculative draft views
   count_params(cfg) -> analytical N
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -164,6 +171,121 @@ def prefill(cfg, params, cache, batch):
 
 def decode_step(cfg, params, cache, batch):
     return family(cfg).decode_step(cfg, params, cache, batch)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the K-step verify window, the per-slot rollback
+# select and the self-speculative draft views (``repro`` registry.py:161)
+# ---------------------------------------------------------------------------
+
+def _freeze_steps(cfg, cache0, stacked, active):
+    """Per-slot freeze over a verify stack (leading per-step axis):
+    inactive slots read ``cache0`` at every step, which is what the
+    chained verify's per-step ``mask_slots`` accumulates to."""
+    def mix(ax, old, new):
+        shape = [1] * new.dim()
+        shape[ax + 1] = -1
+        return torch.where(active.reshape(shape), _bits(new.to(old.dtype)),
+                           _bits(old)[None]).view(old.dtype)
+
+    return tree_zip(mix, cache_slot_axes(cfg), cache0, stacked)
+
+
+def _stack(trees):
+    """A list of trees of one structure -> one tree, leaves stacked on a
+    new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return [_stack([t[i] for t in trees]) for i in range(len(trees[0]))]
+    return torch.stack(trees)
+
+
+def verify_chain(cfg, params, cache, tokens, active=None):
+    """The verify as K chained ``decode_step`` calls, each cache masked
+    to ``active``: ``verify_scan``'s path for a family without a window,
+    and the reference its windows are held to.  Returns what
+    ``verify_scan`` returns."""
+    logits, steps = [], []
+    for t in range(tokens.shape[1]):
+        lg, new = decode_step(cfg, params, cache,
+                              {"tokens": tokens[:, t:t + 1]})
+        cache = new if active is None else mask_slots(cfg, cache, new,
+                                                      active)
+        logits.append(lg[:, -1])
+        steps.append(cache)
+    return torch.stack(logits, 1), _stack(steps)
+
+
+def verify_scan(cfg, params, cache, tokens, active=None):
+    """Run K candidate tokens through the model: the speculative verify
+    pass.  The mamba, jamba and xLSTM families run their batched
+    ``verify_window`` (projections and convs over the window, only the
+    recurrences chained per token); another family would chain
+    ``decode_step`` (``verify_chain``).
+
+    tokens (b, K); ``active`` (b,) bool freezes the other slots.
+    Returns (logits (b, K, V), caches), the cache tree with a leading
+    per-step axis, caches[t] the cache after tokens[:, t].  The window's
+    logits equal the chained steps' to rounding: PyTorch's (b, K, d)
+    matmul need not give each row the bits of the (b, 1, d) one."""
+    window = getattr(family(cfg), "verify_window", None)
+    if window is None:
+        return verify_chain(cfg, params, cache, tokens, active)
+    logits, caches = window(cfg, params, cache, tokens)
+    if active is not None:
+        caches = _freeze_steps(cfg, cache, caches, active)
+    return logits, caches
+
+
+def select_step(cfg, stacked_cache, step_idx):
+    """Per-slot rollback: from a verify stack (leading per-step axis)
+    pick step ``step_idx[s]`` (int tensor (slots,)) for slot s.  Returns
+    a cache tree of new contiguous leaves, each slot's state after
+    exactly its accepted prefix."""
+    def pick(ax, leaf):
+        m = _bits(leaf).movedim(ax + 1, 0)            # (slots, K, ...)
+        rows = torch.arange(m.shape[0], device=m.device)
+        sel = m[rows, step_idx.to(m.device, torch.int64)]
+        return sel.movedim(0, ax).contiguous().view(leaf.dtype)
+
+    return tree_zip(pick, cache_slot_axes(cfg), stacked_cache)
+
+
+def supports_draft(cfg) -> bool:
+    return hasattr(family(cfg), "draft_params")
+
+
+def draft_config(cfg, n_layers: int):
+    """Model config of the first-``n_layers`` self-speculative draft.
+    Jamba drafts whole groups (``jamba._n_draft_groups`` validates)."""
+    if not supports_draft(cfg):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no self-speculative draft view")
+    if cfg.family == "jamba":
+        jamba._n_draft_groups(cfg, n_layers)
+    elif not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(
+            f"draft layers must be in (0, {cfg.n_layers}]; got {n_layers}")
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def draft_params(cfg, params, n_layers: int):
+    """First-``n_layers`` view of a param tree (no weight copied), without
+    the target's K3 view (``"stack"``)."""
+    return family(cfg).draft_params(cfg, params, n_layers)
+
+
+def draft_cache(cfg, cache, n_layers: int):
+    """First-``n_layers`` view of a pooled cache."""
+    return family(cfg).draft_cache(cfg, cache, n_layers)
+
+
+def draft_cache_merge(cfg, full_cache, sub_cache, n_layers: int):
+    """``full_cache`` with the draft's layers of ``sub_cache`` written
+    back: a new tree."""
+    return family(cfg).draft_cache_merge(cfg, full_cache, sub_cache,
+                                         n_layers)
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,12 @@ launches a token at xlstm-350m, two at its smoke config).  Prefill runs
 the recurrences as a per-token loop of plain tensor code, as ``repro``
 runs them in ``lax.scan`` with no kernel.
 
-Not ported yet (ROADMAP A8): ``mlstm_block_verify``,
-``slstm_block_verify``, ``verify_window`` and the ``draft_*`` views.
+Speculative decoding: ``mlstm_block_verify`` / ``slstm_block_verify``
+run a K-token window with the front end over the whole window and the
+recurrence chained per token through the decode step's cell (an int8/fp8
+C requantized at every step), ``verify_window`` runs them layer by
+layer, and the draft views are the first n layers (the mLSTM/sLSTM
+pattern is by layer index, so a prefix keeps it).
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import torch
 
 from repro_torch.core import approx, state_quant
 from repro_torch.kernels import megakernel, ops, ref
-from repro_torch.models import blocks
+from repro_torch.models import blocks, mamba
 
 
 def _dtype(cfg):
@@ -208,6 +212,36 @@ def mlstm_block_step(cfg, p, x_t, state, conv_impl=None):
     return out, new_state
 
 
+def mlstm_block_verify(cfg, p, x, state):
+    """K-token verify window (``repro`` xlstm.py:222): K chained
+    ``mlstm_block_step`` calls in meaning, with the front end (norm, up,
+    one conv over the window with the tail passed in, q/k/v and the
+    gates) over the whole window and the recurrence chained through the
+    same ``ref.mlstm_cell``, C stored (requantized) after every step.
+    Returns (out (b, K, d), states), each state leaf stacked per step on
+    axis 1."""
+    nh = cfg.n_heads
+    di, dh = _mlstm_dims(cfg)
+    b, K, _ = x.shape
+    silu = approx.get_silu(cfg.silu_impl)
+    q, k, v, ig, fg, g, _ = _mlstm_inputs(cfg, p, x, state["conv"])
+    conv_all = mamba._conv_tail_states(state["conv"], v.reshape(b, K, di))
+    st, hs, steps = state, [], []
+    for t in range(K):
+        h_t, (C, n, m) = ref.mlstm_cell(
+            read_state_C(cfg, st), st["n"], st["m"], q[:, t].float(),
+            k[:, t].float(), v[:, t].float(), ig[:, t], fg[:, t], dh)
+        st = {**write_state_C(cfg, C, prev_state=st), "n": n, "m": m}
+        hs.append(h_t)
+        steps.append(st)
+    hf = blocks.group_norm(torch.stack(hs, 1).reshape(b, K, di),
+                           p["gn_scale"], nh)
+    out = blocks.dense(p["down"], hf * silu(g), x.dtype)
+    states = {key: torch.stack([s[key] for s in steps], 1) for key in st}
+    states["conv"] = conv_all
+    return out, states
+
+
 def _mlstm_state(cfg, batch, device):
     nh = cfg.n_heads
     di, dh = _mlstm_dims(cfg)
@@ -297,6 +331,28 @@ def slstm_block_step(cfg, p, x_t, state):
     hf = blocks.group_norm(h_new.reshape(b, 1, d), p["gn_scale"], nh)
     out = blocks.dense(p["out"], hf, x_t.dtype)
     return out, {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
+
+
+def slstm_block_verify(cfg, p, x, state):
+    """K-token verify window (``repro`` xlstm.py:429): the gate inputs
+    over the whole window, the hidden-state recurrence (R h_{t-1})
+    chained per token.  Returns (out (b, K, d), states (c, n, h, m)
+    stacked per step on axis 1)."""
+    d, nh = cfg.d_model, cfg.n_heads
+    dh = d // nh
+    b, K, _ = x.shape
+    xn = blocks.apply_norm(cfg, p["norm"], x)
+    gx = blocks.dense(p["wx"], xn, x.dtype).float()          # (b, K, 4d)
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    steps = []
+    for t in range(K):
+        h, (c, n, m) = ref.slstm_cell(c, n, m,
+                                      _slstm_gates(p, gx[:, t], h, nh, dh))
+        steps.append({"c": c, "n": n, "h": h, "m": m})
+    states = {key: torch.stack([s[key] for s in steps], 1)
+              for key in steps[0]}
+    hf = blocks.group_norm(states["h"].reshape(b, K, d), p["gn_scale"], nh)
+    return blocks.dense(p["out"], hf, x.dtype), states
 
 
 def slstm_state_init(cfg, batch, device):
@@ -450,3 +506,43 @@ def decode_step(cfg, p, cache, batch):
             layers.append({"mlstm": ns})
         h = h + y
     return _logits(cfg, p, h), {"layers": layers, "pos": cache["pos"] + 1}
+
+
+def verify_window(cfg, p, cache, tokens):
+    """The speculative verify over a K-token window (``repro``
+    xlstm.py:657): each layer's block verify in turn.  Returns (logits
+    (b, K, V), caches), the cache tree with a leading per-step axis."""
+    K = tokens.shape[1]
+    x = blocks.embed_apply(cfg, p["embed"], tokens, _dtype(cfg))
+    layers = []
+    for lp, lc in zip(p["layers"], cache["layers"]):
+        kind = "slstm" if "slstm" in lp else "mlstm"
+        fn = slstm_block_verify if kind == "slstm" else mlstm_block_verify
+        y, states = fn(cfg, lp[kind], x, lc[kind])
+        layers.append({kind: {k: v.movedim(1, 0) for k, v in states.items()}})
+        x = x + y
+    pos = (cache["pos"][None, :]
+           + torch.arange(1, K + 1, dtype=torch.int32,
+                          device=tokens.device)[:, None])
+    return _logits(cfg, p, x), {"layers": layers, "pos": pos}
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative draft views (``repro`` xlstm.py:545): the first n
+# layers, a list slice.  A megakernel draft builds its own K3 runs over
+# them (``stack_params`` on the draft's config), once.
+# ---------------------------------------------------------------------------
+
+def draft_params(cfg, p, n):
+    out = {k: v for k, v in p.items() if k != "stack"}
+    out["layers"] = p["layers"][:n]
+    return out
+
+
+def draft_cache(cfg, cache, n):
+    return {"layers": cache["layers"][:n], "pos": cache["pos"]}
+
+
+def draft_cache_merge(cfg, full, sub, n):
+    return {"layers": list(sub["layers"]) + list(full["layers"][n:]),
+            "pos": sub["pos"]}

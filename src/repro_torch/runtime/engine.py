@@ -31,16 +31,24 @@ builds K3's stacked view of the decode weights once, when it is made
 (``registry.stack_params``).  "fused" (and "auto" on the CPU) runs the
 per-layer conv and step kernels.
 
-Not ported yet (ROADMAP A7, A8, A13): speculative decoding (``draft``),
-the prefix cache, tensor-parallel serving (``mesh``), best-of-n
-(``n > 1``) and infinite-stream sessions.  The first four raise
-``NotImplementedError`` here.
+Speculative decoding (``EngineConfig.draft``, ``runtime/spec_decode.py``)
+makes each scheduler iteration one fork -> k-token draft -> batched
+verify -> rollback pass in place of a decode burst: the pool gains one
+scratch slot per live slot, and a pass emits 1 to k+1 tokens a slot
+with one host sync.  ``Request.spec_passes`` / ``spec_accepted`` and
+``ServeStats`` count the passes and the accepted drafts; ``spec_cap``
+clamps every slot's window.
+
+Not ported yet (ROADMAP A7, A8b, A13): the prefix cache, tensor-parallel
+serving (``mesh``), best-of-n (``n > 1``) and infinite-stream sessions.
+The first three raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
 import heapq
+import math
 import time
 from typing import Callable, Optional
 
@@ -54,6 +62,7 @@ from repro_torch.models import registry
 from repro_torch.runtime import metrics as metrics_lib
 from repro_torch.runtime import sampling
 from repro_torch.runtime.sampling import SamplingParams
+from repro_torch.runtime.spec_decode import DraftConfig, SpecDecoder
 from repro_torch.runtime.state_pool import SlotStatePool
 
 
@@ -85,8 +94,11 @@ class EngineConfig:
     state_dtype: Optional[str] = None
     weight_dtype: Optional[str] = None
     kv_cache_dtype: Optional[str] = None
+    # speculative decoding: None for plain decode bursts; a DraftConfig
+    # makes every decode iteration one fork -> draft -> verify ->
+    # rollback pass, and the pool gains n_slots scratch slots
+    draft: Optional[DraftConfig] = None
     # not ported yet: must stay None
-    draft: Optional[object] = None
     prefix_cache: Optional[object] = None
     mesh: Optional[object] = None
     # where the engine runs: "cuda" unless the caller asks for "cpu"
@@ -117,6 +129,10 @@ class Request:
     logprobs: list = dataclasses.field(default_factory=list)
     top_logprobs: list = dataclasses.field(default_factory=list)
     cum_logprob: float = 0.0
+    # speculative decoding: target passes this request's slot took and
+    # drafts it accepted (drives DraftConfig.adaptive)
+    spec_passes: int = 0
+    spec_accepted: int = 0
 
     @property
     def finished(self) -> bool:
@@ -127,11 +143,11 @@ class Engine:
     def __init__(self, cfg, params, ecfg: EngineConfig,
                  logger: Optional[metrics_lib.MetricsLogger] = None,
                  clock: Callable[[], float] = time.perf_counter):
-        for name in ("draft", "prefix_cache", "mesh"):
+        for name in ("prefix_cache", "mesh"):
             if getattr(ecfg, name) is not None:
                 raise NotImplementedError(
                     f"EngineConfig.{name} is not ported to repro_torch yet "
-                    "(ROADMAP A8/A13)")
+                    "(ROADMAP A7/A13)")
         if ecfg.step_impl is not None:
             cfg = dataclasses.replace(cfg, step_impl=ecfg.step_impl)
         if ecfg.state_dtype is not None:
@@ -162,8 +178,15 @@ class Engine:
             # K3's view of the decode layers: built once, here
             self.params = registry.stack_params(cfg, self.params)
         self.ecfg = ecfg
-        self.pool = SlotStatePool(cfg, ecfg.n_slots, ecfg.max_seq,
-                                  device=self.device)
+        # one scratch slot per live slot: every live slot forks a draft
+        # in the same speculative pass
+        self.pool = SlotStatePool(
+            cfg, ecfg.n_slots, ecfg.max_seq, device=self.device,
+            n_scratch=ecfg.n_slots if ecfg.draft is not None else 0)
+        self._spec = (SpecDecoder(cfg, self.params, ecfg.draft, self.device)
+                      if ecfg.draft is not None else None)
+        # the scheduler's degradation knob: clamps every slot's window
+        self.spec_cap: Optional[int] = None
         self.stats = metrics_lib.ServeStats()
         self.logger = logger
         self._now = clock
@@ -173,7 +196,7 @@ class Engine:
         self._by_id: dict[int, Request] = {}
         self._cancel_dirty = False
         self._slot_req: list[Optional[Request]] = [None] * ecfg.n_slots
-        self._next_tok = np.zeros((ecfg.n_slots, 1), np.int64)
+        self._next_tok = np.zeros((self.pool.n_total, 1), np.int64)
         self._finished: list[Request] = []
         self._next_id = 0
 
@@ -378,6 +401,14 @@ class Engine:
             return max(1, min(remaining, self.ecfg.sched_quantum))
         return max(1, remaining)
 
+    def _base_steps(self, active) -> np.ndarray:
+        """Each pool row's stream position: the tokens its request has
+        emitted (0 for other rows)."""
+        base = np.zeros((self.pool.n_total,), np.int64)
+        for s in active:
+            base[s] = len(self._slot_req[s].tokens)
+        return base
+
     def _decode_burst(self) -> None:
         active = self.pool.active_slots()
         n_steps = self._burst_len(active)
@@ -385,9 +416,7 @@ class Engine:
         toks = torch.as_tensor(self._next_tok, device=self.device)
         act = torch.as_tensor(self.pool.active_mask(), device=self.device)
         sp = self.pool.params.rows()
-        base = np.zeros((self.ecfg.n_slots,), np.int64)
-        for s in active:
-            base[s] = len(self._slot_req[s].tokens)
+        base = self._base_steps(active)
         cache = self.pool.cache
         outs, lps, tvs, tis = [], [], [], []
         for t in range(n_steps):
@@ -430,9 +459,118 @@ class Engine:
                                  dt=self._now() - t0,
                                  n_steps=n_steps, n_tokens=n_appended)
 
+    # ------------------------------------------------------------------
+    # Speculative decoding (EngineConfig.draft)
+    # ------------------------------------------------------------------
+
+    def _slot_depth(self, req: Request) -> int:
+        """A slot's speculative window: k, or ``spec_cap`` below it; with
+        DraftConfig.adaptive, after the warm-up passes, the request's
+        realized acceptance + 1.  Window lengths only: token values do
+        not change."""
+        dc = self.ecfg.draft
+        kmax = (self._spec.k if self.spec_cap is None
+                else max(1, min(self._spec.k, self.spec_cap)))
+        if not dc.adaptive or req.spec_passes < max(1, dc.adapt_warmup):
+            return kmax
+        realized = req.spec_accepted / req.spec_passes
+        return int(min(kmax, max(1, math.ceil(realized) + 1)))
+
+    def _spec_pass(self) -> None:
+        """One fork -> draft -> verify -> rollback pass over the live
+        slots, 1 to k+1 tokens a slot, one host sync.  The scratch leases
+        are released even if the pass raises."""
+        spec = self._spec
+        active = self.pool.active_slots()
+        # draft no further than the shortest remaining budget: tokens
+        # past it would be trimmed anyway
+        remaining = min(self._slot_req[s].max_new
+                        - len(self._slot_req[s].tokens) for s in active)
+        depths = {s: self._slot_depth(self._slot_req[s]) for s in active}
+        k_eff = min(max(depths.values()), remaining - 1)
+        if k_eff < 1:
+            # every slot needs exactly one more token: a plain burst
+            self._decode_burst()
+            return
+        t0 = self._now()
+        leases: list[int] = []
+        try:
+            for _ in active:
+                sc = self.pool.lease_scratch()
+                assert sc is not None            # n_scratch == n_slots
+                leases.append(sc)
+            # the fork copies each seed verbatim: a draft proposes from
+            # its request's own stream
+            self.pool.fork(active, leases)
+            total = self.pool.n_total
+            toks = np.zeros((total, 1), np.int64)
+            toks[leases, 0] = self._next_tok[active, 0]
+            scratch = np.zeros((total,), bool)
+            scratch[leases] = True
+            base = self._base_steps(active)
+            base[leases] = base[active]
+            limit = np.full((total,), k_eff, np.int64)
+            for s in active:
+                limit[s] = min(depths[s], k_eff)
+            sp = self.pool.params.rows()
+            cache, d_toks, d_logits = spec.propose(
+                self.pool.cache, torch.as_tensor(toks, device=self.device),
+                scratch, sp, base, k_eff)
+            # proposals were drafted at the scratch rows; the verify
+            # reads them at their live slots' rows
+            perm = np.arange(total)
+            perm[active] = leases
+            perm = torch.as_tensor(perm, device=self.device)
+            emit, n_acc, _, snap, v_lp, v_tv, v_ti = spec.verify(
+                self.params, cache,
+                torch.as_tensor(self._next_tok, device=self.device),
+                d_toks[:, perm], d_logits[:, perm], self.pool.active_mask(),
+                sp, base, limit)
+            del cache, d_toks, d_logits
+            # the rollback: each live row of snap is its slot's state
+            # after exactly its accepted prefix
+            self.pool.cache = snap
+            # the pass's one host sync
+            emit_h, n_acc_h = emit.cpu().numpy(), n_acc.cpu().numpy()
+            lp_h, tv_h, ti_h = (v_lp.cpu().numpy(), v_tv.cpu().numpy(),
+                                v_ti.cpu().numpy())
+        finally:
+            for sc in leases:
+                self.pool.release_scratch(sc)
+        n_appended = n_accepted = 0
+        for slot in active:
+            req = self._slot_req[slot]
+            n_emit = int(n_acc_h[slot]) + 1
+            n_accepted += n_emit - 1
+            req.spec_passes += 1
+            req.spec_accepted += n_emit - 1
+            new_toks = []
+            for t in range(n_emit):
+                tok = int(emit_h[t, slot])
+                self._append_token(req, tok, lp_h[t, slot], tv_h[t, slot],
+                                   ti_h[t, slot])
+                new_toks.append(tok)
+                n_appended += 1
+                self._next_tok[slot, 0] = tok
+                if self._hit_stop(req):
+                    self._finish(slot)
+                    break                 # trim overshoot past a stop
+            self._deliver(req, new_toks)
+            if req.cancelled and not req.finished:
+                self._finish(slot)
+        self.stats.record_decode(n_active=len(active),
+                                 n_slots=self.ecfg.n_slots,
+                                 dt=self._now() - t0,
+                                 n_steps=k_eff + 1, n_tokens=n_appended)
+        self.stats.record_spec(n_active=len(active),
+                               n_drafted=k_eff * len(active),
+                               n_accepted=n_accepted,
+                               n_emitted=n_appended, n_draft_steps=k_eff)
+
     def step(self) -> bool:
         """One scheduler iteration: reclaim cancellations, admit into
-        free slots (highest priority first), then one decode burst.
+        free slots (highest priority first), then one decode burst (one
+        speculative pass with a draft).
         Returns False when there was nothing to do."""
         did = self._sweep_cancelled()
         while self._ready and self.pool.n_free:
@@ -443,7 +581,10 @@ class Engine:
             self._admit(req)
             did = True
         if self.pool.n_active:
-            self._decode_burst()
+            if self._spec is not None:
+                self._spec_pass()
+            else:
+                self._decode_burst()
             did = True
         return did
 

@@ -80,6 +80,7 @@ class ServeStats:
         self.spec_drafted = 0          # draft tokens proposed
         self.spec_accepted = 0         # draft tokens accepted
         self.spec_emitted = 0          # tokens delivered by spec passes
+        self.spec_draft_steps = 0      # draft decode steps over the pool
         # prefix cache (deterministic counters; the bench gate asserts
         # hits > 0 and strictly fewer prefilled tokens than no-cache)
         self.prefix_hits = 0           # admissions restored from cache
@@ -143,16 +144,18 @@ class ServeStats:
         self.slot_steps += n_slots * n_steps
 
     def record_spec(self, n_active: int, n_drafted: int, n_accepted: int,
-                    n_emitted: int):
+                    n_emitted: int, n_draft_steps: int = 0):
         """One speculative pass: ``n_drafted`` proposals over
         ``n_active`` slots, ``n_accepted`` of them accepted,
         ``n_emitted`` tokens delivered (accepted + per-slot correction/
-        bonus tokens, after EOS/budget trim)."""
+        bonus tokens, after EOS/budget trim), in ``n_draft_steps`` draft
+        decode steps over the pool."""
         self.spec_passes += 1
         self.spec_slot_passes += n_active
         self.spec_drafted += n_drafted
         self.spec_accepted += n_accepted
         self.spec_emitted += n_emitted
+        self.spec_draft_steps += n_draft_steps
 
     def record_prefix(self, hit: bool, n_cached: int):
         """One admission's prefix-cache outcome: ``n_cached`` prompt
@@ -290,6 +293,7 @@ class ServeStats:
             # pass (1.0 = plain decode; upper bound draft k + 1) and
             # the draft-token acceptance fraction
             "spec_target_passes": self.spec_passes,
+            "spec_draft_steps": self.spec_draft_steps,
             "spec_accepted_per_pass": (
                 self.spec_emitted / self.spec_slot_passes
                 if self.spec_slot_passes else 0.0),

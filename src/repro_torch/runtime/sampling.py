@@ -9,6 +9,12 @@ token at stream position ``i`` of a request seeded ``s`` is drawn with a
 ``repro``'s ``fold_in(key(s), i)``: a sampled stream does not depend on
 slot placement or on what else shares the batch.  The draws are not
 JAX's threefry bits, so sampled streams differ from ``repro``'s.
+
+Speculative decoding draws from further streams of the same request:
+``fold_tag`` derives the generator seed of tag t at a stream position
+(the counterpart of ``repro``'s ``fold_tag``), and ``sample_dist`` is
+the filtered, temperature-scaled distribution the draft proposes from
+and the acceptance ratio reads.
 """
 from __future__ import annotations
 
@@ -89,6 +95,15 @@ class SlotParams:
         self.top_p[slot] = 1.0
         self.seed[slot] = 0
 
+    def copy(self, src, dst) -> None:
+        """Mirror a state fork: rows ``dst`` take rows ``src``'s params,
+        the seed verbatim, so a draft fork continues its request's exact
+        stream of draws."""
+        src, dst = list(src), list(dst)
+        for f in self.FIELDS:
+            a = getattr(self, f)
+            a[dst] = a[src]
+
     def rows(self, slots=None) -> dict:
         """Copies of the given rows (all rows for None)."""
         idx = slice(None) if slots is None else list(slots)
@@ -102,6 +117,15 @@ def _mix(seed: int, step: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def fold_tag(seed: int, step: int, tag: int) -> int:
+    """Seed of the generator for tag ``tag`` at stream position ``step``
+    of a request seeded ``seed``: a second splitmix64 round over the
+    position's seed and the tag.  The speculative pass draws its
+    acceptance uniforms (tag 1), residual tokens (2) and bonus token (3)
+    from these streams, never from a proposal's ``_mix(seed, step)``."""
+    return _mix(_mix(seed, step), (1 << 62) + int(tag))
 
 
 def token_logprobs(logits, tok):
@@ -131,6 +155,22 @@ def filter_logits(scaled, top_k, top_p):
     return torch.where(keep, scaled, torch.full_like(scaled, -float("inf")))
 
 
+def sample_dist(logits, sp: dict) -> torch.Tensor:
+    """(b, V) raw logits -> the logits of each row's sampling
+    distribution: scaled by the row's temperature (1 for a greedy row)
+    and top-k / top-p filtered (``repro`` sampling.py:269).  ``sp`` holds
+    host arrays of b rows.  The draft's proposals and the acceptance
+    ratio both read it."""
+    lg = logits.float()
+    dev = lg.device
+    temp = torch.as_tensor(np.where(sp["temperature"] > 0,
+                                    sp["temperature"], 1.0)
+                           .astype(np.float32), device=dev)
+    return filter_logits(lg / temp[:, None],
+                         torch.as_tensor(sp["top_k"], device=dev),
+                         torch.as_tensor(sp["top_p"], device=dev))
+
+
 def sample(logits, sp: dict, step) -> torch.Tensor:
     """(b, V) logits -> (b,) int64 tokens on the logits' device.
 
@@ -146,11 +186,9 @@ def sample(logits, sp: dict, step) -> torch.Tensor:
         return tok
     dev = lg.device
     idx = torch.as_tensor(rows, device=dev)
-    temp = torch.as_tensor(sp["temperature"][rows], device=dev)
-    dist = filter_logits(lg[idx] / temp[:, None],
-                         torch.as_tensor(sp["top_k"][rows], device=dev),
-                         torch.as_tensor(sp["top_p"][rows], device=dev))
-    probs = torch.softmax(dist, dim=-1)
+    probs = torch.softmax(sample_dist(lg[idx], {f: sp[f][rows] for f in
+                                                ("temperature", "top_k",
+                                                 "top_p")}), dim=-1)
     for j, r in enumerate(rows):
         gen = torch.Generator(device=dev)
         gen.manual_seed(_mix(sp["seed"][r], step[r]))

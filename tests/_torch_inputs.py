@@ -443,3 +443,40 @@ def unit_value_mismatches(op, impl, dtype, device):
     if n_k != 1:
         bad.append(f"{n_k} device kernels a call")
     return bad
+
+
+def _bits(t):
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def tree_equal(a, b) -> bool:
+    """Bitwise equality of two trees of tensors, dict entries matched by
+    key (fp8 leaves compared as bytes)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(tree_equal, a, b))
+    return a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+def first_difference(got, ref):
+    """Position of the first token where two streams differ, or None."""
+    return next((t for t, (a, b) in enumerate(zip(got, ref)) if a != b),
+                None)
+
+
+def assert_streams_tie_equal(got, ref, tol, label=""):
+    """The speculative tie rule: each request of ``got`` has the stream of
+    its counterpart in ``ref`` (run with top_logprobs >= 2), or the two
+    first differ at a position where ref's top two logits are within
+    ``tol`` (the margin printed)."""
+    for g, r in zip(got, ref):
+        i = first_difference(g.tokens, r.tokens)
+        if i is None:
+            assert len(g.tokens) == len(r.tokens), label
+            continue
+        (_, v0), (_, v1) = r.top_logprobs[i][:2]
+        print(f"{label} req {r.req_id}: first differing token at {i}, "
+              f"reference top-two margin {v0 - v1:.3e}")
+        assert v0 - v1 <= tol, (label, r.req_id, i, v0 - v1)

@@ -13,7 +13,8 @@ from repro_torch.kernels import decode_step as tstep
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as tscan
 
-from _torch_inputs import (UNIT_IMPLS, VARIANTS, assert_q_close, close,
+from _torch_inputs import (UNIT_IMPLS, VARIANTS, assert_q_close,
+                           assert_streams_tie_equal, close,
                            code_ordinals, device_kernels, device_launches,
                            graph_kernels,
                            jamba_run_inputs,
@@ -1149,3 +1150,176 @@ def test_cuda_units_match_plain_bitwise(cuda, op, impl, dtype, n):
 @pytest.mark.parametrize("op,impl", UNIT_IMPLS)
 def test_cuda_units_values_and_shapes(cuda, op, impl, dtype):
     assert unit_value_mismatches(op, impl, dtype, cuda) == []
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the verify micro-scan, the verify window and a
+# small spec engine on the card
+# ---------------------------------------------------------------------------
+
+def _scan_window(b, K, d, dtype, device, seed):
+    """A K-token window's step inputs as the Mamba block hands them over
+    (x and z halves of one tensor, B and C inside the x_proj output)."""
+    t = _strided_scan(b, K, d, 48, dtype, device, seed, True)
+    return t.pop("h0"), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("b,d", [(8, 1536), (3, 1100)])
+def test_cuda_decode_scan_matches_plain(cuda, dtype, tol, b, d):
+    """The K-step micro-scan: one K1 launch a token, y and every step's
+    state against the plain chain on the CPU."""
+    from repro_torch.core import selective_scan as css
+    from repro_torch.core import dispatch_count
+    h, t = _scan_window(b, 5, d, dtype, cuda, 40)
+    args = (t["x"], t["dt"], t["A"], t["B"], t["C"])
+    counts = dispatch_count.launch_counts(css.decode_scan, h, *args,
+                                          D=t["D"], z_seq=t["z"])
+    assert counts == {"decode_step": 5}, counts
+    y1, h1 = css.decode_scan(h, *args, D=t["D"], z_seq=t["z"])
+    cpu = [v.cpu() for v in (h, *args)]
+    y0, h0 = css.decode_scan(*cpu, D=t["D"].cpu(), z_seq=t["z"].cpu())
+    torch.cuda.synchronize()
+    assert h1.shape == (b, 5, d, 16)
+    close(y1.cpu(), y0.float().numpy(), tol)
+    close(h1.cpu(), h0.numpy(), 1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("a8", [False, True], ids=["f32_A", "int8_A"])
+def test_cuda_decode_scan_q_matches_plain(cuda, state_dtype, a8):
+    """The quantized micro-scan: one K2 launch a token; each step held
+    at its own input (the state the micro-scan's previous step wrote)
+    against the plain step, as K2's own test holds one step: a code one
+    apart at step s changes step s + 1's input by a whole code (1/16 to
+    1/8 of a value in fp8), so a chain run twice is not compared."""
+    from repro_torch.core import selective_scan as css
+    from repro_torch.core import dispatch_count, state_quant
+    h, t = _scan_window(8, 5, 1536, "float32", cuda, 41)
+    hq, hs = state_quant.quantize_h(h, state_dtype)
+    A, a_scale = t["A"], None
+    if a8:
+        A, a_scale = weight_quant.quantize_rows(A)
+    args = (hq, hs, t["x"], t["dt"], A, t["B"], t["C"])
+    kw = dict(D=t["D"], z_seq=t["z"], state_dtype=state_dtype,
+              a_scale=a_scale)
+    counts = dispatch_count.launch_counts(css.decode_scan_q, *args, **kw)
+    assert counts == {"decode_step_q": 5}, counts
+    y, q, sc = css.decode_scan_q(*args, **kw)
+    for s in range(5):
+        prev = (hq, hs) if s == 0 else (q[:, s - 1], sc[:, s - 1])
+        want = ref.selective_state_step_q(
+            *prev, t["x"][:, s], t["dt"][:, s], A, t["B"][:, s],
+            t["C"][:, s], D=t["D"], z_t=t["z"][:, s],
+            state_dtype=state_dtype, a_scale=a_scale)
+        torch.cuda.synchronize()
+        assert_q_close((y[:, s], q[:, s], sc[:, s]), want, 1e-4,
+                       f"step {s}")
+
+
+def _spec_model(state_dtype, weight_dtype="f32", device="cpu"):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(
+        configs.smoke_variant(configs.get_config("mamba-130m")), vocab=64,
+        dtype="float32", scan_impl="pallas", conv_impl="pallas",
+        weight_dtype=weight_dtype, state_dtype=state_dtype)
+    return cfg, registry.init_params(cfg, seed=7, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype,tol", [("f32", 1e-4), ("int8", 1e-3)])
+def test_cuda_verify_window_matches_cpu(cuda, state_dtype, tol):
+    """The model's verify window over 6 prefilled slots (K5 once a layer
+    over 5 tokens with the tail passed in, K1/K2 5 times a layer): logits
+    and every step's state against the CPU's window from the same state;
+    K5's tail is the last per-step tail, bitwise."""
+    from repro_torch.core import dispatch_count, state_quant
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, mamba, registry
+    cfg, p = _spec_model(state_dtype, "int8" if state_dtype == "int8"
+                         else "f32", cuda)
+    toks = torch.randint(0, 64, (6, 17), generator=torch.Generator()
+                         .manual_seed(3)).to(cuda)
+    _, cache = registry.prefill(cfg, p, registry.init_cache(
+        cfg, 6, 32, device=cuda), {"tokens": toks[:, :12]})
+    win = toks[:, 12:]
+    counts = dispatch_count.launch_counts(registry.verify_scan, cfg, p,
+                                          cache, win)
+    L = cfg.n_layers
+    step = "decode_step_q" if state_dtype == "int8" else "decode_step"
+    assert counts == {"causal_conv1d": L, step: 5 * L}, counts
+    logits, steps = registry.verify_scan(cfg, p, cache, win)
+    cpu = torch.device("cpu")
+    lc, sc = registry.verify_scan(cfg, registry.tree_to(p, cpu),
+                                  registry.tree_to(cache, cpu), win.cpu())
+    torch.cuda.synchronize()
+    close(logits.cpu(), lc.numpy(), tol)
+    close(steps["conv"].cpu(), sc["conv"].numpy(), tol)
+    if state_dtype == "int8":
+        apart = (code_ordinals(steps["h"].cpu())
+                 - code_ordinals(sc["h"])).abs()
+        assert int(apart.max()) <= 1
+        close(state_quant.dequantize_h(steps["h"], steps["h_scale"]).cpu(),
+              state_quant.dequantize_h(sc["h"], sc["h_scale"]).numpy(), tol)
+    else:
+        close(steps["h"].cpu(), sc["h"].numpy(), tol)
+    lp = p["layers"][0]
+    x_in, _ = mamba._project(cfg, lp["mixer"], blocks.apply_norm(
+        cfg, lp["norm"], blocks.embed_apply(cfg, p["embed"], win,
+                                            torch.float32)))
+    _, tail = ops.causal_conv1d(x_in, lp["mixer"]["conv_w"],
+                                lp["mixer"]["conv_b"],
+                                x_prev=cache["conv"][0])
+    assert torch.equal(tail, mamba._conv_tail_states(cache["conv"][0],
+                                                     x_in)[:, -1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["f32", "int8", "fp8"])
+def test_cuda_spec_engine_launch_counts(cuda, state_dtype):
+    """A spec engine on the card (step_impl "auto": the half-depth draft
+    through its own K3 view, the window per layer): every launch is one
+    the engine's counters imply, no plain version runs, every scratch
+    lease comes back, and the greedy streams equal the plain engine's
+    (tie rule at 1e-4)."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.spec_decode import DraftConfig
+    wd = "int8" if state_dtype == "int8" else "f32"
+    cfg, p = _spec_model("f32")
+    common = dict(n_slots=2, max_seq=64, weight_dtype=wd,
+                  state_dtype=state_dtype, device=str(cuda))
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 64, (int(n),), generator=gen).numpy()
+               for n in (5, 9, 7)]
+    sp = SamplingParams(max_new=9, logprobs=True, top_logprobs=2)
+    plain = Engine(cfg, p, EngineConfig(**common))
+    ref_reqs = [plain.submit(q, sp) for q in prompts]
+    plain.run()
+    eng = Engine(cfg, p, EngineConfig(**common, draft=DraftConfig(
+        k=3, layers=2)))
+    dispatch_count.reset()
+    reqs = [eng.submit(q, sp) for q in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    got = +dispatch_count.snapshot()
+    s = eng.stats
+    L, A, P, D = cfg.n_layers, s.prefill_calls, s.spec_passes, \
+        s.spec_draft_steps
+    S = s.decode_steps - D - P
+    quant = state_dtype != "f32"
+    k3 = "mamba_stacked_step" + ("_q" if quant else "") + (
+        "_int8a" if wd == "int8" else "")
+    step = "decode_step_q" if quant else (
+        "decode_step_int8a" if wd == "int8" else "decode_step")
+    want = {"selective_scan": L * A, "causal_conv1d": L * (A + P),
+            step: L * (D + P), k3: D + S}
+    assert P > 0 and D > 0
+    assert got == {k: v for k, v in want.items() if v}, (got, want)
+    assert eng.pool.n_scratch_free == eng.pool.n_scratch == 2
+    assert_streams_tie_equal(reqs, ref_reqs, 1e-4, state_dtype)

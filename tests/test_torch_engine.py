@@ -27,6 +27,7 @@ from repro_torch.models import registry as tregistry
 from repro_torch.runtime import sampling as tsampling
 from repro_torch.runtime.engine import Engine, EngineConfig
 from repro_torch.runtime.serve import ServeConfig, Server
+from repro_torch.runtime.spec_decode import DraftConfig
 from repro_torch.runtime.state_pool import SlotStatePool
 
 jax.config.update("jax_platform_name", "cpu")
@@ -385,12 +386,15 @@ def test_entry_points_run_on_cuda_unless_asked_for_cpu(model):
                                   "int8_state", "fp8_state"])
 def test_unported_features_raise(model, what):
     """What is not ported raises NotImplementedError; int8 weights,
-    int8/fp8 state and the megakernel, which did before they were
-    ported, now build an engine that serves a request."""
+    int8/fp8 state, the megakernel and speculative decoding (``draft``),
+    which did before they were ported, now build an engine that serves a
+    request."""
     _, tcfg, _, tp = model
     ecfg = EngineConfig(device=CPU, n_slots=2, max_seq=64)
-    if what in ("draft", "prefix_cache", "mesh"):
+    if what in ("prefix_cache", "mesh"):
         setattr(ecfg, what, object())
+    elif what == "draft":
+        ecfg.draft = DraftConfig(k=2, layers=1)
     elif what == "weight_int8":
         ecfg.weight_dtype = "int8"
     elif what == "megakernel":
@@ -402,7 +406,8 @@ def test_unported_features_raise(model, what):
         with pytest.raises(NotImplementedError):
             eng.submit(np.arange(4), tsampling.SamplingParams(n=2))
         return
-    if what in ("weight_int8", "int8_state", "fp8_state", "megakernel"):
+    if what in ("weight_int8", "int8_state", "fp8_state", "megakernel",
+                "draft"):
         eng = Engine(tcfg, tp, ecfg)
         r = eng.submit(np.arange(4), max_new=3)
         eng.run()

@@ -63,6 +63,8 @@ def test_serve_path_imports_with_jax_blocked():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.xlstm, repro_torch.kernels.fast_exp\n"
         "import repro_torch.kernels.piecewise_silu\n"
+        "import repro_torch.runtime.spec_decode\n"
+        "import repro_torch.core.selective_scan\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
