@@ -37,7 +37,10 @@ Phases, each fatal on failure:
    a ragged width (d_model 550, whose weights take the copy path, not
    TMA) with 2 layers, each width's streaming paths checked against the
    weights' strides and the panels the card cuts against the columns
-   they must cover once, and one launch repeated bit for bit;
+   they must cover once, and one launch repeated bit for bit; K3 at one
+   slot holding a used state (the prefix cache's suffix chain steps one
+   request at a time) at full width, f32 and bf16, f32/f32 and int8/int8,
+   each bf16 launch repeated bit for bit and timed beside 4 slots;
 3. run mamba-130m at full width in f32 (prefill + 8 decode steps) through
    the kernel path on the card, per layer and through K3, and through the
    plain path on the CPU, on the same weights, and compare the logits:
@@ -74,6 +77,29 @@ Phases, each fatal on failure:
    beside the plain engine's on the same traffic, tokens per pass, the
    acceptance rate and the greedy agreement; then the device time of one
    verify pass against 5 plain decode steps;
+4p. the prefix cache (``PrefixCacheConfig(block=64, max_entries=32)``,
+   step_impl "auto"): 8 requests sharing one 256-token prefix, suffixes
+   of 16/32/48/64 tokens (two each), 32 new tokens, 6 greedy and 2
+   sampled, f32 weights and state through ``Server`` and int8/int8
+   through ``Engine``; each run holds every launch to the engine's
+   counters (K4 and K5 once a layer a one-block prefill, K3 once a chain
+   step on the prefill master's view and once a decode step), no plain
+   version, every slot back, the bytes a slot, the prefix counters, every
+   stream bitwise a cold cache-on admission's, and (f32 state) the
+   cache-off engine's greedy streams under the tie rule; TTFT of cold,
+   hit and cache-off admissions printed side by side; then a host-store
+   run whose streams are the device store's, bitwise;
+4b. best-of-4 (one prefill: 24 K4 launches; 4 distinct ranked branches;
+   branch 0 bitwise the request at n=1), best-of-4 greedy (one stream),
+   a session past max_seq (640 tokens, slot pinned, bytes a slot and
+   leaves constant) ended by cancel and one ended by its stop id, and a
+   best-of-4 over a cached prefix;
+4d. ``DisaggPipeline`` (a 1-slot worker, a 4-slot decode engine) against
+   the monolithic engine on 8 requests, f32/f32 and int8/int8: streams and
+   cumulative logprobs bitwise, each snapshot a slot's bytes, launches
+   from the counters, the snapshot's transfer timed; then
+   ``AsyncFrontend`` over ``SLOScheduler`` whose streams are
+   ``Engine.run``'s, its sheds and degradations printed;
 5. time each kernel on the card (the scan at L 512, 64, 127 and 256 and
    at jamba's d_inner 8192, its bound the larger of its bytes and its
    exponentials at the SFU rate; device time from a CUDA graph replay,
@@ -92,7 +118,9 @@ units:
    or int8 weights, f32, bf16, int8 or fp8 state, every SiLU variant, a
    ragged pool of 3 slots (f32 over the whole run; bf16 layer by layer,
    the run's one launch bitwise equal to its layers launched in turn);
-   one launch repeated bit for bit;
+   one launch repeated bit for bit; both at one slot holding a used
+   state, f32/f32 and int8 weights (an int8 C), f32 and bf16, each bf16
+   launch repeated bit for bit;
 2u. the units' main path (``ops.exp`` / ``ops.silu`` with backend
    "pallas", K8 and K9) driven with the counts at 0, then each kernel
    against its plain version, bitwise, at 1,000,003 and 16 M elements,
@@ -112,6 +140,9 @@ units:
    through K3;
 4xs. one spec serve run as phase 4s's (f32, draft of 12 layers: 2
    K3-mlstm and 1 K3-slstm a draft step), 8 prompts of 64 tokens;
+4xp. one prefix-cache run as phase 4p's (f32, block 64): 4 prompts of a
+   shared 64 tokens + 16, 16 new tokens, served one at a time, each
+   stream bitwise a cold admission's;
 5x. time K3-mlstm, K3-slstm, K8 and K9 (beside ``torch.exp`` /
    ``F.silu``), the whole decode step through K3 against per layer, and
    the prefill loop per prompt token;
@@ -130,7 +161,8 @@ generator:
    full width, 4 slots, one and four positions, f32 and bf16, f32 or
    int8 weights, f32, int8 or fp8 state, its inputs made by the card
    tests' builder (``tests/_torch_inputs.py``); one launch repeated bit
-   for bit;
+   for bit; one position at one slot holding a used state, f32/f32 and
+   int8/int8, f32 and bf16, each bf16 launch repeated bit for bit;
 3j. the dense variant (n_experts 0, 8 layers) in f32, prefill 127 + 8
    decode steps, on the card per layer and through K3 against the CPU,
    f32 and int8 weights with int8 state and int8 KV; its verify window
@@ -143,13 +175,16 @@ generator:
    group: the target's K3 runs), 8 prompts of 64 tokens; its acceptance
    is printed (expert capacity drops make an MoE layer's output depend
    on the batch, and the draft's batch is not the verify's);
+4jp. one prefix-cache run as phase 4xp's with an int8 KV cache and 8 new
+   tokens, served one at a time (capacity drops would make a slot's
+   decode depend on what shares the batch);
 5j. time K7 beside SDPA and its bound (and its device kernels a call),
    K3-jamba, and the whole jamba decode step through K3 against the
    per-layer one;
 
 and print one JSON line of every kernel (K5's and K7's with their
 designs, K7's with its SASS counts, each with its launches in the
-speculative serve runs).
+speculative serve runs and in the prefix-cache runs).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
@@ -2836,6 +2871,655 @@ def time_verify(cfg, params, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The serving front: K3 at one row (the prefix cache's suffix chain and the
+# prefill worker step one request at a time), the prefix cache, best-of-n,
+# sessions, disaggregation, the SLO scheduler and the async front-end
+# ---------------------------------------------------------------------------
+
+def _row1(tree):
+    """Row 1 of a two-slot input as its own one-slot input (row 0 of the
+    kernel checks' inputs is a fresh slot: zero state)."""
+    from repro_torch.models import registry
+    return registry.tree_map(lambda t: t[1:].contiguous(), tree)
+
+
+def _same_bits(a, b) -> bool:
+    from repro_torch.models import registry
+    return all(torch.equal(u.view(torch.uint8), v.view(torch.uint8))
+               for u, v in zip(registry.tree_leaves(a),
+                               registry.tree_leaves(b)) if u is not None)
+
+
+def log_repeat(name, a, b):
+    same = _same_bits(a, b)
+    log(f"  {name}, one launch repeated: "
+        f"{'bitwise equal' if same else 'FAIL'}")
+    if not same:
+        FAILURES.append(f"{name} repeat")
+
+
+def check_k3_one(cfg, dev):
+    """K3-mamba at one slot holding a used state, 24 layers at full width,
+    f32 and bf16, f32 weights and state and int8 weights with an int8
+    state, against its plain version (phase 2's tolerances); each bf16
+    launch repeated bit for bit and timed beside 4 slots."""
+    import dataclasses
+    from repro_torch.kernels import megakernel, ref
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for wd, sd in (("f32", "f32"), ("int8", "int8")):
+        p = k3_params(cfg, wd, dev)
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=dtype, weight_dtype=wd,
+                                    state_dtype=sd)
+            x0, h, h_scale, conv = k3_inputs(c, 2, gen, dev)
+            x0 = x0[1:].contiguous()
+            h, conv = h[:, 1:].contiguous(), conv[:, 1:].contiguous()
+            h_scale = None if h_scale is None else h_scale[:, 1:].contiguous()
+            got = megakernel.mamba_stacked_step(c, x0, p["stack"], h,
+                                                h_scale, conv)
+            want = ref.mamba_stacked_step(c, x0, p["stack"].layers, h,
+                                          h_scale, conv)
+            torch.cuda.synchronize()
+            act = "f32" if dtype == "float32" else "bf16"
+            name = f"K3 1 slot L={cfg.n_layers} {act} {wd} w {sd} state"
+            check_k3(name, c, got, want)
+            if act == "bf16":
+                again = megakernel.mamba_stacked_step(c, x0, p["stack"], h,
+                                                      h_scale, conv)
+                torch.cuda.synchronize()
+                log_repeat(name, got, again)
+                times = {}
+                for slots in (1, 4):
+                    xi, hi, si, ci = k3_inputs(c, slots, gen, dev)
+                    times[slots], how = device_time(
+                        lambda: megakernel.mamba_stacked_step(
+                            c, xi, p["stack"], hi, si, ci), 20)
+                log(f"  K3 L={cfg.n_layers} bf16 {wd} w {sd} state: "
+                    f"{times[1]:.4f} ms at 1 slot, {times[4]:.4f} ms at 4 "
+                    f"slots (device, {how})")
+
+
+def check_k3_one_xlstm(dev):
+    """K3-mlstm (a 7-layer run) and K3-slstm (one layer) at one slot
+    holding a used state, xlstm-350m's widths, f32 and bf16, f32/f32 and
+    int8 weights (an int8 C for the mLSTM): phase 2x's rules (f32 over the
+    run; bf16 layer by layer); each bf16 launch repeated bit for bit."""
+    from repro_torch.kernels import megakernel, ref
+    xlstm_run_inputs = shared_inputs().xlstm_run_inputs
+    seed = SEED + 300
+    for kind, n in (("mlstm", 7), ("slstm", 1)):
+        for wd, sd in (("f32", "f32"), ("int8", "int8")):
+            sd = sd if kind == "mlstm" else "f32"
+            for dtype in ("float32", "bfloat16"):
+                c = xlstm_cfg(dtype=dtype, weight_dtype=wd, state_dtype=sd)
+                seed += 1
+                run, x0, states, outs = xlstm_run_inputs(c, kind, n, 2,
+                                                         seed=seed,
+                                                         device=dev)
+                x0, states, outs = (x0[1:].contiguous(), _row1(states),
+                                    _row1(outs))
+                x1 = megakernel.xlstm_stacked_run(c, x0, run, states, outs)
+                torch.cuda.synchronize()
+                act = "f32" if dtype == "float32" else "bf16"
+                name = f"K3-{kind} L={n} 1 slot {act} {wd} w {sd} state"
+                if act == "f32":
+                    xr, want = ref.xlstm_stacked_run(c, x0, kind, run.rows,
+                                                     states)
+                    check_xlstm_run(name, c, kind, x1, outs, xr, want)
+                    continue
+                first = [x1.clone()] + [{k: v.clone() for k, v in o.items()}
+                                        for o in outs]
+                check_xlstm_layers(name, c, kind, run, x0, states, x1, outs)
+                again = [megakernel.xlstm_stacked_run(c, x0, run, states,
+                                                      outs)] + outs
+                torch.cuda.synchronize()
+                log_repeat(name, first, again)
+
+
+def check_k3_one_jamba(dev):
+    """K3-jamba at one slot holding a used state, one position at
+    jamba-v0.1's widths, f32 and bf16, f32/f32 and int8/int8, against its
+    plain version (phase 2j's rules); each bf16 launch repeated bit for
+    bit."""
+    from repro_torch.kernels import megakernel, ref
+    jamba_run_inputs = shared_inputs().jamba_run_inputs
+    seed = SEED + 400
+    for wd, sd in (("f32", "f32"), ("int8", "int8")):
+        for dtype in ("float32", "bfloat16"):
+            c = jamba_cfg(n_experts=0, dtype=dtype, weight_dtype=wd,
+                          state_dtype=sd)
+            seed += 1
+            run, x0, states, outs = jamba_run_inputs(c, 1, 2, seed=seed,
+                                                     device=dev)
+            x0, states, outs = (x0[1:].contiguous(), _row1(states),
+                                _row1(outs))
+            x1 = megakernel.jamba_stacked_run(c, x0, run, states, outs)
+            xr, want = ref.jamba_stacked_run(c, x0, run.rows, states)
+            torch.cuda.synchronize()
+            act = "f32" if dtype == "float32" else "bf16"
+            name = f"K3-jamba 1 pos 1 slot {act} {wd} w {sd} state"
+            for i, (a, b) in enumerate(zip(outs, want)):
+                check_k3(f"{name} [{i}]", c,
+                         (x1, a["h"], a.get("h_scale"), a["conv"]),
+                         (xr, b["h"], b.get("h_scale"), b["conv"]))
+            if act == "bf16":
+                first = [x1.clone()] + [{k: v.clone() for k, v in o.items()}
+                                        for o in outs]
+                again = [megakernel.jamba_stacked_run(c, x0, run, states,
+                                                      outs)] + outs
+                torch.cuda.synchronize()
+                log_repeat(name, first, again)
+            del run, states, outs, want
+
+
+def front_traffic(cfg, shared, suffixes, sampled, max_new, seed=5):
+    """Prompts of one shared ``shared``-token prefix (a system prompt) and
+    a suffix each of ``suffixes``; the requests at ``sampled`` sampled
+    (temperature 0.8, top_k 40, a seed each), the others greedy with their
+    top two logprobs kept for the tie rule."""
+    import numpy as np
+    from repro_torch.runtime.sampling import SamplingParams
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, cfg.vocab, size=shared).astype(np.int32)
+    out = []
+    for i, n in enumerate(suffixes):
+        prompt = np.concatenate([pre, rng.integers(
+            0, cfg.vocab, size=n).astype(np.int32)])
+        out.append((prompt, SamplingParams(
+            temperature=0.8, top_k=40, seed=4321 + i, max_new=max_new)
+            if i in sampled else SamplingParams(
+                max_new=max_new, logprobs=True, top_logprobs=2)))
+    return out
+
+
+def note(label, ok):
+    log(f"  {label}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(label)
+    return ok
+
+
+def served_well(reqs, max_new, vocab):
+    return all(r.finished and len(r.tokens) == max_new
+               and all(0 <= t < vocab for t in r.tokens) for r in reqs)
+
+
+def warm(eng, cfg):
+    """cuBLAS and library init on short prompts (no cache boundary), then
+    fresh stats."""
+    from repro_torch.runtime.metrics import ServeStats
+    for L in (16, 12):
+        eng.submit(torch.arange(L).numpy() % cfg.vocab, max_new=4)
+    eng.run()
+    eng.stats = ServeStats()
+
+
+def prefix_want(model, s, block, chain_k, decode_k, step_k):
+    """The launches of a prefix-cache serve run, from the engine's
+    counters: each cold admission prefills one block (the scan, conv and
+    attention kernels of an admission), then every chain step and every
+    decode step launches the K3 kernels (``model["k3"]`` of each) and the
+    conv and step kernels of the positions K3 leaves."""
+    chain = s.prefill_tokens - block * s.prefix_misses
+    miss, rest = s.prefix_misses, model["k3_rest"]
+    want = collections.Counter()
+    want["selective_scan"] = model.get("scan", model["ssm"]) * miss
+    want["flash_attention"] = model["attn"] * miss
+    want["causal_conv1d"] = (model["ssm"] * miss
+                             + rest * (chain + s.decode_steps))
+    if rest:
+        want[step_k] = rest * (chain + s.decode_steps)
+    for k in chain_k:
+        want[k] += model["k3"] * chain
+    for k in decode_k:
+        want[k] += model["k3"] * s.decode_steps
+    return want, chain
+
+
+def phase_prefix(num, model, cfg, params, runs, traffic, block, dev, card,
+                 front_counts, tie_tol=None, sequential=False,
+                 host_store=False):
+    """Phase ``num``: prefix-cache serve runs of ``traffic`` (one shared
+    prefix), bf16, step_impl "auto", ``PrefixCacheConfig(block, 32)``.
+    Each run checks: every launch against the counters (``prefix_want``),
+    no plain version, every slot back, the bytes a slot; the prefix
+    counters; each request's stream and logprobs bitwise those of a cold
+    admission of its prompt on a fresh cache-enabled engine; with
+    ``tie_tol`` the cache-off engine's greedy streams under the tie rule
+    (margins printed).  TTFT of cold, hit and cache-off admissions printed
+    side by side.  ``sequential`` serves one request at a time (an MoE's
+    capacity makes a slot's decode depend on what shares the batch).
+    With ``host_store`` a last run with ``store="host"`` must give the
+    device store's streams bitwise."""
+    import dataclasses
+    import statistics
+    from repro_torch.core import dispatch_count
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.prefix_cache import (PrefixCache,
+                                                  PrefixCacheConfig)
+    from repro_torch.runtime.serve import ServeConfig, Server
+    name = model["name"]
+    pcc = PrefixCacheConfig(block=block, max_entries=32)
+    shared = min(int(p.size) for p, _ in traffic)
+    probe = PrefixCache(pcc)
+    want_cached = sum(min(probe.boundary(int(p.size)),
+                          (shared // block) * block)
+                      for p, _ in traffic[1:])
+    lens = [int(p.size) for p, _ in traffic]
+    max_new = traffic[0][1].max_new
+    first_streams = None
+    for i, (wd, sd, kv, want_spb, step_k, chain_k, decode_k, via) in \
+            enumerate(runs):
+        setup = (f"{wd} weights, {sd} state, {kv} kv, block {block}, "
+                 f"{'Server' if via else 'Engine'}")
+        log(f"== phase {num}.{i + 1}: prefix-cache serve {name} bf16, "
+            f"{setup}")
+
+        def make(prefix_cache, store="device", via=via, wd=wd, sd=sd,
+                 kv=kv):
+            pc = (None if prefix_cache is None
+                  else dataclasses.replace(prefix_cache, store=store))
+            if via:
+                return Server(dataclasses.replace(cfg, step_impl="auto"),
+                              params, ServeConfig(
+                                  batch_slots=4, max_seq=SERVE_MAX_SEQ,
+                                  prefix_cache=pc, device=str(dev))).engine
+            return Engine(cfg, params, EngineConfig(
+                n_slots=4, max_seq=SERVE_MAX_SEQ, weight_dtype=wd,
+                state_dtype=sd, kv_cache_dtype=kv, step_impl="auto",
+                prefix_cache=pc, device=str(dev)))
+
+        def serve(eng):
+            if not sequential:
+                reqs = [eng.submit(p, sp) for p, sp in traffic]
+                eng.run()
+                return reqs
+            reqs = []
+            for p, sp in traffic:
+                reqs.append(eng.submit(p, sp))
+                eng.run()
+            return reqs
+
+        eng = make(pcc)
+        warm(eng, cfg)
+        dispatch_count.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = serve(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = dispatch_count.snapshot()
+        s = eng.stats
+        want, chain = prefix_want(model, s, block, chain_k, decode_k, step_k)
+        log(f"  {name}, {setup}: admissions {s.prefill_calls} (hits "
+            f"{s.prefix_hits}, misses {s.prefix_misses}), chain steps "
+            f"{chain}, pooled decode steps {s.decode_steps}")
+        for k in dispatch_count.COUNTERS:
+            ok = snap[k] == want[k]
+            if snap[k] or want[k] or not ok:
+                log(f"  launches {k:<26} {snap[k]:>6} (expected {want[k]})"
+                    f"  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"{name} prefix launch count {k} ({setup})")
+            if snap[k] and not front_counts.get(k):
+                front_counts[k] = snap[k]
+        plain = sum(v for k, v in snap.items() if k.startswith("plain "))
+        n = len(traffic)
+        note(f"plain-version calls {plain}", plain == 0)
+        note(f"slots back ({eng.pool.n_free} of 4 free, "
+             f"{eng.pool.n_pinned} pinned)",
+             eng.pool.n_free == 4 and eng.pool.n_pinned == 0)
+        note(f"state_bytes_per_slot {eng.pool.state_bytes_per_slot()} "
+             f"(expected {want_spb})",
+             eng.pool.state_bytes_per_slot() == want_spb)
+        note(f"{n} requests finished with {max_new} in-vocab tokens",
+             served_well(reqs, max_new, cfg.vocab))
+        note(f"prefix hits {s.prefix_hits} (expected {n - 1}), cached tokens "
+             f"{s.prefix_cached_tokens} (expected {want_cached}), prefill "
+             f"tokens {s.prefill_tokens} (expected "
+             f"{sum(lens) - want_cached})",
+             (s.prefix_hits, s.prefix_cached_tokens, s.prefill_tokens)
+             == (n - 1, want_cached, sum(lens) - want_cached))
+        admit = {"hit": [r.t_first - r.t_admit for r in reqs[1:]]}
+        cold_ok, admit["cold"] = True, []
+        for (p, sp), r in zip(traffic, reqs):
+            cold = make(pcc)
+            c = cold.submit(p, sp)
+            cold.run()
+            admit["cold"].append(c.t_first - c.t_admit)
+            cold_ok &= (c.tokens == r.tokens and c.logprobs == r.logprobs
+                        and c.cum_logprob == r.cum_logprob)
+            del cold
+        note(f"every stream bitwise a cold cache-on admission's of its "
+             f"prompt ({n - 1} hits, 1 miss)", cold_ok)
+        off = make(None)
+        warm(off, cfg)
+        oreqs = serve(off)
+        admit["off"] = [r.t_first - r.t_admit for r in oreqs]
+        note(f"cache-off prefill tokens {off.stats.prefill_tokens} (expected "
+             f"{sum(lens)})", off.stats.prefill_tokens == sum(lens))
+        if tie_tol is not None and sd == "f32":
+            # a quantized state is quantized at other points by the
+            # chunked prefill than by one full prefill: printed only
+            tie_check(f"{name} {setup} cache on vs off", reqs, oreqs,
+                      tie_tol)
+        same = sum(a == b for r, q in zip(reqs, oreqs)
+                   for a, b in zip(r.tokens, q.tokens))
+        log(f"  token agreement with the cache-off run {same}/"
+            f"{sum(len(q.tokens) for q in oreqs)} (printed: bf16)")
+        ms = {k: 1e3 * statistics.mean(v) for k, v in admit.items()}
+        log(f"  prefix {name} bf16, {setup} on {card}: admission to first "
+            f"token (prompts {min(lens)}-{max(lens)}) mean cold "
+            f"{ms['cold']:.2f} ms (a fresh cache: one-block prefill + "
+            f"{min(lens) - block}-{max(lens) - block} chain steps), hit "
+            f"{ms['hit']:.2f} ms (restore + chain), cache off "
+            f"{ms['off']:.2f} ms (one prefill); TTFT mean on "
+            f"{s.summary()['ttft_mean_s'] * 1e3:.1f} ms, off "
+            f"{off.stats.summary()['ttft_mean_s'] * 1e3:.1f} ms; serve "
+            f"wall {wall:.3f} s on, {off.stats.summary()['wall_s']:.3f} s "
+            f"off")
+        del off
+        if i == 0:
+            first_streams = [(r.tokens, r.logprobs) for r in reqs]
+        del eng
+        torch.cuda.empty_cache()
+        if not phase_ok():
+            return False
+    if host_store:
+        log(f"== phase {num}.h: host store (store='host'), first setup")
+        wd, sd, kv, via = runs[0][0], runs[0][1], runs[0][2], runs[0][7]
+        eng = Engine(cfg, params, EngineConfig(
+            n_slots=4, max_seq=SERVE_MAX_SEQ, weight_dtype=wd,
+            state_dtype=sd, kv_cache_dtype=kv, step_impl="auto",
+            prefix_cache=dataclasses.replace(pcc, store="host"),
+            device=str(dev)))
+        reqs = serve(eng)
+        on_host = all(e.on_host for e in eng._prefix._entries.values())
+        note(f"host store: {eng.stats.prefix_hits} hits, every entry on the "
+             f"CPU after the run ({len(eng._prefix)} entries), streams and "
+             f"logprobs bitwise the device store's",
+             on_host and eng.stats.prefix_hits == len(traffic) - 1
+             and [(r.tokens, r.logprobs) for r in reqs] == first_streams)
+        del eng
+        torch.cuda.empty_cache()
+    return phase_ok()
+
+
+def tie_check(tag, got, ref, tol):
+    """The tie rule over greedy requests: ``got`` equals ``ref`` (run with
+    top-two logprobs) or first differs where ref's top two logits are
+    within ``tol``; margins printed."""
+    margins, ok = [], True
+    for g, r in zip(got, ref):
+        if r.params.temperature > 0:
+            continue
+        i = next((t for t, (a, b) in enumerate(zip(g.tokens, r.tokens))
+                  if a != b), None)
+        if i is None:
+            continue
+        (_, v0), (_, v1) = r.top_logprobs[i][:2]
+        margins.append((r.req_id, i, round(v0 - v1, 6)))
+        ok &= v0 - v1 <= tol
+    note(f"{tag}: greedy first differences (req, position, reference "
+         f"top-two margin) {margins}, each a tie within {tol:g}", ok)
+
+
+def phase_best_of_n(num, cfg, params, dev, card):
+    """Phase ``num``: best-of-n and sessions, mamba-130m bf16, f32 weights
+    and state, step_impl "auto", 4 slots."""
+    import dataclasses
+    from repro_torch.core import dispatch_count
+    from repro_torch.models import registry
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.prefix_cache import PrefixCacheConfig
+    from repro_torch.runtime.sampling import SamplingParams
+
+    def make(**kw):
+        return Engine(cfg, params, EngineConfig(
+            n_slots=4, max_seq=SERVE_MAX_SEQ, step_impl="auto",
+            device=str(dev), **kw))
+
+    traffic = front_traffic(cfg, 256, (16, 32), (), 32)
+    prompt = traffic[1][0]
+    sp = SamplingParams(temperature=0.8, top_k=40, seed=77, n=4, max_new=32)
+    log(f"== phase {num}.1: best-of-4 sampled on 4 slots, then greedy")
+    eng = make()
+    warm(eng, cfg)
+    dispatch_count.reset()
+    parent = eng.submit(prompt, sp)
+    eng.run()
+    torch.cuda.synchronize()
+    k4 = dispatch_count.snapshot()["selective_scan"]
+    streams = [tuple(c.tokens) for c in parent.branches]
+    cums = [c.cum_logprob for c in parent.branches]
+    solo_eng = make()
+    solo = solo_eng.submit(prompt, dataclasses.replace(sp, n=1))
+    solo_eng.run()
+    b0 = next(c for c in parent.branches if c.branch == 0)
+    note(f"one prefill for the group: K4 launches {k4} (expected "
+         f"{cfg.n_layers})", k4 == cfg.n_layers)
+    note(f"{len(set(streams))} distinct branches of 4, ranked by cumulative "
+         f"logprob {[round(c, 3) for c in cums]}",
+         len(set(streams)) == 4 and cums == sorted(cums, reverse=True))
+    note("branch 0 bitwise the request served at n=1",
+         b0.tokens == solo.tokens and b0.cum_logprob == solo.cum_logprob)
+    note(f"every slot back ({eng.pool.n_free} of 4), one request retired",
+         eng.pool.n_free == 4 and eng.stats.n_requests == 1)
+    greedy = eng.submit(prompt, SamplingParams(n=4, max_new=32))
+    one = eng.submit(prompt, SamplingParams(max_new=32))
+    eng.run()
+    note("best-of-4 greedy: the four streams identical, the request's at "
+         "n=1", len({tuple(c.tokens) for c in greedy.branches}) == 1
+         and greedy.tokens == one.tokens)
+    del eng, solo_eng
+    log(f"== phase {num}.2: sessions past max_seq ({SERVE_MAX_SEQ})")
+    eng = make()
+    leaves0 = [(t.shape, t.dtype) for t in
+               registry.tree_leaves(eng.pool.cache)]
+    spb = eng.pool.state_bytes_per_slot()
+    t0 = time.perf_counter()
+    sess = eng.submit(prompt, session=True)
+    steady = True
+    while len(sess.tokens) < 640:
+        eng.step()
+        slot = eng._slot_req.index(sess)
+        steady &= (eng.pool.is_pinned(slot) and eng.pool.n_pinned == 1
+                   and eng.pool.state_bytes_per_slot() == spb
+                   and [(t.shape, t.dtype) for t in registry.tree_leaves(
+                       eng.pool.cache)] == leaves0)
+    dt = time.perf_counter() - t0
+    eng.cancel(sess.req_id)
+    eng.step()
+    note(f"session of {len(sess.tokens)} tokens past max_seq "
+         f"{SERVE_MAX_SEQ} (prompt {prompt.size}): slot pinned and bytes a "
+         f"slot ({spb}) and leaves constant at every sync; ended by cancel, "
+         f"slot unpinned and free ({len(sess.tokens) / dt:.1f} tok/s on "
+         f"{card})",
+         steady and sess.finished and sess.cancelled
+         and eng.pool.n_pinned == 0 and eng.pool.n_free == 4)
+    stop = sess.tokens[600]
+    ended = eng.submit(prompt, session=True, eos_id=stop)
+    eng.run()
+    note(f"session with stop id {stop}: ended on it after "
+         f"{len(ended.tokens)} tokens, the first session's stream up to it",
+         ended.finished and not ended.cancelled
+         and ended.tokens == sess.tokens[:sess.tokens.index(stop) + 1]
+         and eng.pool.n_pinned == 0)
+    del eng
+    log(f"== phase {num}.3: best-of-4 over a cached prefix")
+    pcc = PrefixCacheConfig(block=64)
+    eng = make(prefix_cache=pcc)
+    eng.submit(traffic[0][0], max_new=4)
+    eng.run()
+    parent = eng.submit(prompt, sp)
+    eng.run()
+    solo_eng = make(prefix_cache=pcc)
+    solo = solo_eng.submit(prompt, dataclasses.replace(sp, n=1))
+    solo_eng.run()
+    b0 = next(c for c in parent.branches if c.branch == 0)
+    note(f"prefix hits {eng.stats.prefix_hits} (expected 1), "
+         f"{len({tuple(c.tokens) for c in parent.branches})} distinct "
+         f"branches of 4, branch 0 bitwise the n=1 request on a cold "
+         f"cache", eng.stats.prefix_hits == 1
+         and len({tuple(c.tokens) for c in parent.branches}) == 4
+         and b0.tokens == solo.tokens and eng.pool.n_free == 4)
+    del eng, solo_eng
+    torch.cuda.empty_cache()
+    return phase_ok()
+
+
+def phase_disagg(num, cfg, params, runs, dev, card):
+    """Phase ``num``: for each (weights, state, bytes a slot, decode K3
+    kernel) of ``runs``, ``DisaggPipeline`` (a 1-slot prefill worker, a
+    4-slot decode engine, queue depth 4) on one card against the
+    monolithic engine on the same 8 requests (prompts 64 and 127, 32 new
+    tokens, 6 greedy and 2 sampled), bf16, "auto": streams and cumulative
+    logprobs bitwise, each snapshot a slot's bytes, the launches the
+    worker's and the decode engine's counters imply, the transfer timed;
+    then ``AsyncFrontend`` over ``SLOScheduler`` on the same traffic
+    against ``Engine.run``."""
+    import asyncio
+    from repro_torch.core import dispatch_count
+    from repro_torch.runtime.disagg import DisaggConfig, DisaggPipeline
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.frontend import AsyncFrontend
+    from repro_torch.runtime.prefix_cache import (snapshot_to_device,
+                                                  snapshot_to_host)
+    from repro_torch.runtime.scheduler import (SchedConfig, SLOClass,
+                                               SLOScheduler)
+    traffic = spec_prompts(cfg, (64, 127))
+    L = cfg.n_layers
+    for i, (wd, sd, want_spb, k3_k) in enumerate(runs):
+        setup = f"{wd} weights, {sd} state"
+        log(f"== phase {num}.{i + 1}: disaggregated serve mamba-130m bf16, "
+            f"{setup}, step_impl 'auto'")
+        ecfg = EngineConfig(n_slots=4, max_seq=SERVE_MAX_SEQ, seed=3,
+                            weight_dtype=wd, state_dtype=sd,
+                            step_impl="auto", device=str(dev))
+        mono = Engine(cfg, params, ecfg)
+        warm(mono, cfg)
+        ref = [mono.submit(p, sp) for p, sp in traffic]
+        mono.run()
+        pipe = DisaggPipeline(cfg, params, ecfg, DisaggConfig(queue_depth=4))
+        warm(pipe.decode, cfg)
+        dispatch_count.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items = [pipe.submit(p, sp) for p, sp in traffic]
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = dispatch_count.snapshot()
+        w, s = pipe.worker.engine.stats, pipe.decode.stats
+        want = collections.Counter({"selective_scan": L * w.prefill_calls,
+                                    "causal_conv1d": L * w.prefill_calls,
+                                    k3_k: s.decode_steps})
+        for k in dispatch_count.COUNTERS:
+            ok = snap[k] == want[k]
+            if snap[k] or want[k] or not ok:
+                log(f"  launches {k:<26} {snap[k]:>6} (expected {want[k]})"
+                    f"  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"disagg launch count {k} ({setup})")
+        plain = sum(v for k, v in snap.items() if k.startswith("plain "))
+        note(f"plain-version calls {plain}", plain == 0)
+        same = all(it.req.tokens == ref[j].tokens
+                   and it.req.cum_logprob == ref[j].cum_logprob
+                   for j, it in enumerate(items))
+        c = pipe.counters()
+        note(f"8 disaggregated streams and cumulative logprobs bitwise the "
+             f"monolithic engine's; {c['transfers']} transfers, "
+             f"{c['transfer_bytes'] // max(1, c['transfers'])} B each "
+             f"(expected {want_spb}), queue peak {c['max_queue_depth']} of "
+             f"4; decode-side prefill tokens {s.prefill_tokens}",
+             same and c["transfers"] == 8
+             and all(it.snap.nbytes == want_spb for it in items)
+             and s.prefill_tokens == 0 and s.snapshot_admits == 8)
+        note("8 requests finished with 32 in-vocab tokens",
+             served_well([it.req for it in items], 32, cfg.vocab))
+        eng = pipe.worker.engine
+        slot = eng.pool.alloc()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = snapshot_to_host(eng.pool.read([slot]))
+            t1 = time.perf_counter()
+            back = snapshot_to_device(host, dev)
+            torch.cuda.synchronize()
+            times.append((t1 - t0, time.perf_counter() - t1))
+        eng.pool.evict(slot)
+        del back
+        out_ms = 1e3 * min(t for t, _ in times)
+        in_ms = 1e3 * min(t for _, t in times)
+        log(f"  transfer of one {want_spb} B snapshot on {card} (best of 5, "
+            f"host clock): gather + to the CPU {out_ms:.3f} ms "
+            f"({want_spb / out_ms / 1e6:.2f} GB/s), back to the card "
+            f"{in_ms:.3f} ms ({want_spb / in_ms / 1e6:.2f} GB/s)")
+        log(f"  disagg mamba-130m bf16, {setup} on {card}: "
+            f"{s.summary()['useful_tokens']} tokens in {wall:.3f} s, TTFT "
+            f"mean {s.summary()['ttft_mean_s'] * 1e3:.1f} ms; monolithic "
+            f"{mono.stats.summary()['tokens_per_s']:.1f} tok/s")
+        del pipe, mono
+        torch.cuda.empty_cache()
+        if not phase_ok():
+            return False
+        log(f"== phase {num}.{i + 1}f: AsyncFrontend over SLOScheduler, "
+            f"{setup}")
+        eng = Engine(cfg, params, ecfg)
+        warm(eng, cfg)
+        sched = SLOScheduler(eng, SchedConfig(
+            weights={"a": 1.0, "b": 2.0},
+            classes=(SLOClass(ttft_budget=100_000),)))
+
+        async def front():
+            async with AsyncFrontend(eng, sched) as fe:
+                hs = [await fe.submit(p, sp, tenant="ab"[j % 2])
+                      for j, (p, sp) in enumerate(traffic)]
+                streams = [[t async for t in h.tokens()] for h in hs]
+                done = [await h.result() for h in hs]
+            return hs, streams, done
+
+        hs, streams, done = asyncio.run(asyncio.wait_for(front(), 600))
+        cnt = sched.counters()
+        good = all(d is not None and d.tokens == st == ref[j].tokens
+                   for j, (d, st) in enumerate(zip(done, streams)))
+        note(f"front-end streams equal Engine.run's (8 requests, tenants "
+             f"a/b at weights 1/2): admitted {cnt['admitted']}, shed "
+             f"{cnt['shed']}, degraded {cnt['degraded']}, starvation bound "
+             f"{cnt['starvation_bound']}, order {sched.admitted_order}",
+             good and cnt["admitted"] == 8 and eng.pool.n_free == 4)
+        del eng, sched
+        torch.cuda.empty_cache()
+        if not phase_ok():
+            return False
+    return True
+
+
+# (weights, state, kv cache, bytes a slot, the per-position step kernel,
+# the K3 kernels of the suffix chain, those of a decode step, through
+# Server): each prefix-cache run.  The chain steps the f32 prefill master,
+# so an int8-weight engine's chain launches K3's f32-weight instance.
+PREFIX_RUNS = (
+    ("f32", "f32", "model", 2580484, None, ("mamba_stacked_step",),
+     ("mamba_stacked_step",), True),
+    ("int8", "int8", "model", 811300, None, ("mamba_stacked_step_q",),
+     ("mamba_stacked_step_q_int8a",), False))
+XLSTM_PREFIX_RUNS = (
+    ("f32", "f32", "model", 88818004, None,
+     ("mlstm_stacked_run", "slstm_stacked_run"),
+     ("mlstm_stacked_run", "slstm_stacked_run"), False),)
+# jamba with an f32 state and int8 KV strips: 7 x (h 8192 x 16 x 4 + conv
+# 3 x 8192 x 2) + 2 x 576 x (1024 + 4) + pos 4 bytes a slot
+JAMBA_PREFIX_RUNS = (
+    ("f32", "f32", "int8", 5198340, "decode_step", ("jamba_stacked_run",),
+     ("jamba_stacked_run",), False),)
+# (weights, state, bytes a slot, the decode K3 kernel): each run of 4d
+DISAGG_RUNS = (("f32", "f32", 2580484, "mamba_stacked_step"),
+               ("int8", "int8", 811300, "mamba_stacked_step_q_int8a"))
+
+
 T_START = time.perf_counter()
 
 
@@ -2865,6 +3549,8 @@ def main() -> int:
     phase_build()
     log("== phase 2: kernels vs plain versions on the card")
     errs = phase_kernels(cfg, dev)
+    log("  K3 at one slot (the prefix cache's suffix chain)")
+    check_k3_one(cfg, dev)
     if not phase_ok():
         return 1
     log("== phase 3: mamba-130m f32, kernel path (card) vs plain path (CPU)")
@@ -2892,6 +3578,17 @@ def main() -> int:
         return 1
     log("== phase 4s.t: one verify pass against plain decode steps")
     time_verify(cfg, params, dev)
+    # the serving front: each kernel's launches from the first prefix-cache
+    # run that runs it
+    front_counts = {}
+    if not phase_prefix("4p", MAMBA, cfg, params, PREFIX_RUNS, front_traffic(
+            cfg, 256, (16, 32, 48, 64) * 2, (3, 6), 32), 64, dev, card,
+            front_counts, tie_tol=SPEC_BF16_TIE, host_store=True):
+        return 1
+    if not phase_best_of_n("4b", cfg, params, dev, card):
+        return 1
+    if not phase_disagg("4d", cfg, params, DISAGG_RUNS, dev, card):
+        return 1
     log("== phase 5: kernel timing (CUDA events)")
     kernels = phase_timing(cfg, dev, counts, errs)
     if not phase_ok():
@@ -2902,6 +3599,8 @@ def main() -> int:
     log("== phase 2x: K3-mlstm and K3-slstm vs plain versions, xlstm-350m "
         "widths")
     check_xlstm_kernels(dev, errs)
+    log("  K3-mlstm and K3-slstm at one slot")
+    check_k3_one_xlstm(dev)
     if not phase_ok():
         return 1
     log("== phase 2u: K8 (fast exp) and K9 (piecewise SiLU) vs plain "
@@ -2930,6 +3629,11 @@ def main() -> int:
     if not phase_spec_serves("4xs", xlstm_cfg(), xlstm_params(dev),
                              XLSTM_SPEC_RUNS, (64,), dev, card, spec_counts):
         return 1
+    if not phase_prefix("4xp", XLSTM_SERVED, xlstm_cfg(), xlstm_params(dev),
+                        XLSTM_PREFIX_RUNS, front_traffic(
+                            xlstm_cfg(), 64, (16,) * 4, (3,), 16), 64, dev,
+                        card, front_counts, sequential=True):
+        return 1
     log("== phase 5x: xLSTM kernel, unit and decode-step timing")
     kernels += phase_xlstm_timing(dev, counts, errs)
     _XLSTM.clear()
@@ -2941,6 +3645,8 @@ def main() -> int:
     # ahead of their host-bound serving
     log("== phase 2j: K7 and K3-jamba vs plain versions, jamba-v0.1 widths")
     check_jamba_kernels(dev, errs)
+    log("  K3-jamba at one slot")
+    check_k3_one_jamba(dev)
     if not phase_ok():
         return 1
     log("== phase 3j: jamba-v0.1-52b dense variant (8 layers) f32, card vs "
@@ -2961,6 +3667,11 @@ def main() -> int:
     if not phase_spec_serves("4js", jamba_cfg(), jamba_params(False, dev),
                              JAMBA_SPEC_RUNS, (64,), dev, card, spec_counts):
         return 1
+    if not phase_prefix("4jp", JAMBA_SERVED, jamba_cfg(),
+                        jamba_params(False, dev), JAMBA_PREFIX_RUNS,
+                        front_traffic(jamba_cfg(), 64, (16,) * 4, (3,), 8),
+                        64, dev, card, front_counts, sequential=True):
+        return 1
     log("== phase 5j: jamba kernel and decode-step timing")
     kernels += phase_jamba_timing(dev, counts, errs)
     log(f"total {time.perf_counter() - T_START:.1f} s")
@@ -2968,7 +3679,9 @@ def main() -> int:
         return 1
     for entry in kernels:
         # the launches of the speculative serve runs (phases 4s, 4xs, 4js)
+        # and of the prefix-cache runs (4p, 4xp, 4jp)
         entry["spec_launches"] = spec_counts.get(entry["name"], 0)
+        entry["prefix_launches"] = front_counts.get(entry["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -39,9 +39,26 @@ with one host sync.  ``Request.spec_passes`` / ``spec_accepted`` and
 ``ServeStats`` count the passes and the accepted drafts; ``spec_cap``
 clamps every slot's window.
 
-Not ported yet (ROADMAP A7, A8b, A13): the prefix cache, tensor-parallel
-serving (``mesh``), best-of-n (``n > 1``) and infinite-stream sessions.
-The first three raise ``NotImplementedError`` here.
+Prefix-state cache (``EngineConfig.prefix_cache``,
+``runtime/prefix_cache.py``): an admission whose prompt shares a cached
+block-boundary prefix restores that snapshot and computes only the
+suffix, one batch-1 ``decode_step`` a token (K3 on the card, on K3's view
+of the prefill master); a cold admission prefills the first block, then
+chains the rest the same way and stores a snapshot at every boundary it
+crosses.  A hit therefore emits bitwise the tokens of a cold admission of
+the same prompt.  Only the boundary states of a chain are kept.
+
+Best-of-n (``SamplingParams.n``): one prefill, then a fork into n - 1
+more slots whose seeds are re-derived per branch (branch 0 keeps the
+request's, so it is the same request served at n = 1); the parent
+``Request`` holds no slot and ends with the branches ranked by
+cumulative logprob.  ``submit(session=True)`` opens an infinite-stream
+session (no max_new horizon, slot pinned) for families whose state does
+not grow with max_seq; ``submit_snapshot`` admits a request prefilled
+elsewhere (``runtime/disagg.py``) with one scatter.
+
+Not ported yet (ROADMAP A13): tensor-parallel serving (``mesh``), which
+raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -61,13 +78,17 @@ from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.runtime import metrics as metrics_lib
 from repro_torch.runtime import sampling
+from repro_torch.runtime.prefix_cache import (PrefixCache, PrefixCacheConfig,
+                                              snapshot_to_device,
+                                              snapshot_to_host)
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.spec_decode import DraftConfig, SpecDecoder
 from repro_torch.runtime.state_pool import SlotStatePool
 
 
 def derive_seed(engine_seed: int, req_id: int) -> int:
-    """Per-request seed for unseeded requests (as repro's)."""
+    """Per-request seed for unseeded requests (as repro's); module-level so
+    that a disaggregated pipeline numbers its requests as an engine does."""
     return (engine_seed * 1_000_003 + req_id) & 0x7FFFFFFF
 
 
@@ -98,8 +119,11 @@ class EngineConfig:
     # makes every decode iteration one fork -> draft -> verify ->
     # rollback pass, and the pool gains n_slots scratch slots
     draft: Optional[DraftConfig] = None
+    # prompt-prefix state cache: None prefills every prompt whole; a
+    # PrefixCacheConfig restores cached block-boundary snapshots and
+    # computes only the suffix
+    prefix_cache: Optional[PrefixCacheConfig] = None
     # not ported yet: must stay None
-    prefix_cache: Optional[object] = None
     mesh: Optional[object] = None
     # where the engine runs: "cuda" unless the caller asks for "cpu"
     device: str = "cuda"
@@ -133,6 +157,21 @@ class Request:
     # drafts it accepted (drives DraftConfig.adaptive)
     spec_passes: int = 0
     spec_accepted: int = 0
+    # infinite-stream session: no max_new horizon, slot pinned until a
+    # stop or cancel()
+    session: bool = False
+    # disaggregated admission: a shipped prefill snapshot
+    # (runtime/disagg.py Snapshot) restored in place of a local prefill
+    snapshot: Optional[object] = dataclasses.field(default=None,
+                                                   repr=False)
+    # best-of-n: the submitted request is the parent and holds no slot;
+    # its n children (``branches``, ranked by cum_logprob when done) do,
+    # each with its ``branch`` tag and a ``parent`` link
+    branches: Optional[list] = dataclasses.field(default=None, repr=False)
+    parent: Optional["Request"] = dataclasses.field(default=None,
+                                                    repr=False)
+    branch: int = 0
+    _open: int = 0                        # unfinished children (parent)
 
     @property
     def finished(self) -> bool:
@@ -143,11 +182,10 @@ class Engine:
     def __init__(self, cfg, params, ecfg: EngineConfig,
                  logger: Optional[metrics_lib.MetricsLogger] = None,
                  clock: Callable[[], float] = time.perf_counter):
-        for name in ("prefix_cache", "mesh"):
-            if getattr(ecfg, name) is not None:
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported to repro_torch yet "
-                    "(ROADMAP A7/A13)")
+        if ecfg.mesh is not None:
+            raise NotImplementedError(
+                "EngineConfig.mesh is not ported to repro_torch yet "
+                "(ROADMAP A13)")
         if ecfg.step_impl is not None:
             cfg = dataclasses.replace(cfg, step_impl=ecfg.step_impl)
         if ecfg.state_dtype is not None:
@@ -174,9 +212,18 @@ class Engine:
         self.prefill_params = (self.params if prefill_params is params
                                else registry.tree_to(prefill_params,
                                                      self.device))
+        # the prefix cache's suffix chain steps the prefill master, through
+        # K3 where decode runs K3: its own view of the master unless the
+        # master is the decode tree
+        self._chain_params = self.prefill_params
         if stack:
             # K3's view of the decode layers: built once, here
+            master_is_decode = self.prefill_params is self.params
             self.params = registry.stack_params(cfg, self.params)
+            if ecfg.prefix_cache is not None:
+                self._chain_params = (
+                    self.params if master_is_decode
+                    else registry.stack_params(cfg, self.prefill_params))
         self.ecfg = ecfg
         # one scratch slot per live slot: every live slot forks a draft
         # in the same speculative pass
@@ -187,6 +234,16 @@ class Engine:
                       if ecfg.draft is not None else None)
         # the scheduler's degradation knob: clamps every slot's window
         self.spec_cap: Optional[int] = None
+        # sessions need a state that does not grow with max_seq (jamba's
+        # KV strips do): compare a slot with the cache one position longer,
+        # made on the meta device, so nothing is allocated
+        longer = registry.init_cache(cfg, 1, ecfg.max_seq + 1, device="meta")
+        self._cache_growable = any(
+            x.shape != y.shape
+            for x, y in zip(registry.tree_leaves(self.pool.fresh),
+                            registry.tree_leaves(longer)))
+        self._prefix = (PrefixCache(ecfg.prefix_cache, self.device)
+                        if ecfg.prefix_cache is not None else None)
         self.stats = metrics_lib.ServeStats()
         self.logger = logger
         self._now = clock
@@ -210,11 +267,36 @@ class Engine:
                arrival: Optional[float] = None,
                priority: int = 0,
                stream_cb: Optional[Callable] = None,
-               tenant: Optional[str] = None) -> Request:
-        """Enqueue a request (``repro``'s ``Engine.submit`` without
-        sessions).  ``max_new`` overrides params.max_new and ``eos_id``
-        extends params.stop; ``arrival`` (s from run() start) gates
-        admission; higher ``priority`` admits earlier."""
+               tenant: Optional[str] = None,
+               session: bool = False) -> Request:
+        """Enqueue a request (``repro``'s ``Engine.submit``).  ``max_new``
+        overrides params.max_new and ``eos_id`` extends params.stop;
+        ``arrival`` (s from run() start) gates admission; higher
+        ``priority`` admits earlier.  ``session=True`` opens an
+        infinite-stream session: no max_new horizon (a stop or cancel()
+        ends it), its slot pinned; refused for a family whose cache grows
+        with max_seq (jamba's KV strips)."""
+        prompt, params = self.resolve(prompt, params, max_new, eos_id,
+                                      session, stream_cb)
+        req_id = self._next_id
+        self._next_id += 1
+        req = Request(req_id=req_id, prompt=prompt, params=params,
+                      seed=self.seed_for(params, req_id),
+                      max_new=params.max_new,
+                      stop_ids=frozenset(params.stop), eos_id=eos_id,
+                      priority=priority, stream_cb=stream_cb,
+                      arrival=arrival or 0.0, t_submit=self._now(),
+                      tenant=tenant, session=session)
+        return self._enqueue(req, arrival)
+
+    def resolve(self, prompt, params: Optional[SamplingParams] = None,
+                max_new: Optional[int] = None,
+                eos_id: Optional[int] = None, session: bool = False,
+                stream_cb: Optional[Callable] = None):
+        """The request policy of ``submit``, ``submit_snapshot`` and
+        ``DisaggPipeline.submit``: the prompt as int32 and the params
+        with ``max_new`` and ``eos_id`` applied, held to this engine's
+        max_seq, slots and cache.  Returns (prompt, params)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -225,25 +307,77 @@ class Engine:
             params = dataclasses.replace(
                 params, stop=tuple(params.stop) + (eos_id,))
         params.validate()
-        if params.n > 1:
-            raise NotImplementedError(
-                "best-of-n (n > 1) is not ported to repro_torch yet "
-                "(ROADMAP A8)")
-        if prompt.size + params.max_new > self.ecfg.max_seq:
+        if session:
+            if self._cache_growable:
+                raise ValueError(
+                    "infinite-stream sessions need a max_seq-independent "
+                    "decode state; this family's cache grows with "
+                    "max_seq (per-position KV strips)")
+            if params.n > 1:
+                raise ValueError("sessions are single-stream (n == 1)")
+            if prompt.size > self.ecfg.max_seq:
+                raise ValueError(
+                    f"session prompt ({prompt.size}) exceeds max_seq "
+                    f"({self.ecfg.max_seq})")
+        elif prompt.size + params.max_new > self.ecfg.max_seq:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new ({params.max_new}) "
                 f"exceeds max_seq ({self.ecfg.max_seq})")
-        req_id = self._next_id
-        self._next_id += 1
-        seed = (params.seed if params.seed is not None
-                else derive_seed(self.ecfg.seed, req_id))
-        req = Request(req_id=req_id, prompt=prompt, params=params,
-                      seed=seed, max_new=params.max_new,
-                      stop_ids=frozenset(params.stop), eos_id=eos_id,
+        if params.n > self.ecfg.n_slots:
+            raise ValueError(
+                f"n ({params.n}) exceeds n_slots ({self.ecfg.n_slots}): "
+                f"every branch needs a slot")
+        if params.n > 1 and stream_cb is not None:
+            raise ValueError("stream_cb is unsupported for n > 1 "
+                             "(n branches have no single stream)")
+        return prompt, params
+
+    def seed_for(self, params: SamplingParams, index: int) -> int:
+        """The sampling seed of the ``index``-th submission: its params'
+        own, else one derived from the engine seed and the index."""
+        return (params.seed if params.seed is not None
+                else derive_seed(self.ecfg.seed, index))
+
+    def submit_snapshot(self, snap, arrival: Optional[float] = None,
+                        priority: int = 0,
+                        stream_cb: Optional[Callable] = None,
+                        tenant: Optional[str] = None,
+                        session: bool = False) -> Request:
+        """Enqueue a request prefilled elsewhere (``runtime/disagg.py``).
+
+        ``snap`` carries the prompt, the resolved SamplingParams and seed,
+        the post-prompt batch-1 cache tree (payload, scales, position) and
+        the first token with its logprob surface.  Admission scatters the
+        state into a slot and installs that token, with no local prefill,
+        so the stream is the engine's own for the same request: the
+        worker ran the same prefill with the same seed, and a gather,
+        copy and scatter move the state exactly.  The state's layout must
+        be this engine's (same model, state and KV dtypes, max_seq)."""
+        if snap.params.n > 1:
+            raise ValueError("snapshot admission is single-stream "
+                             "(best-of-n forks decode-side state that "
+                             "does not exist yet)")
+        prompt, params = self.resolve(snap.prompt, snap.params,
+                                      session=session, stream_cb=stream_cb)
+        want = registry.tree_leaves(self.pool.fresh)
+        got = registry.tree_leaves(snap.state)
+        if len(want) != len(got) or any(
+                w.shape != g.shape or w.dtype != g.dtype
+                for w, g in zip(want, got)):
+            raise ValueError(
+                "snapshot state does not match this engine's cache "
+                "layout (model config / state_dtype / max_seq mismatch)")
+        req = Request(req_id=self._next_id, prompt=prompt, params=params,
+                      seed=snap.seed, max_new=params.max_new,
+                      stop_ids=frozenset(params.stop),
                       priority=priority, stream_cb=stream_cb,
                       arrival=arrival or 0.0, t_submit=self._now(),
-                      tenant=tenant)
-        self._by_id[req_id] = req
+                      tenant=tenant, session=session, snapshot=snap)
+        self._next_id += 1
+        return self._enqueue(req, arrival)
+
+    def _enqueue(self, req: Request, arrival: Optional[float]) -> Request:
+        self._by_id[req.req_id] = req
         if arrival is None:
             self._push_ready(req)
         else:
@@ -262,6 +396,11 @@ class Engine:
         if req is None or req.finished or req.cancelled:
             return False
         req.cancelled = True
+        if req.branches is not None:
+            # best-of-n: the parent holds no slot, its live branches do
+            for child in req.branches:
+                if not child.finished:
+                    child.cancelled = True
         self._cancel_dirty = True
         return True
 
@@ -324,29 +463,119 @@ class Engine:
             req.top_logprobs.append(
                 [(int(ti[i]), float(tv[i])) for i in range(k)])
 
-    def _admit(self, req: Request) -> None:
-        """Exact-length prefill of the prompt into a free slot, then the
-        first token, sampled with the request's own params."""
-        slot = self.pool.alloc()
-        assert slot is not None
-        self.pool.params.set(slot, req.params, req.seed)
+    def _tokens(self, toks) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(toks), dtype=torch.int64,
+                               device=self.device)
+
+    def _admit_into_slot(self, req: Request, slot: int):
+        """Prefill ``req``'s prompt into ``slot`` (its params row already
+        set) and sample its first token.  With the prefix cache and a
+        usable boundary: restore the deepest cached snapshot (a hit) or
+        prefill the first block (cold), then chain the rest of the prompt
+        (``_suffix_chain``).  Returns (tok, lp, tv row, ti row, last
+        logits (1, V)), the last on the device: best-of-n samples its
+        other branches' first tokens from it."""
         t0 = self._now()
         req.t_admit = t0
-        tokens = torch.as_tensor(req.prompt[None], dtype=torch.int64,
-                                 device=self.device)
-        logits, sub = registry.prefill(self.cfg, self.prefill_params,
-                                       self.pool.fresh, {"tokens": tokens})
-        self.pool.admit(slot, sub)
-        last = logits[:, -1, :]
+        prompt = req.prompt
+        length = int(prompt.size)
+        pc = self._prefix
+        bound = pc.boundary(length) if pc is not None else 0
+        hit = None
+        if bound:
+            hit = pc.lookup(prompt)
+            if hit is not None:
+                p_from, snap = hit
+            else:
+                p_from = pc.cfg.block
+                _, snap = registry.prefill(
+                    self.cfg, self.prefill_params, self.pool.fresh,
+                    {"tokens": self._tokens(prompt[None, :p_from])})
+                snap = self.pool.as_slot(snap)
+                pc.insert(prompt[:p_from], snap)
+            last, final = self._suffix_chain(prompt, p_from, snap, bound)
+            self.pool.admit(slot, final)
+            self.stats.record_prefix(hit is not None,
+                                     p_from if hit is not None else 0)
+        else:
+            logits, sub = registry.prefill(
+                self.cfg, self.prefill_params, self.pool.fresh,
+                {"tokens": self._tokens(prompt[None])})
+            self.pool.admit(slot, sub)
+            last = logits[:, -1, :]
         tok_dev = sampling.sample(last, self.pool.params.rows([slot]), [0])
         lp, tv, ti = sampling.token_logprobs(last, tok_dev)
         tok = int(tok_dev[0])                    # host sync: first token
         req.t_first = self._now()
-        self.stats.record_prefill(int(req.prompt.size), req.t_first - t0)
+        # prefill_tokens counts computed tokens only: restored ones go to
+        # prefix_cached_tokens
+        self.stats.record_prefill(length - (p_from if hit is not None
+                                            else 0), req.t_first - t0)
+        return tok, lp[0].item(), tv[0].tolist(), ti[0].tolist(), last
+
+    def _suffix_chain(self, prompt, p_from: int, snap, bound: int):
+        """Run ``prompt[p_from:]`` from the snapshot ``snap`` one batch-1
+        ``decode_step`` a token, on the prefill master (K3's view of it
+        where decode runs K3), storing the state at every block boundary
+        the chain crosses up to ``bound``.  Only those states are kept.
+        Returns (the last token's logits (1, V), the final state)."""
+        block = self._prefix.cfg.block
+        toks = self._tokens(prompt[p_from:]).reshape(-1, 1, 1)
+        cache = snap
+        for j in range(toks.shape[0]):
+            logits, cache = registry.decode_step(
+                self.cfg, self._chain_params, cache, {"tokens": toks[j]})
+            done = p_from + j + 1
+            if done % block == 0 and done <= bound:
+                self._prefix.insert(prompt[:done], cache)
+        return logits[:, -1, :], cache
+
+    def prefill_snapshot(self, prompt, params: SamplingParams, seed: int):
+        """Prefill ``prompt`` as an admission would (the prefix cache's
+        path included), sample its first token with ``seed`` and export
+        the slot's state to the CPU, a copy that owns its memory; the
+        slot is evicted at once.  The prefill side of disaggregated
+        serving (``runtime/disagg.py``).  Returns (state, tok, lp, tv row,
+        ti row)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        slot = self.pool.alloc()
+        if slot is None:
+            raise RuntimeError("prefill_snapshot needs a free slot")
+        self.pool.params.set(slot, params, seed)
+        req = Request(req_id=self._next_id, prompt=prompt, params=params,
+                      seed=seed, max_new=params.max_new,
+                      stop_ids=frozenset(params.stop))
+        self._next_id += 1
+        try:
+            tok, lp, tv, ti, _ = self._admit_into_slot(req, slot)
+            state = snapshot_to_host(self.pool.read([slot]))
+        finally:
+            self.pool.evict(slot)
+        if self._prefix is not None:
+            self._prefix.flush_pending(limit=None)
+            self.stats.sync_prefix(self._prefix.counters())
+        return state, tok, lp, tv, ti
+
+    def _admit_snapshot_into_slot(self, req: Request, slot: int):
+        """Disaggregated admission: one scatter of the shipped state into
+        ``slot``, then the worker's first token.  No local prefill, so
+        prefill_tokens is untouched; the snapshot_* counters take it."""
+        t0 = self._now()
+        req.t_admit = t0
+        snap = req.snapshot
+        self.pool.admit(slot, snapshot_to_device(snap.state, self.device))
+        req.t_first = self._now()
+        self.stats.record_snapshot_admit(n_tokens=int(req.prompt.size),
+                                         nbytes=snap.nbytes)
+        return snap.tok, snap.lp, snap.tv, snap.ti
+
+    def _install(self, req: Request, slot: int, tok: int, lp, tv,
+                 ti) -> None:
+        """Bind an admitted request to its slot and deliver its first
+        token (the tail of plain and best-of-n admission)."""
         self._slot_req[slot] = req
         self._next_tok[slot, 0] = tok
-        self._append_token(req, tok, lp[0].item(), tv[0].tolist(),
-                           ti[0].tolist())
+        self._append_token(req, tok, lp, tv, ti)
         if self.logger:
             self.logger.log(event="admit", req=req.req_id, slot=slot,
                             prompt_len=int(req.prompt.size))
@@ -356,8 +585,66 @@ class Engine:
         if req.cancelled and not req.finished:
             self._finish(slot)
 
+    def _admit(self, req: Request) -> None:
+        slot = self.pool.alloc()
+        assert slot is not None
+        self.pool.params.set(slot, req.params, req.seed)
+        if req.snapshot is not None:
+            tok, lp, tv, ti = self._admit_snapshot_into_slot(req, slot)
+        else:
+            tok, lp, tv, ti, _ = self._admit_into_slot(req, slot)
+        if req.session:
+            # eviction-free lease: _finish unpins before evicting
+            self.pool.pin(slot)
+        self._install(req, slot, tok, lp, tv, ti)
+
+    def _branch_request(self, parent: Request, b: int) -> Request:
+        """Branch ``b`` of a best-of-n parent.  Its pool row's seed comes
+        from the fork's tag, so ``seed`` is bookkeeping only."""
+        child = Request(
+            req_id=self._next_id, prompt=parent.prompt,
+            params=dataclasses.replace(parent.params, n=1),
+            seed=parent.seed, max_new=parent.max_new,
+            stop_ids=parent.stop_ids, eos_id=parent.eos_id,
+            priority=parent.priority, t_submit=parent.t_submit,
+            branch=b, parent=parent)
+        self._next_id += 1
+        self._by_id[child.req_id] = child
+        return child
+
+    def _admit_group(self, parent: Request) -> None:
+        """Best-of-n admission: one prefill into the first slot, one fork
+        into the other n - 1 with branch tags 1..n-1 (each its own seed),
+        then each of those branches' first token sampled from the
+        prefill's last logits with its own seed.  Branch 0 keeps the
+        parent's seed: its stream is the request served at n = 1."""
+        n = parent.params.n
+        slots = [self.pool.alloc() for _ in range(n)]
+        assert all(s is not None for s in slots)
+        children = [self._branch_request(parent, b) for b in range(n)]
+        parent.branches = list(children)
+        parent._open = n
+        self.pool.params.set(slots[0], parent.params, parent.seed)
+        tok0, lp0, tv0, ti0, last = self._admit_into_slot(children[0],
+                                                          slots[0])
+        parent.t_admit = children[0].t_admit
+        parent.t_first = children[0].t_first
+        # fork before any stop or cancel can evict the first slot
+        self.pool.fork([slots[0]] * (n - 1), slots[1:],
+                       branch_tags=list(range(1, n)))
+        firsts = [(tok0, lp0, tv0, ti0)]
+        for b in range(1, n):
+            tb = sampling.sample(last, self.pool.params.rows([slots[b]]),
+                                 [0])
+            lb, tvb, tib = sampling.token_logprobs(last, tb)
+            firsts.append((int(tb[0]), lb[0].item(), tvb[0].tolist(),
+                           tib[0].tolist()))
+        for b in range(n):
+            self._install(children[b], slots[b], *firsts[b])
+
     def _hit_stop(self, req: Request) -> bool:
-        if len(req.tokens) >= req.max_new:
+        # a session has no token horizon: only stops and cancel end it
+        if not req.session and len(req.tokens) >= req.max_new:
             return True
         if req.stop_ids and req.tokens[-1] in req.stop_ids:
             return True
@@ -371,31 +658,82 @@ class Engine:
     def _finish(self, slot: int) -> None:
         req = self._slot_req[slot]
         req.t_done = self._now()
-        if req.cancelled:
+        if req.parent is not None:
+            # a best-of-n branch: stats and the finished list see only
+            # its parent
+            pass
+        elif req.cancelled:
             self.stats.record_cancelled()
         else:
             self.stats.record_request(ttft=req.t_first - req.t_submit,
                                       latency=req.t_done - req.t_submit,
                                       n_tokens=len(req.tokens),
                                       tenant=req.tenant)
+        if req.session:
+            self.pool.unpin(slot)
         self.pool.evict(slot)
         self._slot_req[slot] = None
         self._next_tok[slot, 0] = 0
-        self._finished.append(req)
+        if req.parent is None:
+            self._finished.append(req)
         self._by_id.pop(req.req_id, None)
         if self.logger:
             self.logger.log(
                 event="cancel" if req.cancelled else "finish",
                 req=req.req_id, slot=slot, n_tokens=len(req.tokens))
+        if req.parent is not None:
+            req.parent._open -= 1
+            if req.parent._open == 0:
+                self._finalize_parent(req.parent)
+
+    def _finalize_parent(self, parent: Request) -> None:
+        """Every branch finished: rank them by cumulative logprob (ties by
+        branch), give the parent the best one's stream, retire it."""
+        kids = sorted(parent.branches,
+                      key=lambda c: (-c.cum_logprob, c.branch))
+        parent.branches = kids
+        best = kids[0]
+        parent.tokens = list(best.tokens)
+        parent.logprobs = list(best.logprobs)
+        parent.top_logprobs = list(best.top_logprobs)
+        parent.cum_logprob = best.cum_logprob
+        parent.t_done = self._now()
+        if parent.cancelled:
+            self.stats.record_cancelled()
+        else:
+            self.stats.record_request(
+                ttft=parent.t_first - parent.t_submit,
+                latency=parent.t_done - parent.t_submit,
+                n_tokens=len(parent.tokens), tenant=parent.tenant)
+        self._finished.append(parent)
+        self._by_id.pop(parent.req_id, None)
+        if self.logger:
+            self.logger.log(event="finish_group", req=parent.req_id,
+                            n=len(kids), best=best.branch,
+                            n_tokens=len(parent.tokens))
+
+    @staticmethod
+    def _remaining(req: Request) -> int:
+        """Tokens left before the certain eviction; a session has none
+        (only a stop or cancel ends it)."""
+        if req.session:
+            return 1 << 30
+        return req.max_new - len(req.tokens)
 
     def _burst_len(self, active) -> int:
-        """Decode steps until the next scheduling event (repro's rule)."""
-        remaining = min(self._slot_req[s].max_new
-                        - len(self._slot_req[s].tokens) for s in active)
+        """Decode steps until the next scheduling event (repro's rule): the
+        shortest remaining budget, capped by the quantum when an uncertain
+        event could act sooner (a stop, a stream callback, a session, a
+        host-store snapshot waiting for its copy, a free slot with queued
+        work)."""
+        remaining = min(self._remaining(self._slot_req[s]) for s in active)
         uncertain = any(self._slot_req[s].stop_ids
                         or self._slot_req[s].params.stop_seqs
                         or self._slot_req[s].stream_cb is not None
+                        or self._slot_req[s].session
                         for s in active)
+        if self._prefix is not None and self._prefix.has_pending():
+            uncertain = True
         may_admit = self.pool.n_free > 0 and (self._ready or self._pending)
         if uncertain or may_admit:
             return max(1, min(remaining, self.ecfg.sched_quantum))
@@ -484,8 +822,7 @@ class Engine:
         active = self.pool.active_slots()
         # draft no further than the shortest remaining budget: tokens
         # past it would be trimmed anyway
-        remaining = min(self._slot_req[s].max_new
-                        - len(self._slot_req[s].tokens) for s in active)
+        remaining = min(self._remaining(self._slot_req[s]) for s in active)
         depths = {s: self._slot_depth(self._slot_req[s]) for s in active}
         k_eff = min(max(depths.values()), remaining - 1)
         if k_eff < 1:
@@ -569,16 +906,26 @@ class Engine:
 
     def step(self) -> bool:
         """One scheduler iteration: reclaim cancellations, admit into
-        free slots (highest priority first), then one decode burst (one
-        speculative pass with a draft).
+        free slots (highest priority first; a best-of-n group when n slots
+        are free), then one decode burst (one speculative pass with a
+        draft).
         Returns False when there was nothing to do."""
         did = self._sweep_cancelled()
         while self._ready and self.pool.n_free:
-            _, _, req = heapq.heappop(self._ready)
+            req = self._ready[0][2]
             if req.cancelled:
+                heapq.heappop(self._ready)
                 self._drop_cancelled(req)
                 continue
-            self._admit(req)
+            # a best-of-n group needs n free slots at once and blocks the
+            # line until it has them
+            if req.params.n > self.pool.n_free:
+                break
+            heapq.heappop(self._ready)
+            if req.params.n > 1:
+                self._admit_group(req)
+            else:
+                self._admit(req)
             did = True
         if self.pool.n_active:
             if self._spec is not None:
@@ -586,16 +933,48 @@ class Engine:
             else:
                 self._decode_burst()
             did = True
+        if self._prefix is not None:
+            # the burst just synced: move one host-store snapshot to the
+            # CPU, and adopt the cache's counters
+            if self._prefix.has_pending():
+                self._prefix.flush_pending(limit=1)
+                did = True
+            self.stats.sync_prefix(self._prefix.counters())
         return did
+
+    @property
+    def n_ready(self) -> int:
+        """Requests in line for a slot (arrived, not yet admitted)."""
+        return len(self._ready)
+
+    def busy(self) -> bool:
+        return bool(self._pending or self._ready or self.pool.n_active)
+
+    def start_run(self) -> None:
+        """Open a run: start the stats clock and the list of the requests
+        it retires."""
+        self.stats.start()
+        self._finished = []
+
+    def end_run(self) -> list[Request]:
+        """Close a run: move every host-store snapshot to the CPU, stop
+        the stats clock.  Returns the requests retired since
+        ``start_run``, in order."""
+        if self._prefix is not None:
+            self._prefix.flush_pending(limit=None)
+            self.stats.sync_prefix(self._prefix.counters())
+        self.stats.stop()
+        if self.logger:
+            self.logger.log(event="summary", **self.stats.summary())
+        return self._finished
 
     def run(self) -> list[Request]:
         """Run until every submitted request is finished or cancelled,
         replaying arrival-gated requests against a clock starting now.
         Returns the requests retired during this call, in order."""
-        self.stats.start()
-        self._finished = []
+        self.start_run()
         t0 = self._now()
-        while self._pending or self._ready or self.pool.n_active:
+        while self.busy():
             now = self._now() - t0
             while self._pending and self._pending[0].arrival <= now:
                 req = self._pending.pop(0)
@@ -608,7 +987,4 @@ class Engine:
                 wait = self._pending[0].arrival - (self._now() - t0)
                 if wait > 0:
                     time.sleep(min(wait, 0.05))
-        self.stats.stop()
-        if self.logger:
-            self.logger.log(event="summary", **self.stats.summary())
-        return self._finished
+        return self.end_run()

@@ -14,7 +14,9 @@ Speculative decoding draws from further streams of the same request:
 ``fold_tag`` derives the generator seed of tag t at a stream position
 (the counterpart of ``repro``'s ``fold_tag``), and ``sample_dist`` is
 the filtered, temperature-scaled distribution the draft proposes from
-and the acceptance ratio reads.
+and the acceptance ratio reads.  Best-of-n gives branch b > 0 a seed of
+its own, ``branch_seed(seed, b)`` (the counterpart of ``repro``'s
+``fold_in(key, b)`` at fork time); branch 0 keeps the request's seed.
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ _MASK64 = (1 << 64) - 1
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """Per-request generation knobs (``Engine.submit(prompt, params)``);
-    the fields and their meaning are ``repro``'s.  ``n > 1`` (best-of-n)
-    is not ported yet and the engine refuses it."""
+    the fields and their meaning are ``repro``'s (``n > 1``: best-of-n,
+    n branches forked from one prefill)."""
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -95,14 +97,20 @@ class SlotParams:
         self.top_p[slot] = 1.0
         self.seed[slot] = 0
 
-    def copy(self, src, dst) -> None:
-        """Mirror a state fork: rows ``dst`` take rows ``src``'s params,
-        the seed verbatim, so a draft fork continues its request's exact
-        stream of draws."""
+    def copy(self, src, dst, tags=None) -> None:
+        """Mirror a state fork: rows ``dst`` take rows ``src``'s params.
+        Without ``tags`` (or where a tag is 0 or None) the seed is copied
+        verbatim, so a draft fork continues its request's exact stream of
+        draws; a truthy tag t gives the row ``branch_seed(src seed, t)``,
+        best-of-n branch t's own stream."""
         src, dst = list(src), list(dst)
+        seeds = self.seed[src].copy()
         for f in self.FIELDS:
             a = getattr(self, f)
             a[dst] = a[src]
+        for s, d, t in zip(seeds, dst, tags or ()):
+            if t:
+                self.seed[d] = branch_seed(s, t)
 
     def rows(self, slots=None) -> dict:
         """Copies of the given rows (all rows for None)."""
@@ -126,6 +134,14 @@ def fold_tag(seed: int, step: int, tag: int) -> int:
     acceptance uniforms (tag 1), residual tokens (2) and bonus token (3)
     from these streams, never from a proposal's ``_mix(seed, step)``."""
     return _mix(_mix(seed, step), (1 << 62) + int(tag))
+
+
+def branch_seed(seed: int, branch: int) -> int:
+    """Seed of best-of-n branch ``branch`` (> 0) of a request seeded
+    ``seed``: a splitmix64 round at position ``(1 << 61) + branch``.
+    Stream positions stay below 2**61 and ``fold_tag`` mixes at ``(1 <<
+    62) + tag``, so a branch's draws never reuse the request's own."""
+    return _mix(seed, (1 << 61) + int(branch))
 
 
 def token_logprobs(logits, tok):

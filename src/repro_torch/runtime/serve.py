@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.runtime.engine import Engine, EngineConfig
+from repro_torch.runtime.prefix_cache import PrefixCacheConfig
 from repro_torch.runtime.sampling import SamplingParams
 
 
@@ -29,6 +30,9 @@ class ServeConfig:
     # pooled recurrent-state storage dtype override:
     # "f32" | "bf16" | "int8" | "fp8"
     state_dtype: Optional[str] = None
+    # prompt-prefix state cache (EngineConfig.prefix_cache): None
+    # disables it
+    prefix_cache: Optional[PrefixCacheConfig] = None
     device: str = "cuda"
 
 
@@ -39,7 +43,7 @@ class Server:
         self.engine = Engine(cfg, params, EngineConfig(
             n_slots=scfg.batch_slots, max_seq=scfg.max_seq,
             seed=scfg.seed, state_dtype=scfg.state_dtype,
-            device=scfg.device))
+            prefix_cache=scfg.prefix_cache, device=scfg.device))
 
     def generate(self, prompts: np.ndarray, max_new: int = 32,
                  eos_id: Optional[int] = None) -> np.ndarray:

@@ -1,7 +1,6 @@
-"""Slot-based decode-state pool (port of ``repro/runtime/state_pool.py``
-with the scratch slots and the fork of speculative decoding; the pins of
-infinite-stream sessions and the tagged forks of best-of-n are not
-ported yet, ROADMAP A7).
+"""Slot-based decode-state pool (port of ``repro/runtime/state_pool.py``:
+the scratch slots and the fork of speculative decoding, the tagged forks
+of best-of-n and the pins of infinite-stream sessions).
 
 A Mamba sequence's decode state is a fixed O(d_inner * d_state) block per
 layer plus the (k-1)-tap conv tail, so a fixed-shape pool holds one slot
@@ -18,6 +17,10 @@ Scratch slots are extra rows after the live ones (ids ``n_slots`` to
 live slot's state and sampling params into it, drafts there and releases
 it after the verify.  They are outside the live accounting (alloc,
 evict, n_free, active_*), and their ids never meet a live slot's.
+
+A pinned slot holds an infinite-stream session's open-ended lease:
+``evict`` refuses it until ``unpin``, and the SLO scheduler leaves it out
+of the capacity it projects with.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ class SlotStatePool:
         self._free: list[int] = list(range(n_slots))
         self._scratch_free: list[int] = list(range(n_slots, self.n_total))
         self._active: list[bool] = [False] * self.n_total
+        self._pinned: list[bool] = [False] * self.n_total
 
     @property
     def fresh(self):
@@ -87,6 +91,22 @@ class SlotStatePool:
         return slot
 
     @property
+    def n_pinned(self) -> int:
+        return sum(self._pinned)
+
+    def pin(self, slot: int) -> None:
+        """Mark an active slot as an eviction-free lease (a session):
+        ``evict`` refuses it until ``unpin``."""
+        assert self._active[slot], f"slot {slot} not active"
+        self._pinned[slot] = True
+
+    def unpin(self, slot: int) -> None:
+        self._pinned[slot] = False
+
+    def is_pinned(self, slot: int) -> bool:
+        return self._pinned[slot]
+
+    @property
     def n_scratch_free(self) -> int:
         return len(self._scratch_free)
 
@@ -109,19 +129,25 @@ class SlotStatePool:
             raise ValueError(f"scratch slot {slot} is not leased")
         self._scratch_free.append(slot)
 
-    def fork(self, src: Sequence[int], dst: Sequence[int]) -> None:
+    def fork(self, src: Sequence[int], dst: Sequence[int],
+             branch_tags: Optional[Sequence[Optional[int]]] = None) -> None:
         """Copy the state of slots ``src[i]`` into ``dst[i]``, in place,
         with their sampling params: payloads and their scales are all
-        cache leaves, so they move together."""
+        cache leaves, so they move together.  ``branch_tags`` (one per
+        dst) re-seeds the destinations: a truthy tag t gives best-of-n
+        branch t its own stream (``sampling.branch_seed``); None or 0
+        copies the seed verbatim, as a speculative draft needs."""
         if len(src) != len(dst):
             raise ValueError("fork src/dst length mismatch")
+        if branch_tags is not None and len(branch_tags) != len(dst):
+            raise ValueError("fork branch_tags/dst length mismatch")
         if not src:
             return
         registry.scatter_slots(
             self.cfg, self.cache,
             registry.gather_slots(self.cfg, self.cache, self._ids(src)),
             self._ids(dst))
-        self.params.copy(src, dst)
+        self.params.copy(src, dst, tags=branch_tags)
 
     def _ids(self, slots) -> torch.Tensor:
         return torch.as_tensor(list(slots), dtype=torch.int64,
@@ -133,10 +159,24 @@ class SlotStatePool:
         registry.scatter_slots(self.cfg, self.cache, sub_cache,
                                self._ids([slot]))
 
+    def as_slot(self, sub_cache):
+        """A batch-1 cache in the pool's leaf dtypes, as ``admit`` would
+        store it (xLSTM's prefill hands its conv tail back in the model
+        dtype, the pool keeps it in f32): what a snapshot outside the
+        pool must hold for K3 to step it."""
+        return registry.tree_zip(lambda ax, t, ref: t.to(ref.dtype),
+                                 registry.cache_slot_axes(self.cfg),
+                                 sub_cache, self._fresh)
+
     def evict(self, slot: int) -> None:
         """Reset ``slot`` to the init state and free it: a later
-        admission can never observe a previous request's state."""
+        admission can never observe a previous request's state.  A
+        pinned slot (a session's lease) is refused."""
         assert self._active[slot], f"slot {slot} not active"
+        if self._pinned[slot]:
+            raise RuntimeError(
+                f"slot {slot} holds an eviction-free lease (pinned "
+                "session): unpin before evicting")
         registry.scatter_slots(self.cfg, self.cache, self._fresh,
                                self._ids([slot]))
         self.params.clear(slot)

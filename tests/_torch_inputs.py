@@ -3,6 +3,11 @@ to tensors: the same arrays feed repro (as JAX arrays) and the port."""
 import numpy as np
 import torch
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of a thread per core in each process oversubscribes
+# the cores (the port's serving tests took 2.5x longer in a 6-worker run).
+torch.set_num_threads(1)
+
 VARIANTS = [("exact", "exact"), ("ours", "ours"), ("fast", "paper")]
 
 # token-stream inputs take the compute dtype; A, D and the state stay f32

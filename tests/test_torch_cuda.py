@@ -4,6 +4,8 @@ itself.  The file imports no JAX, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import collections
+
 import pytest
 import torch
 
@@ -1323,3 +1325,214 @@ def test_cuda_spec_engine_launch_counts(cuda, state_dtype):
     assert got == {k: v for k, v in want.items() if v}, (got, want)
     assert eng.pool.n_scratch_free == eng.pool.n_scratch == 2
     assert_streams_tie_equal(reqs, ref_reqs, 1e-4, state_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The serving front on the card: K3 at one row (the prefix cache's suffix
+# chain), hit == cold, disaggregated == monolithic, the master's K3 view
+# ---------------------------------------------------------------------------
+
+def _one_row(tree):
+    """Row 1 of a two-slot input, as its own contiguous one-slot input
+    (row 0 of the inputs ``_torch_inputs`` makes is a fresh slot:
+    zero state)."""
+    from repro_torch.models import registry
+    return registry.tree_map(lambda t: t[1:].contiguous(), tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wd,sd", [("f32", "f32"), ("int8", "int8")])
+@pytest.mark.parametrize("instance", ["mamba", "jamba", "mlstm", "slstm"])
+def test_cuda_k3_one_row_matches_plain_and_repeats(cuda, instance, wd, sd):
+    """Each K3 instance at one slot, a used state in it: mamba-130m's 24
+    layers at full width, a jamba run of 3 positions at the ragged width,
+    a 7-layer mLSTM run and an sLSTM layer at xlstm-350m's widths; f32
+    against the plain version, a bf16 launch repeated bit for bit."""
+    from repro_torch.kernels import megakernel
+
+    def case(dtype, seed):
+        if instance == "mamba":
+            cfg = _mega_cfg(768, 24, dtype, wd, sd)
+            p, x0, h, h_scale, conv = stacked_inputs(cfg, 2, seed=seed,
+                                                     device=cuda)
+            h, conv = h[:, 1:].contiguous(), conv[:, 1:].contiguous()
+            h_scale = (None if h_scale is None
+                       else h_scale[:, 1:].contiguous())
+            x0 = x0[1:].contiguous()
+            return (cfg, lambda: megakernel.mamba_stacked_step(
+                cfg, x0, p["stack"], h, h_scale, conv),
+                lambda: ref.mamba_stacked_step(cfg, x0, p["stack"].layers, h,
+                                               h_scale, conv), None)
+        if instance == "jamba":
+            cfg = _jamba_cfg(550, 1000, dtype, wd, sd)
+            run, x0, states, outs = jamba_run_inputs(cfg, 3, 2, seed=seed,
+                                                     device=cuda)
+            plain = ref.jamba_stacked_run
+            launch_fn = megakernel.jamba_stacked_run
+            rows = run.rows
+        else:
+            cfg = _xlstm_cfg(1024, 4, dtype, wd,
+                             sd if instance == "mlstm" else "f32")
+            run, x0, states, outs = xlstm_run_inputs(
+                cfg, instance, 7 if instance == "mlstm" else 1, 2,
+                seed=seed, device=cuda)
+            rows = run.rows
+
+            def plain(c, x, r, s):
+                return ref.xlstm_stacked_run(c, x, instance, r, s)
+
+            launch_fn = megakernel.xlstm_stacked_run
+        x0, states, outs = (x0[1:].contiguous(), _one_row(states),
+                            _one_row(outs))
+        return (cfg, lambda: launch_fn(cfg, x0, run, states, outs),
+                lambda: plain(cfg, x0, rows, states), outs)
+
+    cfg, launch, plain, outs = case("float32", 41)
+    got = launch()
+    want = plain()
+    torch.cuda.synchronize()
+    label = f"{instance} one row {wd}/{sd}"
+    if instance == "mamba":
+        _mega_close(cfg, got, want, 1e-4, label)
+    elif instance == "jamba":
+        _jamba_close(cfg, got, outs, *want, 1e-4, label)
+    else:
+        _xlstm_close(cfg, instance, got, outs, *want, 1e-4, label)
+    _, launch, _, outs = case("bfloat16", 42)
+
+    def bits(x):
+        if instance == "mamba":
+            return [t.view(torch.uint8).clone() for t in x if t is not None]
+        return [x.view(torch.uint8).clone()] + [
+            o[k].view(torch.uint8).clone() for o in outs for k in sorted(o)]
+
+    first = bits(launch())
+    again = bits(launch())
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def _front_prompts(n=4, shared=16, suffix=5, seed=3):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(1, 64, size=shared).astype(np.int32)
+    return [np.concatenate([pre, rng.integers(1, 64, size=suffix).astype(
+        np.int32)]) for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wd,sd", [("f32", "f32"), ("int8", "int8"),
+                                   ("f32", "fp8")])
+def test_cuda_prefix_hit_equals_cold(cuda, wd, sd):
+    """A cache-enabled engine on the card (step_impl "auto": the suffix
+    chain through K3 on the prefill master's view): each hit's stream and
+    logprobs are bitwise a cold admission's of its prompt, K3 launches
+    once a chain step and once a decode step, K4 and K5 once a layer a
+    one-block prefill, no plain version runs; the cache-off engine's
+    greedy streams agree under the tie rule (f32 state)."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.prefix_cache import PrefixCacheConfig
+    from repro_torch.runtime.sampling import SamplingParams
+    cfg, p = _spec_model("f32")
+    common = dict(n_slots=2, max_seq=64, weight_dtype=wd, state_dtype=sd,
+                  device=str(cuda))
+    pcc = PrefixCacheConfig(block=8)
+    prompts = _front_prompts()
+    sp = SamplingParams(max_new=7, logprobs=True, top_logprobs=2)
+    eng = Engine(cfg, p, EngineConfig(**common, prefix_cache=pcc))
+    dispatch_count.reset()
+    reqs = [eng.submit(q, sp) for q in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    got = +dispatch_count.snapshot()
+    s = eng.stats
+    assert s.prefix_hits == 3 and s.prefix_misses == 1
+    chain = s.prefill_tokens - pcc.block * s.prefix_misses
+    quant = "_q" if sd != "f32" else ""
+    k3_chain = "mamba_stacked_step" + quant
+    k3_decode = k3_chain + ("_int8a" if wd == "int8" else "")
+    L = cfg.n_layers
+    want = collections.Counter({"selective_scan": L * s.prefix_misses,
+                                "causal_conv1d": L * s.prefix_misses})
+    want[k3_chain] += chain
+    want[k3_decode] += s.decode_steps
+    assert got == want, (got, want)
+    for q, r in zip(prompts, reqs):
+        cold = Engine(cfg, p, EngineConfig(**common, prefix_cache=pcc))
+        c = cold.submit(q, sp)
+        cold.run()
+        assert c.tokens == r.tokens and c.logprobs == r.logprobs
+    if sd == "f32":
+        off = Engine(cfg, p, EngineConfig(**common))
+        ref_reqs = [off.submit(q, sp) for q in prompts]
+        off.run()
+        assert_streams_tie_equal(reqs, ref_reqs, 1e-4, f"{wd}/{sd}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wd,sd", [("f32", "f32"), ("int8", "int8")])
+def test_cuda_disagg_equals_monolithic(cuda, wd, sd):
+    """DisaggPipeline on one card (a 1-slot worker, a 2-slot decode
+    engine): greedy and sampled streams and cumulative logprobs bitwise
+    the monolithic engine's, each snapshot a slot's bytes, on the CPU."""
+    import numpy as np
+    from repro_torch.models import registry
+    from repro_torch.runtime.disagg import DisaggConfig, DisaggPipeline
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.sampling import SamplingParams
+    cfg, p = _spec_model("f32")
+    common = dict(n_slots=2, max_seq=48, seed=11, weight_dtype=wd,
+                  state_dtype=sd, device=str(cuda))
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, 60, size=int(rng.integers(4, 12))),
+             SamplingParams(max_new=6) if i % 2 == 0 else
+             SamplingParams(temperature=0.9, top_k=12, max_new=6))
+            for i in range(5)]
+    mono = Engine(cfg, p, EngineConfig(**common))
+    for q, sp in reqs:
+        mono.submit(q, sp)
+    ref_out = {r.req_id: (r.tokens, r.cum_logprob) for r in mono.run()}
+    pipe = DisaggPipeline(cfg, p, EngineConfig(**common),
+                          DisaggConfig(queue_depth=3))
+    items = [pipe.submit(q, sp) for q, sp in reqs]
+    pipe.run()
+    assert pipe.worker.engine.device.type == "cuda"
+    assert pipe.decode.stats.prefill_tokens == 0
+    for i, item in enumerate(items):
+        assert (item.req.tokens, item.req.cum_logprob) == ref_out[i], i
+        assert item.snap.nbytes == mono.pool.state_bytes_per_slot()
+        assert all(t.device.type == "cpu"
+                   for t in registry.tree_leaves(item.snap.state))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", ["f32", "int8"])
+def test_cuda_int8_engine_chain_runs_on_the_masters_k3_view(cuda, sd):
+    """An int8-weight engine on the card with the prefix cache: decode
+    launches K3's int8-weight instance, the suffix chain its f32-weight
+    instance on the view built over the f32 master (the decode tree's
+    view would be int8, the master's unstacked tree has none)."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.prefix_cache import PrefixCacheConfig
+    from repro_torch.runtime.sampling import SamplingParams
+    cfg, p = _spec_model("f32")
+    eng = Engine(cfg, p, EngineConfig(
+        n_slots=2, max_seq=64, weight_dtype="int8", state_dtype=sd,
+        step_impl="megakernel", prefix_cache=PrefixCacheConfig(block=8),
+        device=str(cuda)))
+    assert not eng._chain_params["stack"].int8 and eng.params["stack"].int8
+    assert eng._chain_params["layers"] is eng.prefill_params["layers"]
+    dispatch_count.reset()
+    reqs = [eng.submit(q, SamplingParams(max_new=5))
+            for q in _front_prompts(3)]
+    eng.run()
+    torch.cuda.synchronize()
+    got = +dispatch_count.snapshot()
+    s = eng.stats
+    quant = "_q" if sd != "f32" else ""
+    chain = s.prefill_tokens - 8 * s.prefix_misses
+    assert got["mamba_stacked_step" + quant] == chain > 0
+    assert got["mamba_stacked_step" + quant + "_int8a"] == s.decode_steps
+    assert all(r.finished and len(r.tokens) == 5 for r in reqs)

@@ -3,7 +3,7 @@ repro's Engine on the same (bridged) weights, with f32 and with
 quantized state and weights, the slot pool's byte count and hygiene,
 sampling against repro's filter and logprob math, the request lifecycle
 (stops, cancel, streams, priority), Server and the CLI, and what the
-port refuses because it is not ported yet."""
+port refuses because it is not ported yet (``mesh``)."""
 import dataclasses
 
 import jax
@@ -26,6 +26,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.models import registry as tregistry
 from repro_torch.runtime import sampling as tsampling
 from repro_torch.runtime.engine import Engine, EngineConfig
+from repro_torch.runtime.prefix_cache import PrefixCacheConfig
 from repro_torch.runtime.serve import ServeConfig, Server
 from repro_torch.runtime.spec_decode import DraftConfig
 from repro_torch.runtime.state_pool import SlotStatePool
@@ -385,36 +386,39 @@ def test_entry_points_run_on_cuda_unless_asked_for_cpu(model):
                                   "weight_int8", "megakernel",
                                   "int8_state", "fp8_state"])
 def test_unported_features_raise(model, what):
-    """What is not ported raises NotImplementedError; int8 weights,
-    int8/fp8 state, the megakernel and speculative decoding (``draft``),
-    which did before they were ported, now build an engine that serves a
-    request."""
+    """What is not ported (``mesh``) raises NotImplementedError; int8
+    weights, int8/fp8 state, the megakernel, speculative decoding
+    (``draft``), the prefix cache and best-of-n (``n``), which did before
+    they were ported, now build an engine that serves a request."""
     _, tcfg, _, tp = model
     ecfg = EngineConfig(device=CPU, n_slots=2, max_seq=64)
-    if what in ("prefix_cache", "mesh"):
-        setattr(ecfg, what, object())
-    elif what == "draft":
+    if what == "mesh":
+        ecfg.mesh = object()
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Engine(tcfg, tp, ecfg)
+        return
+    params = tsampling.SamplingParams(max_new=3)
+    if what == "draft":
         ecfg.draft = DraftConfig(k=2, layers=1)
+    elif what == "prefix_cache":
+        ecfg.prefix_cache = PrefixCacheConfig(block=2)
+    elif what == "n":
+        params = tsampling.SamplingParams(max_new=3, n=2, temperature=0.8,
+                                          seed=1)
     elif what == "weight_int8":
         ecfg.weight_dtype = "int8"
     elif what == "megakernel":
         ecfg.step_impl = "megakernel"
-    elif what.endswith("_state"):
+    else:
         ecfg.state_dtype = what.split("_")[0]
+    eng = Engine(tcfg, tp, ecfg)
+    r = eng.submit(np.arange(4), params)
+    eng.run()
+    assert r.finished and len(r.tokens) == 3
+    if what == "prefix_cache":
+        assert eng.stats.prefix_misses == 1 and eng.stats.prefix_inserts == 1
     if what == "n":
-        eng = Engine(tcfg, tp, ecfg)
-        with pytest.raises(NotImplementedError):
-            eng.submit(np.arange(4), tsampling.SamplingParams(n=2))
-        return
-    if what in ("weight_int8", "int8_state", "fp8_state", "megakernel",
-                "draft"):
-        eng = Engine(tcfg, tp, ecfg)
-        r = eng.submit(np.arange(4), max_new=3)
-        eng.run()
-        assert r.finished and len(r.tokens) == 3
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(tcfg, tp, ecfg)
+        assert len(r.branches) == 2 and eng.pool.n_free == 2
 
 
 def test_engine_rejects_bad_requests(model):
