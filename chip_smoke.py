@@ -182,9 +182,51 @@ generator:
    K3-jamba, and the whole jamba decode step through K3 against the
    per-layer one;
 
-and print one JSON line of every kernel (K5's and K7's with their
-designs, K7's with its SASS counts, each with its launches in the
-speculative serve runs and in the prefix-cache runs).
+then the transformers, after jamba's weights are freed: qwen2-7b at
+full width and full depth (28 layers, 7.6 B parameters, 30.5 GB in f32
+drawn on the card) and qwen2-moe-a2.7b at full width cut from 24 layers
+to 8 (22 GB); step_impl "auto" decodes them per layer (the family has
+no K3 instance) and K7 runs once a layer an admission:
+
+2t. K7 against its plain version at the zoo's transformer head layouts
+   (hq/hkv x dh: qwen2-7b 28/4 x 128, where one query head fills a
+   block; granite-20b 48/1 x 128, MQA, 16 heads a block; olmo-1b and
+   qwen2-moe 16/16 x 128; musicgen 32/32 x 64, the 64-wide
+   instantiation; phi-3-vision 32/32 x 96, padded into the 128-wide
+   one), f32 and bf16, L 64/127/512 and a suffix (64 over 512), each
+   launch counted once, repeated bit for bit and one device kernel a
+   call;
+3t. qwen2-7b at full width with 2 layers (QKV bias, rope theta 1e6,
+   152064 words) in f32, prefill 127 + 8 decode steps on the card
+   against the CPU on the same weights: f32 weights and KV, and int8
+   weights with an int8 KV cache (codes within one, layer 0's scales to
+   f32 rounding); then qwen2-moe-a2.7b with f32 weights and KV (60
+   routed experts padded to 64, top-4, 4 shared; capacity = expert
+   count, so no assignment drops by batch);
+4t. serve qwen2-7b with phase 4's traffic twice: f32 weights and KV
+   through ``Server``, int8 weights with an int8 KV cache through
+   ``Engine`` (the f32 master kept for prefill: 38 GB); each run holds
+   K7 to 28 launches an admission and none a decode step, no plain
+   version, every slot back, the bytes a slot computed from the config;
+   the int8 run's greedy agreement with the f32 run printed;
+4tp. one prefix-cache run as phase 4p's (f32, block 64, 8 requests
+   sharing a 256-token prefix) on qwen2-7b at full width with its depth
+   cut to 4 layers (a chain step is a batch-1 eager decode step, 72 ms
+   at 28 layers, and the cold admissions every stream is held to chain
+   about 1,850 of them): every stream bitwise a cold cache-on
+   admission's, TTFT of cold, hit and cache off printed;
+5t. time K7 at qwen2-7b's and granite's layouts (L 64/127/512, bf16)
+   beside SDPA and the bound, the qwen2-7b decode step at 4 slots (CUDA
+   graph; f32 and int8 weights), its prefill per prompt token and phase
+   4t's untraced serving throughput;
+4tm. serve qwen2-moe-a2.7b (8 layers) once through ``Server`` with phase
+   4's traffic: launches, no plain version, every slot back;
+
+each new phase printing its seconds, and print one JSON line of every
+kernel (K5's and K7's with their designs, K7's with its SASS counts,
+each with its launches in the speculative serve runs and in the
+prefix-cache runs; K7's with its launches in 4t, 4tp and 4tm, its
+largest bf16 error at each transformer layout and its 5t rows).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
@@ -1115,8 +1157,8 @@ def phase_serve(model, cfg, params, run, dev, card):
     slots, the f32 setup through ``Server``, the others through
     ``Engine``; every kernel count is set to 0 just before the measured
     run and read just after, and held to ``model``'s launches per
-    admission and decode step.  Returns the counts and the requests'
-    tokens."""
+    admission and decode step; every slot must come back.  Returns the
+    counts, the requests' tokens and the run's ``ServeStats`` summary."""
     import dataclasses
     from repro_torch.core import dispatch_count
     from repro_torch.data.pipeline import SyntheticLM
@@ -1190,6 +1232,11 @@ def phase_serve(model, cfg, params, run, dev, card):
         f"{'ok' if good else 'FAIL'}")
     if not good:
         FAILURES.append(f"{name} serve outputs ({setup})")
+    back = eng.pool.n_free == 4 and eng.pool.n_pinned == 0
+    log(f"  every slot back ({eng.pool.n_free} of 4 free): "
+        f"{'ok' if back else 'FAIL'}")
+    if not back:
+        FAILURES.append(f"{name} slots back ({setup})")
     smry = s.summary()
     log(f"  serve {name} bf16, {setup} on {card}: {smry['useful_tokens']} "
         f"tokens in {smry['wall_s']:.3f} s = {smry['tokens_per_s']:.1f} "
@@ -1197,7 +1244,7 @@ def phase_serve(model, cfg, params, run, dev, card):
         f"{smry['ttft_p95_s'] * 1e3:.1f} ms; TPOT mean "
         f"{smry['tpot_mean_s'] * 1e3:.2f} ms; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return counts, [r.tokens for r in reqs]
+    return counts, [r.tokens for r in reqs], smry
 
 
 def phase_serves(num, model, cfg, params, runs, dev, card, counts) -> bool:
@@ -1210,8 +1257,8 @@ def phase_serves(num, model, cfg, params, runs, dev, card, counts) -> bool:
         wd, sd, kv, impl = run[0], run[1], run[2], run[6]
         log(f"== phase {num}.{i + 1}: serve {model['name']} bf16, {wd} "
             f"weights, {sd} state, {kv} kv, step_impl {impl!r}")
-        got, streams[wd, sd, kv, impl] = phase_serve(model, cfg, params,
-                                                     run, dev, card)
+        got, streams[wd, sd, kv, impl], _ = phase_serve(model, cfg, params,
+                                                        run, dev, card)
         torch.cuda.empty_cache()
         for k, v in got.items():
             if v and not counts.get(k):
@@ -2206,10 +2253,37 @@ def shared_inputs():
     return _torch_inputs
 
 
+def check_k7_case(name, hq, hkv, dh, lq, lk, dtype, tol, gen, dev) -> float:
+    """K7 against ref.attention on the card at b=1, random q, k, v from
+    ``gen``, within ``tol``; the launch counted once, repeated bit for
+    bit, one device kernel a call.  Returns the largest error."""
+    from repro_torch.kernels import flash_attention, ref
+    q = torch.randn(1, lq, hq, dh, generator=gen).to(dev, dtype)
+    k = torch.randn(1, lk, hkv, dh, generator=gen).to(dev, dtype)
+    v = torch.randn(1, lk, hkv, dh, generator=gen).to(dev, dtype)
+    n0 = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    launched = flash_attention.launches - n0
+    want = ref.attention(q, k, v, causal=True)
+    again = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    e = check(name, got, want, tol, tol)
+    same = torch.equal(got, again)
+    nk = shared_inputs().graph_kernels(
+        lambda: flash_attention.flash_attention(q, k, v, causal=True))
+    ok = same and nk == 1 and launched == 1
+    log(f"  {name}: {launched} launch counted, repeated "
+        f"{'bitwise equal' if same else 'DIFFERENT'}, {nk} device kernel(s) "
+        f"a call  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{name} count / repeat / one kernel")
+    return e
+
+
 def check_jamba_kernels(dev, serving):
     """K7 against ref.attention and K3's jamba instance against
     ref.jamba_stacked_run on the card, at jamba-v0.1's widths."""
-    from repro_torch.kernels import flash_attention, megakernel, ref
+    from repro_torch.kernels import megakernel, ref
     jamba_run_inputs = shared_inputs().jamba_run_inputs
     gen = torch.Generator().manual_seed(SEED + 5)
     # K7: b=1, 32 query heads over 8 kv heads of 128, as jamba's prefill;
@@ -2223,23 +2297,10 @@ def check_jamba_kernels(dev, serving):
                   if tag == "bf16" else ())
         for lq, lk in ((64, 64), (127, 127), (512, 512), (64, 512),
                        *ragged):
-            q = torch.randn(1, lq, 32, 128, generator=gen).to(dev, dtype)
-            k = torch.randn(1, lk, 8, 128, generator=gen).to(dev, dtype)
-            v = torch.randn(1, lk, 8, 128, generator=gen).to(dev, dtype)
-            got = flash_attention.flash_attention(q, k, v, causal=True)
-            want = ref.attention(q, k, v, causal=True)
-            again = flash_attention.flash_attention(q, k, v, causal=True)
-            torch.cuda.synchronize()
             what = "suffix " if lq < lk else ""
-            name = f"K7 {tag} {what}lq={lq} lk={lk} hq=32 hkv=8 dh=128"
-            e = check(name, got, want, tol, tol)
-            same = torch.equal(got, again)
-            nk = shared_inputs().graph_kernels(
-                lambda: flash_attention.flash_attention(q, k, v, causal=True))
-            log(f"  {name} repeated: {'bitwise equal' if same else 'FAIL'};"
-                f" {nk} device kernel(s) a call  {'ok' if nk == 1 else 'FAIL'}")
-            if not same or nk != 1:
-                FAILURES.append(f"{name} repeat / one kernel")
+            e = check_k7_case(f"K7 {tag} {what}lq={lq} lk={lk} hq=32 hkv=8 "
+                              f"dh=128", 32, 8, 128, lq, lk, dtype, tol, gen,
+                              dev)
             if tag == "bf16" and lq == lk == 512:
                 serving["flash_attention"] = e
     # K3's jamba instance: one position, or four (the length of the dense
@@ -2424,6 +2485,286 @@ def phase_jamba_timing(dev, counts, errs):
             entry["other_shapes"] = more
         kernels.append(entry)
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# Transformers: qwen2-7b at full width and full depth, qwen2-moe-a2.7b at
+# full width with its depth cut, and K7 at the family's head layouts
+# ---------------------------------------------------------------------------
+
+QWEN = "qwen2-7b"
+QWEN_MOE = "qwen2-moe-a2.7b"
+_TRANSFORMER = {}
+# (archs, hq, hkv, dh): the zoo's transformer head layouts.  K7 packs P
+# query heads of one KV head into a block, P the largest power of two
+# dividing hq / hkv: 1 at qwen2-7b's group of 7, 16 at granite's MQA, 1
+# with hq == hkv; dh 64 takes the 64-wide instantiation, dh 96 the
+# 128-wide one padded
+TRANSFORMER_LAYOUTS = (("qwen2-7b", 28, 4, 128), ("granite-20b", 48, 1, 128),
+                       ("olmo-1b, qwen2-moe", 16, 16, 128),
+                       ("musicgen-large", 32, 32, 64),
+                       ("phi-3-vision", 32, 32, 96))
+# the launches a served transformer makes: K7 once a layer an admission,
+# no kernel in a decode step (its attention over the KV cache and every
+# GEMM are plain PyTorch, as repro leaves them to XLA)
+QWEN_SERVED = {"name": "qwen2-7b", "ssm": 0, "attn": 28, "k3": 0,
+               "k3_rest": 0}
+QWEN_MOE_SERVED = {"name": "qwen2-moe-a2.7b (8 layers)", "ssm": 0,
+                   "attn": 8, "k3": 0, "k3_rest": 0}
+# the prefix-cache run's depth (phase 4tp)
+PREFIX_LAYERS = 4
+QWEN_PREFIX_SERVED = {"name": f"qwen2-7b ({PREFIX_LAYERS} layers)", "ssm": 0,
+                      "attn": PREFIX_LAYERS, "k3": 0, "k3_rest": 0}
+
+# (weights, kv cache, logits tolerance, why): each card-vs-CPU run of 3t
+TRANSFORMER_MODEL_RUNS = (
+    ("f32", "model", 2e-3,
+     "f32 throughout; cuBLAS and the CPU sum in another order, K7 against "
+     "the plain attention, d_model 3584 (2048) and a 152064-word (151936) "
+     "unembed"),
+    ("int8", "int8", 2e-2,
+     "an int8 KV code on a rounding boundary may land one code (1/127 of "
+     "its position's absmax) apart on the card, and feeds every later "
+     "position and layer"),
+)
+
+
+def transformer_cfg(arch, **kw):
+    """``arch`` at full width, its other fields the zoo's but ``kw``; the
+    prefill attention runs K7 under repro's default attn_impl
+    ("chunked"), as under every name."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch), **kw)
+
+
+def transformer_params(arch, n_layers, dev):
+    """Seeded weights of ``arch`` cut to ``n_layers``, drawn on the card
+    from a CUDA generator, made once (qwen2-7b's 28 layers: 30.5 GB in
+    f32)."""
+    from repro_torch.models import registry
+    key = (arch, n_layers)
+    if key not in _TRANSFORMER:
+        cfg = transformer_cfg(arch, n_layers=n_layers)
+        t0 = time.perf_counter()
+        _TRANSFORMER[key] = registry.init_params(cfg, seed=SEED, device=dev,
+                                                 draw_device=dev)
+        torch.cuda.synchronize()
+        log(f"  {arch} ({n_layers} layers): {registry.count_params(cfg)} "
+            f"parameters drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return _TRANSFORMER[key]
+
+
+def transformer_free():
+    import gc
+    _TRANSFORMER.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def layer_view(params, n):
+    """The first ``n`` layers of a transformer tree; no weight copied."""
+    return {**params, "layers": params["layers"][:n]}
+
+
+def kv_slot_bytes(cfg, kv, max_seq=SERVE_MAX_SEQ):
+    """A transformer slot's bytes from its config: k and v of L x max_seq
+    positions x hkv * dh at the model dtype's width, or one byte each
+    plus an f32 scale a position for an int8 KV cache; and pos."""
+    width = cfg.n_kv_heads * cfg.head_dim
+    per_pos = (width + 4 if kv == "int8" else
+               width * torch.finfo(getattr(torch, cfg.dtype)).bits // 8)
+    return 2 * cfg.n_layers * max_seq * per_pos + 4
+
+
+def phase_seconds(num, t0):
+    log(f"  phase {num}: {time.perf_counter() - t0:.1f} s")
+
+
+def check_transformer_k7(dev):
+    """K7 against ref.attention on the card at each transformer head
+    layout, f32 and bf16, L 64/127/512 and a suffix (64 over 512), at
+    repro's flash tolerances (``check_k7_case``).  Returns each layout's
+    largest bf16 error."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    errs = {}
+    for label, hq, hkv, dh in TRANSFORMER_LAYOUTS:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for lq, lk in ((64, 64), (127, 127), (512, 512), (64, 512)):
+                what = "suffix " if lq < lk else ""
+                e = check_k7_case(f"K7 {tag} {what}{lq}/{lk} {hq}/{hkv}x{dh} "
+                                  f"{label}", hq, hkv, dh, lq, lk, dtype, tol,
+                                  gen, dev)
+                if tag == "bf16":
+                    errs[label] = max(errs.get(label, 0.0), e)
+    return errs
+
+
+def phase_transformer_model(name, cfg, p32, runs, dev, lp=127):
+    """A full-width f32 transformer: the kernel path on the card against
+    the plain path on the CPU, on the same weights (``p32`` on the card,
+    quantized per run, then copied to the CPU) and tokens
+    (teacher-forced): prefill ``lp`` + 8 decode steps, for each (weights,
+    kv cache, tolerance, why) of ``runs``.  Held: the logits; the final
+    f32 KV cache to the tolerance; an int8 one's codes within one of the
+    CPU's, layer 0's scales (computed from the same embeddings) to f32
+    rounding and every layer's to the tolerance; the positions; greedy
+    tokens equal but where the CPU's top two logits lie within the
+    tolerance."""
+    import dataclasses
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import registry
+    steps = 8
+    toks = torch.as_tensor(SyntheticLM(cfg.vocab, lp + steps, seed=2)
+                           .batch_at(0, 0, 1, 1)["tokens"], dtype=torch.int64)
+    cpu = torch.device("cpu")
+    for wd, kv, tol, why in runs:
+        c = dataclasses.replace(cfg, dtype="float32", weight_dtype=wd,
+                                kv_cache_dtype=kv)
+        p_dev = registry.quantize_params(c, p32)
+        p_cpu = registry.tree_to(p_dev, cpu)
+        out_of = {}
+        for side, where, p in (("card", dev, p_dev), ("cpu", cpu, p_cpu)):
+            t = toks.to(where)
+            cache = registry.init_cache(c, 1, lp + steps, device=where)
+            t0 = time.perf_counter()
+            logits, cache = registry.prefill(c, p, cache,
+                                             {"tokens": t[:, :lp]})
+            out = [logits[0]]
+            for s in range(steps):
+                logits, cache = registry.decode_step(
+                    c, p, cache, {"tokens": t[:, lp + s:lp + s + 1]})
+                out.append(logits[0])
+            out = torch.cat(out).cpu()
+            log(f"  {name} {wd} weights, {kv} kv, {side}: prefill {lp} + "
+                f"{steps} decode steps in {time.perf_counter() - t0:.2f} s")
+            out_of[side] = (out, registry.tree_to(cache, cpu))
+        (lg, cg), (lc, cc) = out_of["card"], out_of["cpu"]
+        tag = f"{name} {wd} w {kv} kv"
+        log(f"  {tag}: logits held to {tol:g}: {why}")
+        check(f"{tag} logits (card vs CPU)", lg, lc, tol, tol)
+        for key in ("k", "v"):
+            if kv != "int8":
+                check(f"{tag} final {key} cache (card vs CPU)", cg[key],
+                      cc[key], tol, tol)
+                continue
+            apart = int((cg[key].int() - cc[key].int()).abs().max())
+            same = float((cg[key] == cc[key]).float().mean())
+            note(f"{tag} {key} codes within one of the CPU's (max {apart} "
+                 f"apart, {same:.6f} equal)", apart <= 1)
+            sg, sc = cg[key + "_scale"], cc[key + "_scale"]
+            rel = (sg - sc).abs() / sc.clamp_min(1e-30)
+            first, every = float(rel[0].max()), float(rel.max())
+            note(f"{tag} {key}_scale: layer 0 max rel diff {first:.3e} "
+                 f"(<= 1e-5), every layer {every:.3e} (<= {tol:g})",
+                 first <= 1e-5 and every <= tol)
+        note(f"{tag} positions {cg['pos'].tolist()} equal the CPU's",
+             torch.equal(cg["pos"], cc["pos"]))
+        differ = lg.argmax(-1) != lc.argmax(-1)
+        top2 = lc.topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1])[differ]
+        note(f"{tag}: greedy token agreement over {lg.shape[0]} positions "
+             f"{1.0 - float(differ.float().mean()):.4f}, a differing token "
+             f"only where the CPU's top two logits are within {tol:g} "
+             f"(margins {margins.tolist()})", bool((margins <= tol).all()))
+        del p_dev, p_cpu, out_of
+
+
+def phase_transformer_serves(num, model, cfg, params, runs, dev, card,
+                             counts):
+    """Phase ``num``: ``phase_serve`` for each (weights, kv cache) of
+    ``runs`` (f32/model through ``Server``, the others through
+    ``Engine``), step_impl "auto" (the per-layer step: no K3 for this
+    family), the bytes a slot from the config (``kv_slot_bytes``); each
+    engine freed before the next.  Prints each later run's greedy
+    agreement with the first.  Returns (ok, each run's summary)."""
+    import gc
+    streams, summaries = [], []
+    for i, (wd, kv) in enumerate(runs):
+        t0 = time.perf_counter()
+        via = "Server" if (wd, kv) == ("f32", "model") else "Engine"
+        log(f"== phase {num}.{i + 1}: serve {model['name']} bf16, {wd} "
+            f"weights, {kv} kv, step_impl 'auto' ({via})")
+        run = (wd, "f32", kv, kv_slot_bytes(cfg, kv), None, None, "auto")
+        got, toks, smry = phase_serve(model, cfg, params, run, dev, card)
+        streams.append(toks)
+        summaries.append(smry)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts[num, wd, kv] = got["flash_attention"]
+        if i:
+            same = sum(a == b for f, m in zip(streams[0], toks)
+                       for a, b in zip(f, m))
+            total = sum(len(f) for f in streams[0])
+            log(f"  greedy agreement with the {runs[0][0]} weights, "
+                f"{runs[0][1]} kv run: {same}/{total} = {same / total:.4f} "
+                f"(printed; streams diverge after the first differing "
+                f"token)")
+        phase_seconds(f"{num}.{i + 1}", t0)
+        if not phase_ok():
+            return False, summaries
+    return True, summaries
+
+
+def phase_transformer_timing(dev, summaries):
+    """K7 at qwen2-7b's and granite's head layouts beside SDPA and the
+    bound (CUDA-graph replay); the qwen2-7b decode step at 4 slots (CUDA
+    graph, f32 weights and bf16 KV, int8 weights and int8 KV); the
+    prefill per prompt token (events); phase 4t's untraced serving
+    throughput.  Returns K7's rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.models import registry
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rows = []
+    for label, hq, hkv in ((QWEN, 28, 4), ("granite-20b", 48, 1)):
+        for L in (512, 127, 64):
+            q = torch.randn(1, L, hq, 128, generator=gen).to(dev,
+                                                            torch.bfloat16)
+            k = torch.randn(1, L, hkv, 128, generator=gen).to(dev,
+                                                             torch.bfloat16)
+            v = torch.randn(1, L, hkv, 128, generator=gen).to(dev,
+                                                             torch.bfloat16)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            rows.append(measure(
+                "flash_attention", f"b=1 L={L} hq={hq} hkv={hkv} dh=128 bf16 "
+                f"({label} prefill)",
+                lambda: flash_attention.flash_attention(q, k, v, causal=True),
+                lambda: ref.attention(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                flash_work(1, L, L, hq, hkv, 128, 2), 20, flops=BF16_FLOPS))
+    params = transformer_params(QWEN, 28, dev)
+    for wd, kv in (("f32", "model"), ("int8", "int8")):
+        c = transformer_cfg(QWEN, weight_dtype=wd, kv_cache_dtype=kv)
+        p = registry.quantize_params(c, params)
+        cache = registry.init_cache(c, 4, SERVE_MAX_SEQ, device=dev)
+        batch = {"tokens": torch.arange(4, device=dev)[:, None]}
+
+        def step(c=c, p=p, cache=cache, batch=batch):
+            return registry.decode_step(c, p, cache, batch)
+
+        ms, how = device_time(step, 2)
+        eager = time_ms(step, 5)
+        log(f"  {QWEN} decode step at 4 slots, bf16, {wd} weights, {kv} kv, "
+            f"max_seq {SERVE_MAX_SEQ} (per layer): {ms:.4f} ms device "
+            f"({how}), {eager:.4f} ms eager")
+        del p, cache
+    c = transformer_cfg(QWEN)
+    for L in (512, 127):
+        cache = registry.init_cache(c, 1, SERVE_MAX_SEQ, device=dev)
+        toks = {"tokens": torch.randint(0, c.vocab, (1, L), generator=gen)
+                .to(dev)}
+        ms = time_ms(lambda: registry.prefill(c, params, cache, toks), 3)
+        log(f"  {QWEN} prefill of {L} tokens, bf16, f32 weights: {ms:.3f} ms "
+            f"(events), {ms / L:.4f} ms a prompt token")
+    for (wd, kv), smry in zip((("f32", "model"), ("int8", "int8")),
+                              summaries):
+        log(f"  {QWEN} serving (phase 4t, untraced), {wd} weights, {kv} kv: "
+            f"{smry['tokens_per_s']:.1f} tok/s")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3674,14 +4015,93 @@ def main() -> int:
         return 1
     log("== phase 5j: jamba kernel and decode-step timing")
     kernels += phase_jamba_timing(dev, counts, errs)
-    log(f"total {time.perf_counter() - T_START:.1f} s")
+    jamba_free("moe")
     if not phase_ok():
         return 1
+    # the transformers after jamba, with its 53 GB freed: qwen2-7b (30.5 GB
+    # in f32) and qwen2-moe-a2.7b cut to 8 layers (22 GB), one at a time
+    t0 = time.perf_counter()
+    log("== phase 2t: K7 vs plain at the transformer head layouts")
+    k7_errs = check_transformer_k7(dev)
+    phase_seconds("2t", t0)
+    if not phase_ok():
+        return 1
+    t0 = time.perf_counter()
+    log(f"== phase 3t: {QWEN} (full width, 2 of 28 layers) f32, card vs CPU")
+    qcfg = transformer_cfg(QWEN)
+    qparams = transformer_params(QWEN, 28, dev)
+    phase_transformer_model(f"{QWEN} (2 layers)",
+                            dataclasses.replace(qcfg, n_layers=2),
+                            layer_view(qparams, 2), TRANSFORMER_MODEL_RUNS,
+                            dev)
+    phase_seconds("3t", t0)
+    if not phase_ok():
+        return 1
+    t_counts = {}
+    ok, serve_smry = phase_transformer_serves(
+        "4t", QWEN_SERVED, qcfg, qparams, (("f32", "model"), ("int8", "int8")),
+        dev, card, t_counts)
+    if not ok:
+        return 1
+    t0 = time.perf_counter()
+    tp_counts = {}
+    # depth cut to 4 layers: a chain step is a batch-1 eager decode step,
+    # host-bound at 28 layers (72 ms), and the cold admissions that every
+    # stream is held to chain about 1,850 of them
+    pcfg = dataclasses.replace(qcfg, n_layers=PREFIX_LAYERS)
+    if not phase_prefix("4tp", QWEN_PREFIX_SERVED, pcfg, layer_view(
+            qparams, PREFIX_LAYERS), (
+            ("f32", "f32", "model", kv_slot_bytes(pcfg, "model"), None, (),
+             (), True),), front_traffic(pcfg, 256, (16, 32, 48, 64) * 2,
+                                        (3, 6), 32), 64, dev, card,
+            tp_counts):
+        return 1
+    phase_seconds("4tp", t0)
+    t0 = time.perf_counter()
+    log(f"== phase 5t: K7 at the transformer layouts, {QWEN} decode step, "
+        f"prefill and serving")
+    k7_rows = phase_transformer_timing(dev, serve_smry)
+    phase_seconds("5t", t0)
+    del qparams
+    transformer_free()
+    if not phase_ok():
+        return 1
+    t0 = time.perf_counter()
+    log(f"== phase 3t: {QWEN_MOE} (full width, 2 of 24 layers) f32, card vs "
+        f"CPU, expert capacity = expert count")
+    mcfg = transformer_cfg(QWEN_MOE, n_layers=8)
+    mparams = transformer_params(QWEN_MOE, 8, dev)
+    phase_transformer_model(
+        f"{QWEN_MOE} (2 layers)", dataclasses.replace(
+            mcfg, n_layers=2, capacity_factor=float(mcfg.n_experts)),
+        layer_view(mparams, 2), TRANSFORMER_MODEL_RUNS[:1], dev)
+    phase_seconds("3t moe", t0)
+    if not phase_ok():
+        return 1
+    ok, _ = phase_transformer_serves("4tm", QWEN_MOE_SERVED, mcfg, mparams,
+                                     (("f32", "model"),), dev, card,
+                                     t_counts)
+    del mparams
+    transformer_free()
+    if not ok:
+        return 1
+    log(f"total {time.perf_counter() - T_START:.1f} s")
     for entry in kernels:
         # the launches of the speculative serve runs (phases 4s, 4xs, 4js)
         # and of the prefix-cache runs (4p, 4xp, 4jp)
         entry["spec_launches"] = spec_counts.get(entry["name"], 0)
         entry["prefix_launches"] = front_counts.get(entry["name"], 0)
+        if entry["name"] == "flash_attention":
+            # the transformer phases: K7's launches in 4t (f32, int8),
+            # 4tp and 4tm, its largest bf16 error at each head layout
+            # (2t) and its rows at qwen2-7b's and granite's layouts (5t)
+            entry["transformer_launches"] = {
+                "4t f32": t_counts["4t", "f32", "model"],
+                "4t int8": t_counts["4t", "int8", "int8"],
+                "4tp": tp_counts.get("flash_attention", 0),
+                "4tm": t_counts["4tm", "f32", "model"]}
+            entry["transformer_max_abs_err"] = k7_errs
+            entry["transformer_shapes"] = k7_rows
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

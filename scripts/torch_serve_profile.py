@@ -23,8 +23,12 @@ launch per run of same-kind layers, six a token at xlstm-350m).
 jamba-v0.1-52b (32 layers, 52 B parameters) does not fit one card, so it
 is cut to one group of 8 layers, whose weights (53 GB in f32) are drawn
 on the card from a CUDA generator; prefill attention runs the flash
-kernel.  xlstm-350m runs at full width and full depth (24 layers), its
-prefill recurrence a per-token loop of plain tensor code.
+kernel.  A transformer (``--arch qwen2-7b``: 28 layers, 30.5 GB in f32)
+runs at full width and depth, its weights drawn on the card too; its
+decode step is per layer under "auto" and "fused", and it refuses
+"megakernel" (the family has no cross-layer kernel).  xlstm-350m runs
+at full width and full depth (24 layers), its prefill recurrence a
+per-token loop of plain tensor code.
 """
 import argparse
 import dataclasses
@@ -99,8 +103,9 @@ def main(argv=None) -> int:
     jamba = cfg.family == "jamba"
     layers = 8 if jamba else cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=layers)
+    on_card = jamba or cfg.family == "transformer"
     params = registry.init_params(cfg, seed=args.seed, device="cuda",
-                                  draw_device="cuda" if jamba else "cpu")
+                                  draw_device="cuda" if on_card else "cpu")
     engine = Engine(cfg, params,
                     EngineConfig(n_slots=args.slots,
                                  max_seq=args.prompt_len + args.max_new + 8,

@@ -6,7 +6,8 @@ family (Table 1).  One ``register(ModelConfig(...))`` per arch; resolve with
 ``--arch <name>``.
 
 The port's own copy of ``repro/configs/zoo.py`` (same names, same
-hyperparameters); the port serves the mamba family only so far.
+hyperparameters); the port serves every family of it: mamba, jamba,
+xlstm and transformer.
 """
 from repro_torch.configs.base import ModelConfig, register
 

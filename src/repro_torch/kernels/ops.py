@@ -18,9 +18,11 @@ accepted so that one config describes both packages:
   ``kernels/megakernel.py``); fused | pallas | xla run the per-layer
   decode-step kernel; "auto" is the megakernel for a model on the card
   and "fused" on the CPU, as ``repro`` takes the megakernel where Pallas
-  compiles natively.  Per-layer call sites resolve a megakernel config
-  to "fused" (``resolve_cell_impl``).  ``repro``'s ``REPRO_STEP_IMPL``
-  override of "auto" is not ported.
+  compiles natively (a family with no megakernel instance, the
+  transformer, decodes per layer under "auto" on every device:
+  ``registry.uses_megakernel``).  Per-layer call sites resolve a
+  megakernel config to "fused" (``resolve_cell_impl``).  ``repro``'s
+  ``REPRO_STEP_IMPL`` override of "auto" is not ported.
 
 ``exp`` and ``silu`` are the MARCA units standalone (the paper's EXP-RCU
 and SiLU-RCU modes): with ``backend="pallas"`` the approximations run

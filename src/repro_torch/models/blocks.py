@@ -1,6 +1,7 @@
 """Model building blocks (port of ``repro/models/blocks.py``): dense
-projection, norms (with the xLSTM group norm), rotary embedding, GQA attention with its decode
-cache, gated MLPs, embedding and unembedding.
+projection, norms (with the xLSTM group norm), rotary embedding, GQA
+attention with its decode cache (and the chunked causal form of
+``attn_impl="chunked"``), gated MLPs, embedding and unembedding.
 
 Parameters are plain tensors in nested dicts laid out as ``repro``'s
 (dense weights are ``(d_in, d_out)``, int8 weights carry a ``w_scale``
@@ -115,6 +116,40 @@ def attention_init(cfg, gen):
             "wk": proj(d, hkv * dh, cfg.qkv_bias),
             "wv": proj(d, hkv * dh, cfg.qkv_bias),
             "wo": proj(hq * dh, d, False)}
+
+
+def _grouped_scores(q, k, scale):
+    """q (b, lq, hkv, rep, dh), k (b, lk, hkv, dh) -> scores (b, hkv, rep,
+    lq, lk) in f32 (``repro`` blocks.py:133): the products of the stored
+    values summed in f32, grouped heads with no KV repetition."""
+    return torch.einsum("bqgrd,bkgd->bgrqk", q.float(), k.float()) * scale
+
+
+def chunked_causal_attention(q, k, v, chunk=512, q_offset=0):
+    """Memory-bounded causal attention (``repro`` blocks.py:143, its
+    ``attn_impl="chunked"``): the queries in chunks of ``chunk``, scores
+    kept at (chunk x lk), grouped heads.  Query i (of the chunk starting
+    at row r) attends to keys j <= q_offset + r + i.  q (b, lq, hq, dh),
+    k/v (b, lk, hkv, dh); returns (b, lq, hq, dh) in q's dtype.  Plain
+    PyTorch: the prefill path runs ``ops.attention`` (K7 on the card)
+    under every ``attn_impl`` name."""
+    b, lq, hq, dh = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = dh ** -0.5
+    chunk = min(chunk, lq)
+    cols = torch.arange(lk, device=q.device)
+    outs = []
+    for start in range(0, lq, chunk):
+        qc = q[:, start:start + chunk]
+        n = qc.shape[1]
+        s = _grouped_scores(qc.reshape(b, n, hkv, rep, dh), k, scale)
+        rows = q_offset + start + torch.arange(n, device=q.device)
+        s = s.masked_fill(~(rows[:, None] >= cols[None, :]), float("-inf"))
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p.float(), v.float())
+        outs.append(o.to(q.dtype).reshape(b, n, hq, dh))
+    return torch.cat(outs, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, pos):

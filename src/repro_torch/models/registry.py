@@ -1,7 +1,6 @@
 """Model registry: family dispatch, slot-indexable caches and parameter
-counts — the port of ``repro/models/registry.py`` for the mamba, jamba
-and xlstm families.  Other families raise ``NotImplementedError``
-(ROADMAP A11).
+counts — the port of ``repro/models/registry.py`` for every family of
+the zoo: mamba, jamba, xlstm and transformer.
 
   init_params(cfg, seed, device) -> param tree (nested dicts of tensors)
   quantize_params(cfg, params) -> the int8 + scale tree (weight_dtype)
@@ -12,7 +11,9 @@ and xlstm families.  Other families raise ``NotImplementedError``
   gather_slots / scatter_slots / mask_slots -> the serving engine's
       slot contract over cache_slot_axes (nested cache trees: jamba's
       {"layers": {"pos{i}": {...}}, "pos"}, xLSTM's {"layers": [{"mlstm":
-      {...}} | {"slstm": {...}}, ...], "pos"})
+      {...}} | {"slstm": {...}}, ...], "pos"}; the transformer's flat
+      {"k", "v", "pos"} (+ "k_scale", "v_scale"))
+  uses_megakernel(cfg, device) -> whether a decode step runs K3
   verify_scan / verify_chain / select_step -> the speculative verify
       window over K tokens, with every step's cache, and the per-slot
       rollback to one step
@@ -27,16 +28,14 @@ import dataclasses
 import torch
 
 from repro_torch.core import weight_quant
-from repro_torch.models import jamba, mamba_lm, xlstm
+from repro_torch.kernels import ops
+from repro_torch.models import jamba, mamba_lm, transformer, xlstm
 
-_FAMILIES = {"mamba": mamba_lm, "jamba": jamba, "xlstm": xlstm}
+_FAMILIES = {"transformer": transformer, "mamba": mamba_lm, "jamba": jamba,
+             "xlstm": xlstm}
 
 
 def family(cfg):
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP A11)")
     return _FAMILIES[cfg.family]
 
 
@@ -105,6 +104,23 @@ def stack_params(cfg, params):
     per-layer dicts and builds this once per engine, after the tree has
     moved to its device, never per token."""
     return family(cfg).stack_params(cfg, params)
+
+
+def uses_megakernel(cfg, device) -> bool:
+    """Whether a decode step of ``cfg`` on ``device`` runs the cross-layer
+    kernel K3 (and so needs ``stack_params``).  ``"auto"`` gives K3 on the
+    card only for a family that has an instance of it, and the per-layer
+    step otherwise (a transformer, whose ``repro`` decode step is per
+    layer); an explicit ``"megakernel"`` for a family without one raises,
+    as ``repro``'s ``stacked_step`` does."""
+    if ops.resolve_step_impl(cfg.step_impl, device) != "megakernel":
+        return False
+    if hasattr(family(cfg), "stacked_step"):
+        return True
+    if cfg.step_impl == "auto":
+        return False
+    raise NotImplementedError(
+        f"family {cfg.family!r} has no megakernel decode path")
 
 
 def init_cache(cfg, batch, max_seq, dtype=None, device="cpu"):
@@ -221,8 +237,8 @@ def verify_scan(cfg, params, cache, tokens, active=None):
     """Run K candidate tokens through the model: the speculative verify
     pass.  The mamba, jamba and xLSTM families run their batched
     ``verify_window`` (projections and convs over the window, only the
-    recurrences chained per token); another family would chain
-    ``decode_step`` (``verify_chain``).
+    recurrences chained per token); the transformer chains
+    ``decode_step`` (``verify_chain``), as ``repro``'s does.
 
     tokens (b, K); ``active`` (b,) bool freezes the other slots.
     Returns (logits (b, K, V), caches), the cache tree with a leading

@@ -29,7 +29,10 @@ cache tree.
 of the pool with one launch of the cross-layer kernel K3; the engine
 builds K3's stacked view of the decode weights once, when it is made
 (``registry.stack_params``).  "fused" (and "auto" on the CPU) runs the
-per-layer conv and step kernels.
+per-layer conv and step kernels.  The transformer family has no K3
+instance: "auto" decodes it per layer on every device, and an explicit
+"megakernel" raises (``registry.uses_megakernel``).  As in ``repro``,
+the stub frontends (audio_stub, vision_stub) are not served.
 
 Speculative decoding (``EngineConfig.draft``, ``runtime/spec_decode.py``)
 makes each scheduler iteration one fork -> k-token draft -> batched
@@ -74,7 +77,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import weight_quant
-from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.runtime import metrics as metrics_lib
 from repro_torch.runtime import sampling
@@ -182,6 +184,9 @@ class Engine:
     def __init__(self, cfg, params, ecfg: EngineConfig,
                  logger: Optional[metrics_lib.MetricsLogger] = None,
                  clock: Callable[[], float] = time.perf_counter):
+        if cfg.frontend in ("audio_stub", "vision_stub"):
+            raise NotImplementedError(
+                "serving engine supports token frontends only")
         if ecfg.mesh is not None:
             raise NotImplementedError(
                 "EngineConfig.mesh is not ported to repro_torch yet "
@@ -195,8 +200,9 @@ class Engine:
                                       kv_cache_dtype=ecfg.kv_cache_dtype)
         ecfg.default_params.validate()
         self.device = resolve_device(ecfg.device)
-        stack = ops.resolve_step_impl(cfg.step_impl,
-                                      self.device) == "megakernel"
+        # K3 for a family that has an instance of it; a transformer
+        # decodes per layer (an explicit "megakernel" raises here)
+        stack = registry.uses_megakernel(cfg, self.device)
         prefill_params = params
         if ecfg.weight_dtype is not None:
             already = weight_quant.is_quantized(cfg.weight_dtype)

@@ -45,7 +45,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.runtime import sampling
 
@@ -199,7 +198,7 @@ class SpecDecoder:
         self.full = n == cfg.n_layers
         self.draft_params = (params if self.full else
                              registry.draft_params(cfg, params, n))
-        if (ops.resolve_step_impl(dcfg.step_impl, device) == "megakernel"
+        if (registry.uses_megakernel(dcfg, device)
                 and "stack" not in self.draft_params):
             # the draft's K3 view of its layers, built once; a full-depth
             # draft reuses the target's

@@ -68,15 +68,16 @@ def serve(eng, prompts, params=REF):
     return reqs
 
 
-def cached_admission_equal_repros(arch, state_dtype):
+def cached_admission_equal_repros(arch, state_dtype, kv_cache_dtype=None):
     """Three prompts sharing a 16-token prefix through a cache-enabled
     engine (block 16: one miss, two hits): the port's greedy streams and
     prefix counters are repro's; each hit is bitwise a cold admission of
-    its prompt in the port; in f32 the cache-off engine's streams agree
-    under the tie rule."""
+    its prompt in the port; in f32 (state and KV) the cache-off engine's
+    streams agree under the tie rule."""
     jcfg, tcfg, jp, tp = model(arch)
     prompts = shared_prefix_prompts(tcfg.vocab, n=3)
-    kw = dict(n_slots=2, max_seq=64, state_dtype=state_dtype)
+    kw = dict(n_slots=2, max_seq=64, state_dtype=state_dtype,
+              kv_cache_dtype=kv_cache_dtype)
     pcc = dict(block=16, max_entries=16)
     jeng = jengine.Engine(jcfg, jp, jengine.EngineConfig(
         **kw, prefix_cache=jprefix.PrefixCacheConfig(**pcc)))
@@ -97,7 +98,7 @@ def cached_admission_equal_repros(arch, state_dtype):
         c = serve(cold, [p])[0]
         assert cold.stats.prefix_hits == 0
         assert c.tokens == r.tokens and c.logprobs == r.logprobs
-    if state_dtype is None:
+    if state_dtype is None and kv_cache_dtype is None:
         # a quantized state is quantized at other points by the chunked
         # prefill than by one full prefill (repro holds cache on against
         # off for f32 only, too)

@@ -614,6 +614,88 @@ def test_cuda_flash_non_causal(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K7 at the zoo's transformer head layouts; a transformer served on the card
+# ---------------------------------------------------------------------------
+
+TRANSFORMER_FLASH = [  # hq, hkv, dh
+    (28, 4, 128),     # qwen2-7b: 7 query heads a KV head, one a block
+    (48, 1, 128),     # granite-20b: MQA, 16 query heads a block
+    (16, 16, 128),    # olmo-1b, qwen2-moe-a2.7b
+    (32, 32, 64),     # musicgen-large: the 64-wide instantiation
+    (32, 32, 96),     # phi-3-vision: padded into the 128-wide one
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("lq,lk", [(64, 64), (127, 127), (512, 512),
+                                   (64, 512)])
+@pytest.mark.parametrize("hq,hkv,dh", TRANSFORMER_FLASH)
+def test_cuda_flash_transformer_layouts(cuda, dtype, tol, lq, lk, hq, hkv,
+                                        dh):
+    """K7 against ref.attention at each transformer head layout: one
+    launch counted, repro's flash tolerances, repeated bit for bit, one
+    device kernel a call."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.kernels import flash_attention
+    q, k, v = _flash_tensors(cuda, 1, lq, lk, hq, hkv, dh,
+                             getattr(torch, dtype))
+    counts = dispatch_count.launch_counts(flash_attention.flash_attention,
+                                          q, k, v)
+    assert dict(counts) == {"flash_attention": 1}, counts
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    again = flash_attention.flash_attention(q, k, v, causal=True)
+    want = ref.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               rtol=tol, atol=tol)
+    assert graph_kernels(
+        lambda: flash_attention.flash_attention(q, k, v, causal=True)) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-20b"])
+def test_cuda_transformer_engine_launches_k7_once_a_layer(cuda, arch):
+    """A smoke-width transformer served on the card with step_impl "auto"
+    (the per-layer step: no K3 for this family): K7 once a layer an
+    admission and in no decode step, no plain version, every slot back,
+    and the CPU engine's greedy streams on the same f32 weights under the
+    tie rule."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import dispatch_count
+    from repro_torch.models import registry
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.sampling import SamplingParams
+    cfg = dataclasses.replace(configs.smoke_variant(configs.get_config(
+        arch)), vocab=256, dtype="float32")
+    p = registry.init_params(cfg, seed=0)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).numpy()
+               for n in (5, 9, 14, 7)]
+    sp = SamplingParams(max_new=6, logprobs=True, top_logprobs=2)
+    eng = Engine(cfg, p, EngineConfig(n_slots=2, max_seq=32,
+                                      device=str(cuda)))
+    assert "stack" not in eng.params
+    dispatch_count.reset()
+    reqs = [eng.submit(x, sp) for x in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    snap = dispatch_count.snapshot()
+    assert eng.stats.prefill_calls == len(prompts)
+    assert eng.stats.decode_steps > 0
+    assert snap["flash_attention"] == cfg.n_layers * len(prompts)
+    assert sum(snap.values()) == snap["flash_attention"], +snap
+    assert eng.pool.n_free == 2
+    cpu = Engine(cfg, p, EngineConfig(n_slots=2, max_seq=32, device="cpu"))
+    want = [cpu.submit(x, sp) for x in prompts]
+    cpu.run()
+    assert_streams_tie_equal(reqs, want, 1e-4, arch)
+
+
+# ---------------------------------------------------------------------------
 # K3, jamba instance
 # ---------------------------------------------------------------------------
 

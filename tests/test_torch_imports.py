@@ -67,6 +67,9 @@ def test_serve_path_imports_with_jax_blocked():
         "import repro_torch.core.selective_scan\n"
         "import repro_torch.runtime.prefix_cache, repro_torch.runtime.disagg\n"
         "import repro_torch.runtime.scheduler, repro_torch.runtime.frontend\n"
+        "import repro_torch.models.transformer, repro_torch.configs.shapes\n"
+        "import repro_torch.core.marca_model, repro_torch.core.op_graph\n"
+        "import repro_torch.core.buffer_manager\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

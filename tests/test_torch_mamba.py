@@ -23,6 +23,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.core import state_quant as tsq
 from repro_torch.kernels import ops
 from repro_torch.models import registry as tregistry
+from repro_torch.runtime.engine import Engine, EngineConfig
 
 from _torch_inputs import code_ordinals
 
@@ -262,10 +263,12 @@ def test_selective_scan_resumes_across_split(L1):
 
 
 def test_bf16_state_pool_and_unported_families():
+    """A bf16 state pool; what stays unported raises, naming its ROADMAP
+    item: tensor-parallel serving (A13)."""
     _, tcfg = _cfgs(state_dtype="bf16")
     cache = tregistry.init_cache(tcfg, 2, 16)
     assert cache["h"].dtype == torch.bfloat16
     assert "h_scale" not in cache
-    with pytest.raises(NotImplementedError, match="A11"):
-        tregistry.init_params(tconfigs.smoke_variant(
-            tconfigs.get_config("olmo-1b")))
+    with pytest.raises(NotImplementedError, match="A13"):
+        Engine(tcfg, tregistry.init_params(tcfg),
+               EngineConfig(device="cpu", mesh=object()))
