@@ -222,11 +222,40 @@ no K3 instance) and K7 runs once a layer an admission:
 4tm. serve qwen2-moe-a2.7b (8 layers) once through ``Server`` with phase
    4's traffic: launches, no plain version, every slot back;
 
+then training, K4, K5 and K7 under their autograd Functions
+(``kernels.ops``: the kernel forward, a PyTorch backward):
+
+2g. each Function on the card against autograd through its plain version
+   on the card, on the same leaves from a seed: the scan at mamba-130m's
+   d_inner 1536 and d_state 16 (dt_rank 48, chunk 64), b 2, L 512 and a
+   ragged 33, with D and the z gate outside it; the conv with and
+   without x_prev; K7 at qwen2-7b's 28/4 and olmo-1b's 16/16 heads, lq =
+   lk and lq < lk; f32 gradients within 5e-4 of each one's max-abs, bf16
+   ones printed and finite; the launches counted (the scan's backward
+   one more a chunk) and no plain version run;
+3g. model gradients card against CPU on the same f32 weights and batch:
+   mamba-130m at full width with 2 layers (b 2, L 128) and olmo-1b at
+   full width with 2 layers (b 1, L 128); the loss within 1e-5 relative,
+   every gradient leaf within 1e-3 of its max-abs (printed);
+4g. the Trainer at full width and full depth, bf16 compute, f32 master
+   weights and moments: mamba-130m (24 layers, global batch 8 in two
+   microbatches, seq 512, 8 steps, a checkpoint every 4, then a resume
+   from step 4 whose losses repeat the straight run's bit for bit) and
+   olmo-1b (16 layers, 1,176,764,416 parameters, global batch 4, seq
+   512, 6 steps, no checkpoint); each loss finite and falling, the
+   launches a step the layer count gives, no plain version; step time,
+   tokens/s, peak memory printed;
+5g. one mamba-130m step of 4g split into forward, backward and
+   optimizer: wall time and device time (the kernels torch.profiler
+   records) of each;
+
 each new phase printing its seconds, and print one JSON line of every
 kernel (K5's and K7's with their designs, K7's with its SASS counts,
 each with its launches in the speculative serve runs and in the
 prefix-cache runs; K7's with its launches in 4t, 4tp and 4tm, its
-largest bf16 error at each transformer layout and its 5t rows).
+largest bf16 error at each transformer layout and its 5t rows; K4's, K5's
+and K7's with their launches a training step and a microbatch in 4g and
+their largest f32 gradient error in 2g).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
@@ -3861,6 +3890,303 @@ DISAGG_RUNS = (("f32", "f32", 2580484, "mamba_stacked_step"),
                ("int8", "int8", 811300, "mamba_stacked_step_q_int8a"))
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 2g, 3g, 4g, 5g): K4, K5 and K7 under their autograd
+# Functions, the model's gradients, the Trainer, one step split
+# ---------------------------------------------------------------------------
+
+#: (kind, shape) of each 2g case, as tests/test_torch_cuda.py's
+#: TRAIN_CASES: scan (b, L, d, n, dt_rank, chunk), conv (b, L, d, k,
+#: x_prev), attention (b, lq, lk, hq, hkv, dh)
+TRAIN_CASES = (("scan", (2, 512, 1536, 16, 48, 64)),
+               ("scan", (2, 33, 1536, 16, 48, 64)),
+               ("conv", (2, 512, 1536, 4, False)),
+               ("conv", (2, 33, 1536, 4, True)),
+               ("attention", (1, 256, 256, 28, 4, 128)),
+               ("attention", (1, 512, 512, 16, 16, 128)),
+               ("attention", (1, 100, 256, 16, 16, 128)))
+TRAIN_KERNEL = {"scan": "selective_scan", "conv": "causal_conv1d",
+                "attention": "flash_attention"}
+#: f32 gradients of a Function against its plain version's, of max-abs
+FUNCTION_GRAD_TOL = 5e-4
+#: f32 gradients of the model on the card against the CPU's, of max-abs
+MODEL_GRAD_TOL = 1e-3
+#: (arch, layers, batch, length) of each 3g run
+TRAIN_MODEL_RUNS = (("mamba-130m", 2, 2, 128), ("olmo-1b", 2, 1, 128))
+#: (arch, TrainConfig fields, steps after which the run resumes) of each
+#: 4g run; bf16 compute (the zoo's dtype), f32 master weights and moments
+TRAIN_RUNS = (
+    ("mamba-130m", dict(total_steps=8, warmup_steps=2, global_batch=8,
+                        seq_len=512, grad_accum=2, ckpt_every=4), 4),
+    ("olmo-1b", dict(total_steps=6, warmup_steps=2, global_batch=4,
+                     seq_len=512, grad_accum=1, ckpt_every=0), None))
+TRAIN_LR = 1e-3
+
+
+def train_launches_expected(cfg, tcfg) -> dict:
+    """K4, K5 and K7 launches of one training step of ``cfg``: each
+    microbatch runs the scan forward once a mamba layer plus the
+    backward's recompute once a chunk, the conv once a mamba layer and K7
+    once an attention layer."""
+    mb = tcfg.grad_accum
+    if cfg.family == "mamba":
+        chunks = -(-tcfg.seq_len // cfg.scan_chunk)
+        return {"selective_scan": mb * cfg.n_layers * (1 + chunks),
+                "causal_conv1d": mb * cfg.n_layers}
+    return {"flash_attention": mb * cfg.n_layers}
+
+
+def phase_train_functions(dev) -> dict:
+    """2g.  Returns each kernel's largest f32 gradient error over its
+    cases, as a share of the gradient's max-abs."""
+    worst = {}
+    for kind, shape in TRAIN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            res = shared_inputs().trainable_case(kind, shape, dtype, dev,
+                                                 seed=SEED)
+            if kind == "scan":
+                want = {"selective_scan": 1 + -(-shape[1] // shape[5])}
+            else:
+                want = {TRAIN_KERNEL[kind]: 1}
+            got = dict(res["launches"])
+            tag = f"{kind} {shape} {str(dtype)[6:]}"
+            ok = got == want and res["finite"]
+            f32 = dtype == torch.float32
+            parts = []
+            for name, err, scale in res["errs"]:
+                rel = err / max(scale, 1e-30)
+                parts.append(f"{name} {rel:.2e}")
+                if f32:
+                    ok &= rel <= FUNCTION_GRAD_TOL
+                    key = TRAIN_KERNEL[kind]
+                    worst[key] = max(worst.get(key, 0.0), rel)
+            log(f"  {tag:<44} launches {got}  grad err/max-abs: "
+                f"{', '.join(parts)}"
+                f"{f' (tol {FUNCTION_GRAD_TOL:g})' if f32 else ''}  "
+                f"finite {res['finite']}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                FAILURES.append(f"2g {tag}")
+    return worst
+
+
+def phase_train_model(arch, n_layers, b, L, dev):
+    """3g: one loss and backward of ``arch`` (full width, ``n_layers``,
+    f32) on the card and on the CPU, the same weights and batch."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.core import dispatch_count
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    params = registry.init_params(cfg, seed=SEED)
+    batch = registry.make_batch(cfg, b, L,
+                                torch.Generator().manual_seed(SEED + 1))
+    out = {}
+    for device in ("cpu", dev):
+        p = registry.tree_map(
+            lambda t: t.detach().to(device, copy=True).requires_grad_(),
+            params)
+        dispatch_count.reset()
+        loss, _ = registry.loss_fn(
+            cfg, p, {k: v.to(device) for k, v in batch.items()})
+        loss.backward()
+        grads = [t.grad.cpu() for t in registry.tree_leaves(p)]
+        out[str(device)] = (float(loss.detach()), grads,
+                            +dispatch_count.snapshot())
+        del p
+    (l_c, g_c, _), (l_d, g_d, counts) = out["cpu"], out[str(dev)]
+    want = {"selective_scan": n_layers * (1 + -(-L // cfg.scan_chunk)),
+            "causal_conv1d": n_layers} if cfg.family == "mamba" else {
+        "flash_attention": n_layers}
+    ok = dict(counts) == want
+    rel = abs(l_d - l_c) / abs(l_c)
+    ok &= rel <= 1e-5
+    log(f"  {arch} ({n_layers} layers) f32 b {b} L {L}: loss card {l_d:.7f}"
+        f" cpu {l_c:.7f} (rel {rel:.2e}, tol 1e-5); launches {dict(counts)}")
+    names = list(_flatten_with_paths(params))
+    worst = 0.0
+    for name, gc, gd in zip(names, g_c, g_d):
+        scale = float(gc.abs().max())
+        r = float((gd - gc).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, r)
+        good = r <= MODEL_GRAD_TOL and bool(torch.isfinite(gd).all())
+        ok &= good
+        log(f"    {name:<34} grad err/max-abs {r:.2e} (max-abs "
+            f"{scale:.3e}, tol {MODEL_GRAD_TOL:g})  "
+            f"{'ok' if good else 'FAIL'}")
+    log(f"  {arch}: {len(names)} gradient leaves, the largest error "
+        f"{worst:.2e} of max-abs  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"3g {arch}")
+
+
+def phase_train_run(arch, fields, resume_at, dev, card):
+    """4g: one Trainer run of ``arch`` at full width and depth, and with
+    ``resume_at`` a second run resumed from that step's checkpoint.
+    Returns (the summary, the trained state for 5g)."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.core import dispatch_count
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    cfg = configs.get_config(arch)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="train_", dir=ROOT / "build")
+    tcfg = TrainConfig(ckpt_dir=ckdir, log_every=1000, device=str(dev),
+                       optimizer=AdamWConfig(lr=TRAIN_LR), **fields)
+    try:
+        trainer = Trainer(cfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch_count.reset()
+        t0 = time.perf_counter()
+        params, opt_state, losses = trainer.run(resume=False)
+        wall = time.perf_counter() - t0
+        counts = +dispatch_count.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        times = trainer.step_times
+        steady = sorted(times[1:])[len(times[1:]) // 2]
+        tokens = tcfg.global_batch * tcfg.seq_len
+        n_params = registry.count_params(cfg)
+        want = {k: v * tcfg.total_steps
+                for k, v in train_launches_expected(cfg, tcfg).items()}
+        ok = dict(counts) == want
+        ok &= all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+        log(f"  {arch}: {cfg.n_layers} layers, {n_params} parameters, "
+            f"global batch {tcfg.global_batch} ({tcfg.grad_accum} "
+            f"microbatches) x seq {tcfg.seq_len}, {cfg.dtype} compute, f32 "
+            f"weights and moments, lr {TRAIN_LR:g} ({card})")
+        log(f"  losses {[round(x, 4) for x in losses]}  (first {losses[0]:.4f}"
+            f" -> last {losses[-1]:.4f})")
+        log(f"  step time first {times[0]:.3f} s, median of the rest "
+            f"{steady:.3f} s ({tokens / steady:.0f} tokens/s); run {wall:.1f}"
+            f" s; peak memory {peak:.2f} GiB")
+        log(f"  launches {dict(counts)} (want {want}: a step "
+            f"{train_launches_expected(cfg, tcfg)})  {'ok' if ok else 'FAIL'}")
+        summary = {"arch": arch, "losses": losses, "step_s": times,
+                   "median_step_s": steady, "tokens_per_s": tokens / steady,
+                   "peak_gib": peak, "launches": dict(counts),
+                   "steps": tcfg.total_steps, "grad_accum": tcfg.grad_accum}
+        if not ok:
+            FAILURES.append(f"4g {arch}")
+        if resume_at is not None:
+            keep = trainer.ckpt.all_steps()
+            for step in keep:
+                if step > resume_at:
+                    shutil.rmtree(Path(ckdir) / f"step_{step:012d}")
+            t2 = Trainer(cfg, tcfg)
+            _, _, resumed = t2.run(resume=True)
+            diff = max(abs(a - b) for a, b in zip(resumed,
+                                                  losses[resume_at:]))
+            same = resumed == losses[resume_at:]
+            good = len(resumed) == len(losses) - resume_at and same
+            log(f"  resumed from step {resume_at} (checkpoints {keep}): "
+                f"losses {[round(x, 4) for x in resumed]}; "
+                f"{'bitwise equal to' if same else 'max |diff| '}"
+                f"{'' if same else f'{diff:.3e} from'} the straight run's  "
+                f"{'ok' if good else 'FAIL'}")
+            summary["resume_max_abs_diff"] = diff
+            summary["resume_bitwise"] = same
+            if not good:
+                FAILURES.append(f"4g {arch} resume")
+        return summary, (cfg, tcfg, params, opt_state)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def _device_ms(fn):
+    """(fn's result, ms of device kernels torch.profiler records in one
+    call, the number of those kernels); (result, None, 0) when the trace
+    holds no kernel."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    return out, (busy if evs else None), len(evs)
+
+
+def phase_train_split(state, dev):
+    """5g: one step of the 4g mamba run's configuration on its trained
+    state, split into forward (every microbatch's loss), backward and
+    optimizer; a warm step, then each part timed on the host clock (a
+    synchronize closing it) and, in a third step, its device kernels
+    (torch.profiler)."""
+    from repro_torch.data import make_train_iterator
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_update, cosine_schedule
+    cfg, tcfg, params, opt_state = state
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        make_train_iterator(cfg, tcfg.global_batch, tcfg.seq_len,
+                            prefetch=0)).items()}
+    k = tcfg.grad_accum
+    rows = tcfg.global_batch // k
+    mbs = [{n: v[i * rows:(i + 1) * rows] for n, v in batch.items()}
+           for i in range(k)]
+    leaves = registry.tree_leaves(params)
+    box = {"opt": opt_state}
+
+    def forward():
+        for p in leaves:
+            p.grad = None
+        return [registry.loss_fn(cfg, params, mb)[0] for mb in mbs]
+
+    def backward(losses):
+        for loss in losses:
+            loss.backward()
+
+    def optimizer():
+        grads = registry.tree_map(lambda p: p.grad / k, params)
+        lr = cosine_schedule(box["opt"].step, tcfg.warmup_steps,
+                             tcfg.total_steps)
+        _, box["opt"], _ = adamw_update(grads, box["opt"], params,
+                                        tcfg.optimizer, lr)
+
+    backward(forward())
+    optimizer()
+    torch.cuda.synchronize()
+    wall = {}
+    t0 = time.perf_counter()
+    losses = forward()
+    torch.cuda.synchronize()
+    wall["forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    backward(losses)
+    torch.cuda.synchronize()
+    wall["backward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    optimizer()
+    torch.cuda.synchronize()
+    wall["optimizer"] = time.perf_counter() - t0
+    dev_ms, kernels = {}, {}
+    losses, dev_ms["forward"], kernels["forward"] = _device_ms(forward)
+    _, dev_ms["backward"], kernels["backward"] = _device_ms(
+        lambda: backward(losses))
+    _, dev_ms["optimizer"], kernels["optimizer"] = _device_ms(optimizer)
+    rows_out = {}
+    for part in ("forward", "backward", "optimizer"):
+        d = dev_ms[part]
+        share = None if d is None else 1 - d / (1e3 * wall[part])
+        rows_out[part] = {"wall_ms": 1e3 * wall[part], "device_ms": d,
+                          "device_kernels": kernels[part],
+                          "idle_share": share}
+        d_txt = "not measured (no kernel in the trace)" if d is None else \
+            f"{d:.2f} ms in {kernels[part]} kernels (device idle " \
+            f"{100 * share:.1f}% of the wall time)"
+        log(f"  {part:<9} wall {1e3 * wall[part]:9.2f} ms  device {d_txt}")
+    total = sum(wall.values())
+    log(f"  step wall {1e3 * total:.2f} ms ({tcfg.global_batch} x "
+        f"{tcfg.seq_len} tokens, {tcfg.grad_accum} microbatches)")
+    return rows_out
+
+
 T_START = time.perf_counter()
 
 
@@ -4085,6 +4411,43 @@ def main() -> int:
     transformer_free()
     if not ok:
         return 1
+    t0 = time.perf_counter()
+    log("== phase 2g: the scan, conv and K7 Functions vs autograd through "
+        "their plain versions, on the card")
+    grad_errs = phase_train_functions(dev)
+    phase_seconds("2g", t0)
+    if not phase_ok():
+        return 1
+    t0 = time.perf_counter()
+    log("== phase 3g: model gradients, card vs CPU, f32, full width, 2 "
+        "layers")
+    for arch, n_layers, b, L in TRAIN_MODEL_RUNS:
+        phase_train_model(arch, n_layers, b, L, dev)
+    phase_seconds("3g", t0)
+    if not phase_ok():
+        return 1
+    train = {}
+    split = None
+    for arch, fields, resume_at in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        log(f"== phase 4g: train {arch} at full width and depth")
+        train[arch], state = phase_train_run(arch, fields, resume_at, dev,
+                                             card)
+        phase_seconds(f"4g {arch}", t0)
+        if not phase_ok():
+            return 1
+        if arch == ARCH:
+            t0 = time.perf_counter()
+            log(f"== phase 5g: one {arch} step split: forward, backward, "
+                f"optimizer")
+            split = phase_train_split(state, dev)
+            phase_seconds("5g", t0)
+        del state
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not phase_ok():
+        return 1
     log(f"total {time.perf_counter() - T_START:.1f} s")
     for entry in kernels:
         # the launches of the speculative serve runs (phases 4s, 4xs, 4js)
@@ -4102,6 +4465,21 @@ def main() -> int:
                 "4tm": t_counts["4tm", "f32", "model"]}
             entry["transformer_max_abs_err"] = k7_errs
             entry["transformer_shapes"] = k7_rows
+        if entry["name"] in grad_errs:
+            # training (2g, 4g): the Function's largest f32 gradient error
+            # (a share of the gradient's max-abs) and the kernel's
+            # launches a step and a microbatch of each 4g run, as counted
+            n = entry["name"]
+            entry["grad_err_of_max_abs"] = grad_errs[n]
+            entry["training_launches"] = {
+                arch: {"per_step": t["launches"][n] // t["steps"],
+                       "per_microbatch": t["launches"][n]
+                       // (t["steps"] * t["grad_accum"])}
+                for arch, t in train.items() if n in t["launches"]}
+    log(json.dumps({"training": {arch: {k: t[k] for k in (
+        "losses", "median_step_s", "tokens_per_s", "peak_gib",
+        "resume_max_abs_diff", "resume_bitwise") if k in t}
+        for arch, t in train.items()}, "step_split": split}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

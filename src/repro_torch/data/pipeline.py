@@ -1,7 +1,21 @@
-"""Synthetic request/corpus source: the port's copy of ``SyntheticLM``
-from ``repro/data/pipeline.py`` (numpy only, same streams for the same
-seed)."""
+"""Deterministic, shardable data pipeline: the port's copy of
+``repro/data/pipeline.py`` (numpy only, the same batches for the same
+seed).
+
+  * ``SyntheticLM`` is stateless: ``batch_at(step, shard, num_shards)``
+    is a pure function of its arguments, so a resumed run needs only the
+    step counter from its checkpoint.  The corpus has learnable structure
+    (a Zipf unigram and an order-2 mixing rule), so a small model's loss
+    falls within a few hundred steps.
+  * ``ShardedLoader`` iterates one shard's batches from a start step.
+  * ``Prefetcher`` assembles batches on a background thread into a
+    bounded queue, overlapping the host's work with the step.
+"""
 from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
 
 import numpy as np
 
@@ -46,3 +60,65 @@ class SyntheticLM:
         toks = self.sample(rng, batch_per_shard)
         return {"tokens": toks[:, :-1].astype(np.int32),
                 "labels": toks[:, 1:].astype(np.int32)}
+
+
+class ShardedLoader:
+    """Iterator over deterministic global batches for one data shard."""
+
+    def __init__(self, dataset: SyntheticLM, global_batch: int,
+                 shard: int = 0, num_shards: int = 1, start_step: int = 0):
+        if global_batch % num_shards:
+            raise ValueError(f"global batch {global_batch} over "
+                             f"{num_shards} shards")
+        self.ds = dataset
+        self.bps = global_batch // num_shards
+        self.shard = shard
+        self.num_shards = num_shards
+        self.step = start_step
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        b = self.ds.batch_at(self.step, self.shard, self.num_shards,
+                             self.bps)
+        self.step += 1
+        return b
+
+
+class Prefetcher:
+    """Background-thread prefetch with a bounded queue.  The thread is a
+    daemon that blocks on the full queue once its consumer stops."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self.it = it
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.done = object()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            for item in self.it:
+                self.q.put(item)
+        finally:
+            self.q.put(self.done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.q.get()
+        if item is self.done:
+            raise StopIteration
+        return item
+
+
+def make_train_iterator(cfg, global_batch: int, seq_len: int,
+                        start_step: int = 0, seed: int = 0,
+                        prefetch: int = 2):
+    """Synthetic corpus sized to cfg.vocab -> (prefetched) iterator of
+    numpy batches {"tokens", "labels"} (b, seq_len) int32."""
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq_len, seed=seed)
+    loader = ShardedLoader(ds, global_batch, start_step=start_step)
+    return Prefetcher(loader, depth=prefetch) if prefetch else loader

@@ -242,6 +242,24 @@ def check_a(A, a_scale, d, n) -> None:
     check_dense("a_scale", a_scale, torch.float32, (d,))
 
 
+def check_no_grad(kernel: str, *tensors, trainable: bool = False) -> None:
+    """Refuse a raw kernel call that autograd would cut: with grad mode on,
+    an input that requires grad (or ``trainable``, the flag of a weight
+    table built over such inputs) would get no gradient through the
+    kernel's fresh output.  The kernels with a backward run under their
+    ``torch.autograd.Function`` (``kernels.ops``), where grad mode is off
+    inside forward and backward; serving runs under ``torch.no_grad()``
+    or on weights that do not require grad."""
+    if not torch.is_grad_enabled():
+        return
+    if trainable or any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad and the kernel has no "
+            f"backward of its own; call it under torch.no_grad(), or "
+            f"through kernels.ops, whose autograd Function carries the "
+            f"gradient")
+
+
 def check_dtype(t) -> None:
     if t.dtype not in DTYPES:
         raise ValueError(f"kernels take float32 or bfloat16 inputs, got "

@@ -27,6 +27,7 @@ def causal_conv1d(x, w, b=None, x_prev=None):
     x may be a strided view (unit stride on the last axis only); w, b
     and x_prev must be contiguous."""
     global launches
+    _lib.check_no_grad("causal_conv1d", x, w, b, x_prev)
     _lib.check_dtype(x)
     bsz, L, d = x.shape
     k = w.shape[0]
@@ -47,3 +48,46 @@ def causal_conv1d(x, w, b=None, x_prev=None):
               x.stride(1), _lib.DTYPES[x.dtype])
     launches += 1
     return y, tail
+
+
+def conv_backward(x, w, x_prev, dy, dtail, has_bias: bool):
+    """Gradients (x, w, b, x_prev) of ``causal_conv1d``: the transpose of
+    the depthwise causal conv as k shifted multiply-adds over the padded
+    input xp = [x_prev | x] (y_t = sum_i xp_{t+i} w_i + b; the tail is
+    xp's last k-1 rows), in f32, each returned in its input's dtype."""
+    bsz, L, d = x.shape
+    k = w.shape[0]
+    f32 = torch.float32
+    head = (torch.zeros(bsz, k - 1, d, dtype=f32, device=x.device)
+            if x_prev is None else x_prev.float())
+    xp = torch.cat([head, x.float()], dim=1)              # (b, L+k-1, d)
+    dyf = dy.float()
+    dxp = torch.zeros_like(xp)
+    dxp[:, L:] = dtail.float()
+    dw = torch.empty(k, d, dtype=f32, device=x.device)
+    for i in range(k):
+        dxp[:, i:i + L].addcmul_(dyf, w[i].float())
+        dw[i] = torch.einsum("bld,bld->d", dyf, xp[:, i:i + L])
+    db = dyf.sum((0, 1)) if has_bias else None
+    dprev = None if x_prev is None else dxp[:, :k - 1].to(x_prev.dtype)
+    return dxp[:, k - 1:].to(x.dtype), dw.to(w.dtype), db, dprev
+
+
+class _TrainableConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, x_prev):
+        y, tail = causal_conv1d(x, w, b=b, x_prev=x_prev)
+        ctx.save_for_backward(x, w, x_prev)
+        ctx.has_bias = b is not None
+        return y, tail
+
+    @staticmethod
+    def backward(ctx, dy, dtail):
+        x, w, x_prev = ctx.saved_tensors
+        return conv_backward(x, w, x_prev, dy, dtail, ctx.has_bias)
+
+
+def causal_conv1d_trainable(x, w, b=None, x_prev=None):
+    """``causal_conv1d`` with a backward: the forward is one wrapper call
+    (K5 on the card), the backward ``conv_backward``."""
+    return _TrainableConv.apply(x, w, b, x_prev)

@@ -29,8 +29,10 @@ launches_int8a = 0
 launches_q = 0
 
 
-def _check_step(x_t, dt_t, A, B_t, C_t, D, z_t, a_scale, exp_impl,
+def _check_step(kernel, x_t, dt_t, A, B_t, C_t, D, z_t, a_scale, exp_impl,
                 silu_impl, **state):
+    _lib.check_no_grad(kernel, x_t, dt_t, A, B_t, C_t, D, z_t, a_scale,
+                       *state.values())
     _lib.check_dtype(x_t)
     slots, d = x_t.shape
     n = A.shape[-1]
@@ -63,8 +65,9 @@ def selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=None, z_t=None,
     axis only); h, A, a_scale and D must be contiguous, and on the card h
     and A must start on a 16-byte boundary."""
     global launches, launches_int8a
-    slots, d, n = _check_step(x_t, dt_t, A, B_t, C_t, D, z_t, a_scale,
-                              exp_impl, silu_impl, h=h)
+    slots, d, n = _check_step("selective_state_step", x_t, dt_t, A, B_t,
+                              C_t, D, z_t, a_scale, exp_impl, silu_impl,
+                              h=h)
     _lib.check_dense("h", h, torch.float32, (slots, d, n))
     if x_t.device.type == "cpu":
         return ref.selective_state_step(h, x_t, dt_t, A, B_t, C_t, D=D,
@@ -102,8 +105,9 @@ def selective_state_step_q(hq, h_scale, x_t, dt_t, A, B_t, C_t, D=None,
     requantizes on write, so the f32 state never reaches device memory.
     Other arguments as in ``selective_state_step``."""
     global launches_q
-    slots, d, n = _check_step(x_t, dt_t, A, B_t, C_t, D, z_t, a_scale,
-                              exp_impl, silu_impl, hq=hq, h_scale=h_scale)
+    slots, d, n = _check_step("selective_state_step_q", x_t, dt_t, A, B_t,
+                              C_t, D, z_t, a_scale, exp_impl, silu_impl,
+                              hq=hq, h_scale=h_scale)
     if not state_quant.is_quantized(state_dtype):
         raise ValueError(f"state_dtype {state_dtype!r} is not quantized")
     g = state_quant.n_groups(d)

@@ -39,6 +39,7 @@ def fast_exp(x, b_shift: float = approx.OUR_EXP_B_SHIFT,
     add ``c`` (defaults: the paper's "Our_exp").  Returns a new tensor of
     x's shape and dtype."""
     global launches
+    _lib.check_no_grad("fast_exp", x)
     _lib.check_dtype(x)
     if x.device.type == "cpu":
         return ref.fast_exp(x, b_shift, c)

@@ -29,6 +29,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     on 16-byte boundaries, as the tensor cores' copies need); with
     ``causal``, lq <= lk."""
     global launches
+    _lib.check_no_grad("flash_attention", q, k, v)
     _lib.check_dtype(q)
     b, lq, hq, dh = q.shape
     lk, hkv = k.shape[1], k.shape[2]
@@ -57,3 +58,57 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
               float(scale), int(causal), _lib.DTYPES[q.dtype])
     launches += 1
     return o
+
+
+def attention_backward(q, k, v, o, do, causal: bool, scale):
+    """Gradients (q, k, v) of attention, the standard backward in f32
+    from q, k, v, the forward's output o and its gradient do: the scores
+    and softmax recomputed with the causal mask (queries the suffix of the
+    keys, as the forward), dS = P * (dP - rowsum(dO * O)); the k and v
+    gradients of a GQA group summed over its query heads.  K7 returns no
+    log-sum-exp, so the probabilities are materialized: (b, hq, lq, lk)
+    f32, a few of them at once.  Returned in the inputs' dtypes."""
+    b, lq, hq, dh = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if scale is None:
+        scale = dh ** -0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones(lq, lk, dtype=torch.bool,
+                          device=q.device).tril(lk - lq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)     # (b, hq, lq)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, lk, hkv, rep, dh).sum(3)
+    dv = dv.reshape(b, lk, hkv, rep, dh).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _TrainableAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o = flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*attention_backward(q, k, v, o, do, ctx.causal, ctx.scale),
+                None, None)
+
+
+def flash_attention_trainable(q, k, v, causal: bool = True, scale=None):
+    """``flash_attention`` with a backward: the forward is one wrapper
+    call (K7 on the card), the backward ``attention_backward``."""
+    return _TrainableAttention.apply(q, k, v, causal, scale)

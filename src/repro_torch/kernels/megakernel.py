@@ -159,6 +159,17 @@ def _copy_dicts(row):
             for k, v in row.items()}
 
 
+def _requires_grad(tree) -> bool:
+    """Whether any tensor of a nested dict/list tree requires grad (K3
+    has no backward: ``_lib.check_no_grad`` refuses such a table under
+    grad mode)."""
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def _check_cfg(cfg, family):
     _lib.require(cfg.family == family,
                  f"K3 runs the {family} family here, not {cfg.family!r}")
@@ -264,6 +275,7 @@ class MambaStack:
         self.device, self.table = _pointer_table(cfg, layers, self.int8,
                                                  mlp=False)
         self.layers = [_copy_dicts(lp) for lp in layers]
+        self.trainable = _requires_grad(self.layers)
         self.maps, self.tma, self.map_grid = None, 0, None
         if self.table is not None:
             self._encode_maps(cfg)
@@ -338,6 +350,8 @@ def mamba_stacked_step(cfg, x0, stack: MambaStack, h, h_scale, conv):
     (x (slots, 1, d_model), h, h_scale or None, conv): masking inactive
     slots stays with the caller."""
     global launches, launches_int8a, launches_q, launches_q_int8a
+    _lib.check_no_grad("mamba_stacked_step", x0, h, h_scale, conv,
+                       trainable=stack.trainable)
     _lib.check_dtype(x0)
     L, dm, di, n, r, k = _dims(cfg)
     _lib.require(_dims(cfg) == stack.dims,
@@ -415,6 +429,7 @@ class JambaRun:
         self.device, self.table = _pointer_table(cfg, rows, self.int8,
                                                  mlp=True)
         self.rows = [_copy_dicts(row) for row in rows]
+        self.trainable = _requires_grad(self.rows)
         self.grids = {}
 
 
@@ -440,6 +455,7 @@ def jamba_stacked_run(cfg, x0, run: JambaRun, states, outs):
     stream x (slots, 1, d_model)."""
     global jamba_launches, jamba_launches_int8a, jamba_launches_q
     global jamba_launches_q_int8a
+    _lib.check_no_grad("jamba_stacked_run", x0, trainable=run.trainable)
     _lib.check_dtype(x0)
     dm, di, n, r, k, ff = _jamba_dims(cfg)
     _lib.require(_jamba_dims(cfg) == run.dims,
@@ -650,6 +666,7 @@ class XlstmRun:
             [(name,) for name in dense], _XLSTM_TABLE_WIDTH,
             lambda row, path: _leaf(row, path, False))
         self.rows = [_copy_dicts(row) for row in rows]
+        self.trainable = _requires_grad(self.rows)
 
 
 def xlstm_scratch_floats(kind, slots, d_model, n_heads) -> int:
@@ -684,6 +701,7 @@ def xlstm_stacked_run(cfg, x0, run: XlstmRun, states, outs):
     stream x (slots, 1, d_model)."""
     global mlstm_launches, mlstm_launches_int8w, mlstm_launches_q
     global mlstm_launches_q_int8w, slstm_launches, slstm_launches_int8w
+    _lib.check_no_grad("xlstm_stacked_run", x0, trainable=run.trainable)
     _lib.check_dtype(x0)
     kind = run.kind
     _lib.require((cfg.d_model, cfg.n_heads, cfg.d_conv) == run.dims,

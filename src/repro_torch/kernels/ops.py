@@ -7,12 +7,27 @@ plain PyTorch version for a tensor on the CPU — the wrapper decides by
 the tensor's device alone.  The impl names of ``repro``'s configs are
 accepted so that one config describes both packages:
 
-* ``scan_impl``: seq | assoc | chunked | chunked_seq | pallas — all run
-  the scan kernel (``pallas`` is the name this slice is configured with);
+* ``scan_impl``: seq | assoc | chunked | chunked_seq | pallas | pallas_vjp
+  — all run the scan kernel (``pallas`` is the name this slice is
+  configured with; ``pallas_vjp``, ``repro``'s trainable path, always
+  runs the trainable scan below);
 * ``conv_impl``: xla | pallas — both run the conv kernel;
 * ``attn_impl``: chunked | ref | pallas — all run the flash attention
   kernel (K7) at prefill (``pallas`` is the name jamba is configured
   with);
+
+Training.  The kernels write fresh outputs that autograd cannot see
+through, so with grad mode on and an input that requires grad the scan,
+the conv and attention run their ``torch.autograd.Function``
+(``selective_scan_trainable``, ``causal_conv1d_trainable``,
+``flash_attention_trainable``): the forward is the same wrapper call (the
+kernel on the card, the plain version on the CPU), the backward is
+PyTorch and the same on both devices, as ``repro`` trains through its
+custom VJP (``repro/kernels/ops.py:51``) and XLA autodiff.  The raw
+wrappers refuse such inputs (``_lib.check_no_grad``) rather than cut the
+gradient.  The trainable scan starts from h0 = 0 with exact exp; the D
+skip and the z gate run outside it in tensor ops, with
+``cfg.silu_impl``, as ``repro/kernels/ops.py:57-62`` does.
 * ``step_impl``: "megakernel" runs the whole layer stack of a decode
   token in one launch of the cross-layer kernel (K3,
   ``kernels/megakernel.py``); fused | pallas | xla run the per-layer
@@ -46,7 +61,8 @@ from repro_torch.kernels import flash_attention as _flash_k
 from repro_torch.kernels import piecewise_silu as _silu_k
 from repro_torch.kernels import selective_scan as _scan_k
 
-SCAN_IMPLS = ("seq", "assoc", "chunked", "chunked_seq", "pallas")
+SCAN_IMPLS = ("seq", "assoc", "chunked", "chunked_seq", "pallas",
+              "pallas_vjp")
 CONV_IMPLS = ("xla", "pallas")
 ATTN_IMPLS = ("chunked", "ref", "pallas")
 STEP_IMPLS = ("auto", "megakernel", "fused", "pallas", "xla")
@@ -107,18 +123,40 @@ def storage_dtype(state_dtype: str) -> torch.dtype:
     return state_quant.storage_dtype(state_dtype)
 
 
+def _trains(*tensors) -> bool:
+    """Grad mode is on and an input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def selective_scan(x, dt, A, B, C, D=None, z=None, h0=None,
-                   impl: str = "pallas", exp_impl: str = "exact",
-                   silu_impl: str = "exact"):
+                   impl: str = "pallas", chunk: int = 64,
+                   exp_impl: str = "exact", silu_impl: str = "exact"):
+    """The scan kernel's wrapper, or, under ``impl="pallas_vjp"`` and
+    whenever it trains, the trainable scan with D and the z gate outside
+    (``chunk``: its backward's recompute interval)."""
     if impl not in SCAN_IMPLS:
         raise KeyError(f"unknown scan impl {impl!r}")
-    return _scan_k.selective_scan(x, dt, A, B, C, D=D, z=z, h0=h0,
-                                  exp_impl=exp_impl, silu_impl=silu_impl)
+    if impl != "pallas_vjp" and not _trains(x, dt, A, B, C, D, z, h0):
+        return _scan_k.selective_scan(x, dt, A, B, C, D=D, z=z, h0=h0,
+                                      exp_impl=exp_impl,
+                                      silu_impl=silu_impl)
+    if h0 is not None:
+        raise ValueError("the trainable scan starts from h0 = 0 "
+                         "(training); a continuation runs under no_grad")
+    y, h_last = _scan_k.selective_scan_trainable(x, dt, A, B, C, chunk)
+    if D is not None:
+        y = y + D.float()[None, None, :] * x.float()
+    if z is not None:
+        y = y * approx.get_silu(silu_impl)(z.float())
+    return y.to(x.dtype), h_last
 
 
 def causal_conv1d(x, w, b=None, x_prev=None, impl: str = "pallas"):
     if impl not in CONV_IMPLS:
         raise KeyError(f"unknown conv impl {impl!r}")
+    if _trains(x, w, b, x_prev):
+        return _conv_k.causal_conv1d_trainable(x, w, b=b, x_prev=x_prev)
     return _conv_k.causal_conv1d(x, w, b=b, x_prev=x_prev)
 
 
@@ -147,4 +185,6 @@ def attention(q, k, v, causal: bool = True, impl: str = "pallas"):
     version on the CPU, under every ``attn_impl`` name."""
     if impl not in ATTN_IMPLS:
         raise KeyError(f"unknown attention impl {impl!r}")
+    if _trains(q, k, v):
+        return _flash_k.flash_attention_trainable(q, k, v, causal=causal)
     return _flash_k.flash_attention(q, k, v, causal=causal)

@@ -39,6 +39,7 @@ def piecewise_silu(x, variant: str = "ours"):
     shape and dtype."""
     global launches
     _lib.require(variant in VARIANTS, f"unknown SiLU variant {variant!r}")
+    _lib.check_no_grad("piecewise_silu", x)
     _lib.check_dtype(x)
     if x.device.type == "cpu":
         return ref.piecewise_silu(x, variant)

@@ -117,7 +117,7 @@ def mamba_block_apply(cfg, p, x, state=None):
         A = weight_quant.dequantize_rows(A, a_scale)
     h0 = None if state is None else read_state_h(cfg, state)
     y, h_last = ops.selective_scan(x_a, dt, A, B, C, D=p["D"], z=z, h0=h0,
-                                   impl=cfg.scan_impl,
+                                   impl=cfg.scan_impl, chunk=cfg.scan_chunk,
                                    exp_impl=cfg.exp_impl,
                                    silu_impl=cfg.silu_impl)
     out = blocks.dense(p["out_proj"], y, x.dtype)

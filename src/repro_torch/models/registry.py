@@ -19,6 +19,8 @@ the zoo: mamba, jamba, xlstm and transformer.
       rollback to one step
   supports_draft / draft_config / draft_params / draft_cache /
       draft_cache_merge -> the self-speculative draft views
+  loss_fn(cfg, params, batch) -> (loss, metrics), the training loss
+  batch_shapes / make_batch(cfg, batch, seq, gen) -> a random batch
   count_params(cfg) -> analytical N
 """
 from __future__ import annotations
@@ -52,6 +54,13 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(template, leaves):
+    """The tree of ``template``'s structure with ``leaves`` in the order
+    ``tree_leaves`` gives."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
 
 
 def tree_to(tree, device):
@@ -187,6 +196,78 @@ def prefill(cfg, params, cache, batch):
 
 def decode_step(cfg, params, cache, batch):
     return family(cfg).decode_step(cfg, params, cache, batch)
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss and a random batch (``repro`` registry.py:262, :339)
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg, params, batch):
+    """Causal LM loss, multi-codebook aware, softmax in the logits dtype
+    (f32 by default): the mean next-token NLL plus every aux loss of the
+    forward (the MoE's ``moe_lb`` and ``moe_z``).  Returns (loss,
+    metrics) with ``nll``, each aux loss and ``loss``, 0-dim tensors.
+    The vision stub's image prefix carries no loss; with n_codebooks > 1
+    the logits are (b, l, ncb, V) against labels (b, l, ncb)."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    if cfg.n_codebooks <= 1 and cfg.frontend == "vision_stub":
+        logits = logits[:, -labels.shape[1]:]
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None])[..., 0]
+    nll = (lse - ll).mean()
+    loss = nll
+    metrics = {"nll": nll}
+    for k, v in aux.items():
+        loss = loss + v
+        metrics[k] = v
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def batch_shapes(cfg, batch_size, seq_len, with_labels=True) -> dict:
+    """{name: (shape, dtype)} of one step's batch per frontend: audio
+    frame embeddings and codebook labels for the audio stub, tokens and
+    image patch embeddings for the vision stub, else tokens (labels
+    beside each)."""
+    tok = ((batch_size, seq_len), torch.int32)
+    emb = getattr(torch, cfg.dtype)
+    out = {}
+    if cfg.frontend == "audio_stub":
+        out["embeds"] = ((batch_size, seq_len, cfg.d_model), emb)
+        if with_labels:
+            out["labels"] = ((batch_size, seq_len, cfg.n_codebooks),
+                             torch.int32)
+    elif cfg.frontend == "vision_stub":
+        out["tokens"] = tok
+        out["img_embeds"] = ((batch_size, cfg.img_tokens, cfg.d_model), emb)
+        if with_labels:
+            out["labels"] = tok
+    else:
+        out["tokens"] = tok
+        if with_labels:
+            out["labels"] = tok
+    return out
+
+
+def make_batch(cfg, batch_size, seq_len, gen=None, with_labels=True,
+               device="cpu"):
+    """A random batch of ``batch_shapes``: integers uniform in [0, vocab),
+    embeddings standard normal, drawn in name order from ``gen`` (a
+    ``torch.Generator``; seed 0 when None) on its device, then moved to
+    ``device``."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    out = {}
+    for name, (shape, dtype) in sorted(
+            batch_shapes(cfg, batch_size, seq_len, with_labels).items()):
+        if dtype == torch.int32:
+            t = torch.randint(0, cfg.vocab, shape, generator=gen,
+                              device=gen.device, dtype=dtype)
+        else:
+            t = torch.randn(shape, generator=gen, device=gen.device).to(
+                dtype)
+        out[name] = t.to(device)
+    return out
 
 
 # ---------------------------------------------------------------------------

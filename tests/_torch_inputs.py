@@ -67,36 +67,10 @@ def device_kernels(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_launches(fn):
-    """(name, grid, block) of each device kernel one call of ``fn`` runs
-    on the card, from torch.profiler's trace (its kernel events carry the
-    launch's grid and block as [x, y, z])."""
-    import json
-    import os
-    import tempfile
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
-    return [(e["name"], tuple(e["args"]["grid"]), tuple(e["args"]["block"]))
-            for e in events if e.get("cat") == "kernel"]
-
-
-def graph_kernels(fn) -> int:
-    """The number of device kernels one call of ``fn`` launches: the
-    kernel nodes of a CUDA graph that captures the call, read through the
-    driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  Unlike
-    ``device_kernels`` it does not depend on the tracer's state (late in
-    a long process the profiler was seen to record no kernel at all)."""
+def _graph_kernel_nodes(fn):
+    """(libcuda, a CUDA graph that captures one call of ``fn``, its kernel
+    nodes), read through the driver (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``).  The nodes live as long as the graph."""
     import ctypes
     try:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -117,13 +91,23 @@ def graph_kernels(fn) -> int:
     nodes = (ctypes.c_void_p * n.value)()
     if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
         raise RuntimeError("cuGraphGetNodes failed")
-    kinds = ctypes.c_int()
-    kernels = 0
+    out = []
+    kind = ctypes.c_int()
     for node in nodes:
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kinds)):
+        node = ctypes.c_void_p(node)
+        if cu.cuGraphNodeGetType(node, ctypes.byref(kind)):
             raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kinds.value == 0         # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels
+        if kind.value == 0:                # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(node)
+    return cu, graph, out
+
+
+def graph_kernels(fn) -> int:
+    """The number of device kernels one call of ``fn`` launches: the
+    kernel nodes of a CUDA graph that captures the call.  Unlike
+    ``device_kernels`` it does not depend on the tracer's state (late in
+    a long process the profiler was seen to record no kernel at all)."""
+    return len(_graph_kernel_nodes(fn)[2])
 
 
 def scan_call(fn, t, **kw):
@@ -485,3 +469,151 @@ def assert_streams_tie_equal(got, ref, tol, label=""):
         print(f"{label} req {r.req_id}: first differing token at {i}, "
               f"reference top-two margin {v0 - v1:.3e}")
         assert v0 - v1 <= tol, (label, r.req_id, i, v0 - v1)
+
+
+def graph_launches(fn):
+    """(name, grid, block) of each device kernel one call of ``fn``
+    launches: each kernel node of ``graph_kernels``' capture, its
+    function, grid and block read through libcuda
+    (``cuGraphKernelNodeGetParams``, the name by ``cuFuncGetName``: the
+    mangled name, which holds the source's).  The grid and block are (x,
+    y, z) tuples."""
+    import ctypes
+
+    class _Params(ctypes.Structure):       # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [
+            (f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz",
+                                         "smem")] + [
+            ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+            ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu, graph, nodes = _graph_kernel_nodes(fn)
+    get = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+        cu.cuGraphKernelNodeGetParams
+    out = []
+    for node in nodes:
+        p = _Params()
+        if get(node, ctypes.byref(p)):
+            raise RuntimeError("cuGraphKernelNodeGetParams failed")
+        func = ctypes.c_void_p(p.func)
+        if not p.func and p.kern:
+            if cu.cuKernelGetFunction(ctypes.byref(func),
+                                      ctypes.c_void_p(p.kern)):
+                raise RuntimeError("cuKernelGetFunction failed")
+        name = ctypes.c_char_p()
+        if cu.cuFuncGetName(ctypes.byref(name), func):
+            raise RuntimeError("cuFuncGetName failed")
+        out.append((name.value.decode(), (p.gx, p.gy, p.gz),
+                    (p.bx, p.by, p.bz)))
+    del graph                              # the nodes' owner, read
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The trainable kernels (the autograd Functions over K4, K5, K7) against
+# autograd through their plain versions, on one device
+# ---------------------------------------------------------------------------
+
+def _grad_leaf(gen, *shape, dtype=torch.float32, device="cpu", scale=1.0,
+               softplus=False):
+    t = torch.randn(*shape, generator=gen) * scale
+    if softplus:
+        t = torch.nn.functional.softplus(t)
+    return t.to(device, dtype).requires_grad_()
+
+
+def trainable_case(kind, shape, dtype=torch.float32, device="cpu", seed=0):
+    """One training call of ``kind`` ("scan", "conv" or "attention")
+    through ``kernels.ops`` (its autograd Function: the kernel forward on
+    the card) and through the plain version under autograd, on the same
+    leaves and a random output weighting.  ``shape``: scan (b, L, d, n,
+    dt_rank, chunk), conv (b, L, d, k, with x_prev), attention (b, lq, lk,
+    hq, hkv, dh).  The scan's inputs are the Mamba block's: x and z views
+    of one (b, L, 2d) leaf, B and C views of one (b, L, r + 2n) leaf, A =
+    -exp(A_log) from an f32 leaf, D an f32 leaf; the conv's x a view of a
+    (b, L, 2d) leaf.  Returns dict(errs=[(leaf, max |got - want|, max
+    |want|)], finite=bool, launches=the kernel launches and plain-version
+    entries of the Function's forward and backward (dispatch_count))."""
+    from repro_torch.core import dispatch_count
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "scan":
+        b, L, d, n, r, chunk = shape
+        leaves = {"xz": _grad_leaf(gen, b, L, 2 * d, dtype=dtype,
+                                   device=device),
+                  "dt": _grad_leaf(gen, b, L, d, dtype=dtype, device=device,
+                                   softplus=True),
+                  "A_log": _grad_leaf(gen, d, n, device=device, scale=0.5),
+                  "dbc": _grad_leaf(gen, b, L, r + 2 * n, dtype=dtype,
+                                    device=device),
+                  "D": _grad_leaf(gen, d, device=device)}
+
+        def call(fn):
+            x, z = leaves["xz"].chunk(2, dim=-1)
+            _, B, C = leaves["dbc"].split([r, n, n], dim=-1)
+            A = -torch.exp(leaves["A_log"])
+            return fn(x, leaves["dt"], A, B, C, leaves["D"], z)
+
+        def kernel(*a):
+            return ops.selective_scan(*a[:5], D=a[5], z=a[6], chunk=chunk)
+
+        def plain(*a):
+            return ref.selective_scan(*a[:5], D=a[5], z=a[6])
+        out_shapes = ((b, L, d), (b, d, n))
+    elif kind == "conv":
+        b, L, d, k, prev = shape
+        leaves = {"xz": _grad_leaf(gen, b, L, 2 * d, dtype=dtype,
+                                   device=device),
+                  "w": _grad_leaf(gen, k, d, device=device),
+                  "bias": _grad_leaf(gen, d, device=device)}
+        if prev:
+            leaves["x_prev"] = _grad_leaf(gen, b, k - 1, d, dtype=dtype,
+                                          device=device)
+
+        def call(fn):
+            return fn(leaves["xz"][..., :d], leaves["w"], leaves["bias"],
+                      leaves.get("x_prev"))
+
+        def kernel(*a):
+            return ops.causal_conv1d(*a)
+
+        plain = ref.causal_conv1d
+        out_shapes = ((b, L, d), (b, k - 1, d))
+    else:
+        b, lq, lk, hq, hkv, dh = shape
+        leaves = {"q": _grad_leaf(gen, b, lq, hq, dh, dtype=dtype,
+                                  device=device),
+                  "k": _grad_leaf(gen, b, lk, hkv, dh, dtype=dtype,
+                                  device=device),
+                  "v": _grad_leaf(gen, b, lk, hkv, dh, dtype=dtype,
+                                  device=device)}
+
+        def call(fn):
+            return (fn(leaves["q"], leaves["k"], leaves["v"]),)
+
+        def kernel(*a):
+            return ops.attention(*a, causal=True)
+
+        def plain(*a):
+            return ref.attention(*a, causal=True)
+        out_shapes = ((b, lq, hq, dh),)
+    weights = [torch.randn(*s, generator=gen).to(device) for s in out_shapes]
+
+    def grads(fn):
+        outs = call(fn)
+        loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+        return torch.autograd.grad(loss, list(leaves.values()))
+
+    before = dispatch_count.snapshot()
+    got = grads(kernel)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = dispatch_count.snapshot()
+    launches.subtract(before)
+    want = grads(plain)
+    res = dict(errs=[], finite=all(bool(torch.isfinite(g).all())
+                                   for g in got), launches=+launches)
+    for name, g, w in zip(leaves, got, want):
+        res["errs"].append((name, float((g.float() - w.float()).abs().max()),
+                            float(w.float().abs().max())))
+    return res

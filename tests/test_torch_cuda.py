@@ -17,8 +17,7 @@ from repro_torch.kernels import selective_scan as tscan
 
 from _torch_inputs import (UNIT_IMPLS, VARIANTS, assert_q_close,
                            assert_streams_tie_equal, close,
-                           code_ordinals, device_kernels, device_launches,
-                           graph_kernels,
+                           code_ordinals, graph_kernels, graph_launches,
                            jamba_run_inputs,
                            np_input, q_step_tensors, scan_arrays, scan_call,
                            stacked_inputs, step_arrays, to_torch,
@@ -155,11 +154,12 @@ def test_cuda_conv_writes_its_tail(cuda, dtype, tol, d, L, prev, strided):
                                       (4, 2, False)])
 def test_cuda_conv_is_one_device_kernel(cuda, b, L, prev):
     """One wrapper call runs one device kernel (no concatenation, zeros or
-    copy beside it), counted by torch.profiler, and repeats bit for
-    bit."""
+    copy beside it), counted in a CUDA graph of the call, and repeats bit
+    for bit."""
     x, w, bias, x_prev = _conv_tensors(cuda, "bfloat16", b, L, 1536, prev,
                                        True)
-    names = device_kernels(lambda: tconv.causal_conv1d(x, w, bias, x_prev))
+    names = [name for name, _, _ in graph_launches(
+        lambda: tconv.causal_conv1d(x, w, bias, x_prev))]
     assert len(names) == 1 and "causal_conv1d_kernel" in names[0], names
     y1, s1 = tconv.causal_conv1d(x, w, bias, x_prev)
     y2, s2 = tconv.causal_conv1d(x, w, bias, x_prev)
@@ -193,8 +193,7 @@ def _check_step_launch(cuda, slots, d, args, kw, got):
     again = tstep.selective_state_step(*args, **kw)
     torch.cuda.synchronize()
     assert _same_bits(got, again)
-    assert graph_kernels(lambda: tstep.selective_state_step(*args, **kw)) == 1
-    launches = device_launches(
+    launches = graph_launches(
         lambda: tstep.selective_state_step(*args, **kw))
     shape = tstep.launch_shape(slots, d)
     assert len(launches) == 1 and "decode_step_kernel" in launches[0][0]
@@ -1618,3 +1617,102 @@ def test_cuda_int8_engine_chain_runs_on_the_masters_k3_view(cuda, sd):
     assert got["mamba_stacked_step" + quant] == chain > 0
     assert got["mamba_stacked_step" + quant + "_int8a"] == s.decode_steps
     assert all(r.finished and len(r.tokens) == 5 for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# Training: the autograd Functions over K4, K5 and K7, the Trainer's step
+# ---------------------------------------------------------------------------
+
+#: (kind, shape) of each Function case: the scan at mamba-130m's d_inner
+#: and d_state (dt_rank 48), L 512 and a ragged 33, chunk 64; the conv with
+#: and without x_prev; K7 at qwen2-7b's 28/4 and olmo-1b's 16/16 heads,
+#: lq = lk and lq < lk
+TRAIN_CASES = [("scan", (2, 512, 1536, 16, 48, 64)),
+               ("scan", (2, 33, 1536, 16, 48, 64)),
+               ("conv", (2, 512, 1536, 4, False)),
+               ("conv", (2, 33, 1536, 4, True)),
+               ("attention", (1, 256, 256, 28, 4, 128)),
+               ("attention", (1, 100, 256, 16, 16, 128))]
+
+
+def _train_launches(kind, shape):
+    if kind == "scan":
+        return {"selective_scan": 1 + -(-shape[1] // shape[5])}
+    return {"causal_conv1d" if kind == "conv" else "flash_attention": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape", TRAIN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_trainable_function_matches_plain_autograd(cuda, kind, shape,
+                                                         dtype):
+    """A training call through ``kernels.ops`` runs the kernel's Function
+    (the forward one launch; the scan's backward one more a chunk) and no
+    plain version; its f32 gradients equal autograd through the plain
+    version on the card within 5e-4 of each gradient's max-abs (K4's own
+    forward tolerance), its bf16 ones are finite."""
+    from _torch_inputs import trainable_case
+    res = trainable_case(kind, shape, getattr(torch, dtype), cuda)
+    assert dict(res["launches"]) == _train_launches(kind, shape), \
+        res["launches"]
+    assert res["finite"]
+    if dtype == "float32":
+        for name, err, scale in res["errs"]:
+            assert err <= 5e-4 * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba-130m", "olmo-1b"])
+def test_cuda_trainer_step(cuda, arch, tmp_path):
+    """One Trainer step of a smoke model on the card: a finite loss, a
+    nonzero gradient in every f32 leaf, the scan and the conv (mamba) or
+    K7 (the transformer) launched through their Functions at the counts
+    the layer count gives, and no plain version."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import dispatch_count
+    from repro_torch.models import registry
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    cfg = dataclasses.replace(configs.smoke_variant(configs.get_config(
+        arch)), vocab=256)
+    tcfg = TrainConfig(total_steps=1, warmup_steps=0, global_batch=4,
+                       seq_len=40, grad_accum=2, ckpt_every=0,
+                       ckpt_dir=str(tmp_path), device=str(cuda))
+    dispatch_count.reset()
+    params, _, losses = Trainer(cfg, tcfg).run(resume=False)
+    torch.cuda.synchronize()
+    got = +dispatch_count.snapshot()
+    L = cfg.n_layers * tcfg.grad_accum
+    if cfg.family == "mamba":
+        want = {"selective_scan": L * (1 + -(-tcfg.seq_len
+                                               // cfg.scan_chunk)),
+                "causal_conv1d": L}
+    else:
+        want = {"flash_attention": L}
+    assert dict(got) == want, got
+    assert len(losses) == 1 and torch.isfinite(torch.tensor(losses)).all()
+    for p in registry.tree_leaves(params):
+        assert p.is_cuda and p.grad is not None
+        assert bool(p.grad.abs().sum() > 0)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_step_on_trainable_params_raises(cuda):
+    """The per-layer decode step (K1) on weights that require grad, under
+    grad mode, raises instead of cutting the gradient; under no_grad it
+    serves."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(configs.smoke_variant(configs.get_config(
+        "mamba-130m")), step_impl="fused", dtype="float32")
+    p = registry.tree_map(lambda t: t.requires_grad_(),
+                          registry.init_params(cfg, seed=0, device=cuda))
+    cache = registry.init_cache(cfg, 2, 16, device=cuda)
+    tok = {"tokens": torch.zeros(2, 1, dtype=torch.int32, device=cuda)}
+    with pytest.raises(RuntimeError, match="selective_state_step: an input "
+                                           "requires grad"):
+        registry.decode_step(cfg, p, cache, tok)
+    with torch.no_grad():
+        logits, _ = registry.decode_step(cfg, p, cache, tok)
+    assert torch.isfinite(logits).all()

@@ -70,6 +70,8 @@ def test_serve_path_imports_with_jax_blocked():
         "import repro_torch.models.transformer, repro_torch.configs.shapes\n"
         "import repro_torch.core.marca_model, repro_torch.core.op_graph\n"
         "import repro_torch.core.buffer_manager\n"
+        "import repro_torch.launch.train, repro_torch.runtime.train_loop\n"
+        "import repro_torch.optim, repro_torch.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
