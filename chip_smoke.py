@@ -129,7 +129,8 @@ units:
    SiLU breaks with their f32 neighbours; sizes 1-17; views at every
    offset within a 16-byte vector; each launch repeated; one device
    kernel a call; K8's answer for NaN against ``repro``'s;
-3x. xlstm-350m in f32, prefill 127 + 8 decode steps, per layer and
+3x. xlstm-350m cut to 12 of its 24 layers (sLSTM at 7) in f32, prefill
+   127 + 8 decode steps, per layer and
    through K3 on the card against the CPU: f32, int8 weights with int8
    state, fp8 state; its verify window (f32) against the CPU's, layer
    0's mLSTM state at every step;
@@ -200,9 +201,9 @@ no K3 instance) and K7 runs once a layer an admission:
    152064 words) in f32, prefill 127 + 8 decode steps on the card
    against the CPU on the same weights: f32 weights and KV, and int8
    weights with an int8 KV cache (codes within one, layer 0's scales to
-   f32 rounding); then qwen2-moe-a2.7b with f32 weights and KV (60
-   routed experts padded to 64, top-4, 4 shared; capacity = expert
-   count, so no assignment drops by batch);
+   f32 rounding); then qwen2-moe-a2.7b at 1 layer with f32 weights and
+   KV (60 routed experts padded to 64, top-4, 4 shared; capacity =
+   expert count, so no assignment drops by batch);
 4t. serve qwen2-7b with phase 4's traffic twice: f32 weights and KV
    through ``Server``, int8 weights with an int8 KV cache through
    ``Engine`` (the f32 master kept for prefill: 38 GB); each run holds
@@ -249,13 +250,50 @@ then training, K4, K5 and K7 under their autograd Functions
    optimizer: wall time and device time (the kernels torch.profiler
    records) of each;
 
+then tensor-parallel serving, two ranks spawned on the one card and
+joined over gloo through a ``FileStore`` under ``build/`` (NCCL refuses
+two ranks on one device; rank 0 prints, a rank's failure fails the
+run):
+
+2m. which collectives gloo takes on CUDA tensors (all_reduce sum and
+   max, broadcast, all_gather); the sequence-parallel scan at
+   mamba-2.8b's d_inner 5120, L 1024 as two chunks of 512, f32 and bf16,
+   with D and z, one K4 launch a rank, against one K4 launch over the
+   whole sequence; the straddled-group step at mamba-130m's d_inner
+   (768 channels a rank cut the middle scale group), int8 and fp8: K1 on
+   the dequantized shard and the group absmax exchanged, against the
+   single-device K2 step;
+3m. mamba-2.8b at full width and depth (64 layers, random weights from
+   seed 0 drawn on the card by each rank, f32, TF32 off): prefill 127 +
+   8 decode steps at tp=2 against one device's per-layer path on the
+   card, the all-reduces of a decode step counted; tp=1 over NCCL
+   (mamba-130m) bitwise the no-mesh engine; qwen2-7b at full width cut to
+   2 layers and xlstm-350m at full width and depth at tp=2 against one
+   device;
+4m. mamba-2.8b served at tp=2 through ``Engine(cfg, params,
+   EngineConfig(mesh=make_serving_mesh(2)))`` on both ranks with phase
+   4's traffic (max_seq 576): f32 weights and state, int8 weights with
+   int8 state (f32 compute), each against the single-device per-layer
+   engine under the tie rule, and f32 in bf16 for tok/s only; each run's
+   launches on each rank against the engine's counters, no plain
+   version, the bytes a slot on a rank; tok/s beside one device's (two
+   ranks sharing one card over gloo: not a tensor-parallel speedup), a
+   pooled decode step's wall time; then one ``all_reduce_sum`` alone at
+   the step's shapes, timed;
+5m. K4, K5, K1, K2 at mamba-2.8b's shard width (d_inner 2560) and K7 at
+   qwen2-7b's 14/2 heads, timed (rank 0);
+
 each new phase printing its seconds, and print one JSON line of every
 kernel (K5's and K7's with their designs, K7's with its SASS counts,
 each with its launches in the speculative serve runs and in the
 prefix-cache runs; K7's with its launches in 4t, 4tp and 4tm, its
 largest bf16 error at each transformer layout and its 5t rows; K4's, K5's
 and K7's with their launches a training step and a microbatch in 4g and
-their largest f32 gradient error in 2g).
+their largest f32 gradient error in 2g; each kernel's launches on rank 0
+in 2m and 4m, ``tp_launches``, and its 5m row).
+
+``python3 chip_smoke.py --tp-only`` builds the kernels and runs phases
+2m-5m alone (it prints their results, not the run's result line).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero and
@@ -2047,17 +2085,25 @@ def check_units(dev, counts, serving):
 # run of phase 3x.  With an int8/fp8 C the logits move by up to the
 # tolerance, so greedy tokens may differ where the CPU's top two logits
 # lie within it (ties True); f32 must agree on every token.
+#: phase 3x's depth: at 24 layers the whole run took 1101 s on the H100
+#: (the CPU references 60 s of it); 12 layers keep the sLSTM layer (7)
+#: between two K3-mlstm runs (0-6, 8-11)
+XLSTM_MODEL_LAYERS = 12
 XLSTM_MODEL_RUNS = (
-    ("f32", "f32", "model", 2e-3,
-     "24 layers of f32 GEMVs and a 127-token f32 recurrence summed in "
-     "another order on each side", False),
+    ("f32", "f32", "model", 1e-3,
+     "12 layers of f32 GEMVs and a 127-token f32 recurrence summed in "
+     "another order on each side: the logits' difference grows with depth "
+     "(3.2e-4 at 12 layers, 7.2e-4 at 24), so 24 layers' 2e-3 halved",
+     False),
     ("int8", "int8", "model", 1e-1,
      "int8 weights dequantized the same way on both sides; a C value on a "
      "rounding boundary lands one code (1/127 of its row's absmax) apart, "
-     "and h sums 512 such values a head, at every later step and layer",
-     True),
+     "and h sums 512 such values a head, at every later step and layer; "
+     "set by a code's size, not the depth (6.3e-2 at 12 layers, 7.7e-2 "
+     "at 24)", True),
     ("f32", "fp8", "model", 3e-1,
-     "as int8, with e4m3 codes: one code is 1/16 to 1/8 of a value", True))
+     "as int8, with e4m3 codes: one code is 1/16 to 1/8 of a value (1.4e-1 "
+     "at 12 layers, 2.1e-1 at 24)", True))
 XLSTM_PROMPT = 127
 
 # the launches of xlstm-350m served: each admission runs the conv (K5) of
@@ -2593,7 +2639,8 @@ def transformer_free():
 
 
 def layer_view(params, n):
-    """The first ``n`` layers of a transformer tree; no weight copied."""
+    """The first ``n`` layers of a model tree whose ``layers`` is a list
+    (a transformer's, xLSTM's); no weight copied."""
     return {**params, "layers": params["layers"][:n]}
 
 
@@ -4187,6 +4234,701 @@ def phase_train_split(state, dev):
     return rows_out
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving (2m, 3m, 4m): two gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_ARCH = "mamba-2.8b"
+#: the sequence-parallel scan's shape (b, L, d_inner, d_state): mamba-2.8b's
+#: d_inner, a 1024-token sequence as two chunks of 512
+TP_SCAN = (1, 1024, 5120, 16)
+#: y's tolerance by dtype (h_last is f32 in both): f32 the scan's; bf16
+#: two roundings of y (pass 1's output and the corrected sum) against one
+TP_SCAN_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+#: the straddled-group step at mamba-130m's widths (d_inner 1536 at tp=2:
+#: 768 channels a rank, so scale group 1 of 3 is cut): codes within one,
+#: scales to f32 rounding of the group absmax, y at f32
+TP_STRADDLE = dict(slots=4, scale_rtol=1e-5, y_tol=1e-4)
+TP_PROMPT = 127
+TP_STEPS = 8
+#: 3m's logits tolerance, tp=2 against one device on the card, written
+#: before the first run: f32 with TF32 off; the row-parallel products of
+#: each layer (x_proj, out_proj: two a mamba layer, 128 at mamba-2.8b)
+#: sum their halves in another order than one GEMM, an f32 ulp of each
+#: output, and 64 layers carry it through the residual stream
+TP_LOGITS_TOL = {"mamba-2.8b": 2e-3, "qwen2-7b": 2e-3, "xlstm-350m": 2e-3}
+#: 4m's tie rule: greedy streams agree token for token, or first differ
+#: where the single-device run's top two logits lie within this (f32);
+#: an int8 state moves a code where a value sits on a rounding boundary,
+#: and the code feeds every later step (phase 3's int8-state tolerance)
+TP_TIE = {("f32", "f32"): 2e-3, ("int8", "int8"): 2e-2}
+TP_XLSTM_PROMPT = 32
+#: calls a shape of 4m's timing of one all-reduce alone
+TP_COLLECTIVE_CALLS = 200
+#: seconds a rank may wait in a collective, and the parent for the ranks
+TP_GLOO_TIMEOUT = 300
+TP_TIMEOUT = 900
+#: the kernels phase 2m's sharded calls launch on this rank (its
+#: single-device comparisons not counted)
+LAUNCHES_2M = collections.Counter()
+
+
+def tp_cfg(arch, **kw):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch), scan_impl="pallas",
+                               conv_impl="pallas", step_impl="fused", **kw)
+
+
+def tp_probe(mesh, dev):
+    """Each collective the models call, on CUDA tensors over the mesh's
+    gloo group, held against its exact result."""
+    import torch.distributed as dist
+    r, n = mesh.rank, mesh.size
+    out = {}
+    cases = {
+        "all_reduce_sum": (lambda t: dist.all_reduce(t),
+                           lambda: torch.full((4,), float(r + 1), device=dev),
+                           lambda t: t == sum(range(1, n + 1))),
+        "all_reduce_max": (lambda t: dist.all_reduce(t, dist.ReduceOp.MAX),
+                           lambda: torch.full((4,), float(r), device=dev),
+                           lambda t: t == n - 1),
+        "broadcast": (lambda t: dist.broadcast(t, 0),
+                      lambda: torch.full((4,), float(r + 7), device=dev,
+                                         dtype=torch.float64),
+                      lambda t: t == 7),
+    }
+    for name, (op, make, good) in cases.items():
+        t = make()
+        try:
+            op(t)
+            out[name] = "ok" if bool(good(t).all()) else "wrong result"
+        except RuntimeError as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:100]}"
+    t = torch.full((4,), float(r), device=dev)
+    outs = [torch.empty_like(t) for _ in range(n)]
+    try:
+        dist.all_gather(outs, t)
+        good = all(bool((o == i).all()) for i, o in enumerate(outs))
+        out["all_gather"] = "ok" if good else "wrong result"
+    except RuntimeError as e:
+        out["all_gather"] = f"refused: {str(e).splitlines()[0][:100]}"
+    for name, res in out.items():
+        log(f"  gloo {name} on CUDA tensors: {res}")
+        if res != "ok":
+            FAILURES.append(f"gloo {name} on CUDA tensors")
+    return out
+
+
+def tp_scan(mesh, dev):
+    """2m: ``sp_selective_scan`` over the rank's half of L against one K4
+    launch over the whole sequence, f32 and bf16, with D and z; one K4
+    launch a rank."""
+    from repro_torch.kernels import ops, selective_scan
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.parallel.sp_scan import sp_selective_scan
+    sp = make_serving_mesh(TP, axis="sp")
+    b, L, d, n = TP_SCAN
+    lo, hi = mesh.rank * L // TP, (mesh.rank + 1) * L // TP
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(SEED + 31)
+        x, dt, A, B, C, D, z, _ = scan_inputs(b, L, d, n, 160, dtype, gen,
+                                              dev, h0=False)
+        y_ref, h_ref = ops.selective_scan(x, dt, A, B, C, D=D, z=z)
+        before = selective_scan.launches
+        y, h = sp_selective_scan(sp, x[:, lo:hi], dt[:, lo:hi], A,
+                                 B[:, lo:hi], C[:, lo:hi], D=D,
+                                 z=z[:, lo:hi], axis_name="sp")
+        torch.cuda.synchronize()
+        launches[str(dtype)] = selective_scan.launches - before
+        LAUNCHES_2M["selective_scan"] += launches[str(dtype)]
+        tag = f"sp scan rank {mesh.rank} {str(dtype)[6:]} L {L} as {TP}x"
+        tol = TP_SCAN_TOL[dtype]
+        check(f"{tag} y", y, y_ref[:, lo:hi], tol, tol)
+        check(f"{tag} h_last", h, h_ref, 5e-4, 5e-4)
+        ok = launches[str(dtype)] == 1
+        log(f"  {tag}: K4 launches on this rank {launches[str(dtype)]} "
+            f"(expected 1)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(f"{tag} K4 launches")
+    return launches
+
+
+def tp_straddle(mesh, dev):
+    """2m: the quantized-state step of a rank whose channels cut a scale
+    group (mamba-130m's d_inner 1536 at tp=2), int8 and fp8: K1 on the
+    dequantized shard and a requantization on the group absmax taken over
+    the ranks, against the single-device K2 step on the whole state."""
+    import dataclasses
+    from repro_torch.core import dispatch_count, state_quant
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba
+    from repro_torch.parallel import sharding
+    s = TP_STRADDLE
+    base = tp_cfg("mamba-130m")
+    slots, d, n = s["slots"], base.d_inner, base.d_state
+    loc = d // TP
+    lo, hi = mesh.rank * loc, (mesh.rank + 1) * loc
+    out = {}
+    for sd in ("int8", "fp8"):
+        gen = torch.Generator().manual_seed(SEED + 41)
+        x, dt, A, B, C, D, z, h = scan_inputs(slots, 1, d, n, base.dt_rank,
+                                              torch.float32, gen, dev)
+        hq, scale = q_state(h, sd)
+        y_ref, hq_ref, s_ref = ops.selective_state_step_q(
+            hq, scale, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D=D,
+            z_t=z[:, 0], state_dtype=sd)
+        cfg = dataclasses.replace(base, state_dtype=sd)
+        before = dispatch_count.snapshot()
+        sharding.reset_counts()
+        with sharding.use_mesh(mesh):
+            y, hq_loc, s_loc = mamba._step_q(
+                cfg, hq[:, lo:hi].contiguous(), scale, x[:, 0, lo:hi],
+                dt[:, 0, lo:hi], A[lo:hi].contiguous(), B[:, 0], C[:, 0],
+                D[lo:hi].contiguous(), z[:, 0, lo:hi], "fused", None)
+        torch.cuda.synchronize()
+        snap = dispatch_count.snapshot()
+        snap.subtract(before)
+        LAUNCHES_2M.update(+snap)
+        tag = f"straddled step rank {mesh.rank} {sd} d {d}/{TP}"
+        check(f"{tag} y", y, y_ref[:, lo:hi], s["y_tol"], s["y_tol"])
+        codes = int((code_ordinals(hq_loc)
+                     - code_ordinals(hq_ref[:, lo:hi])).abs().max())
+        rel = float(((s_loc - s_ref).abs()
+                     / s_ref.abs().clamp_min(1e-30)).max())
+        ok = codes <= 1 and rel <= s["scale_rtol"]
+        counts = (snap["decode_step"], snap["decode_step_q"],
+                  sharding.COUNTS["straddled_step"],
+                  sharding.COUNTS["all_reduce_max"])
+        ok = ok and counts == (1, 0, 1, 1)
+        log(f"  {tag}: codes within {codes}, scales max rel diff {rel:.2e} "
+            f"(rtol {s['scale_rtol']:g}); K1/K2 launches, straddled steps, "
+            f"absmax exchanges {counts} (expected (1, 0, 1, 1))  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            FAILURES.append(tag)
+        out[sd] = dict(codes=codes, scale_rel=rel)
+    return out
+
+
+def tp_checksum(mesh, params):
+    """The ranks drew the same bits: a few leaves' f64 sums, max and min
+    over the ranks."""
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding
+    leaves = registry.tree_leaves(params)
+    t = torch.stack([leaves[i].double().sum() for i in
+                     (0, len(leaves) // 2, len(leaves) - 1)])
+    with sharding.use_mesh(mesh):
+        hi = sharding.all_reduce_max(t.clone())
+        lo = -sharding.all_reduce_max(-t)
+    same = bool(torch.equal(hi, lo))
+    log(f"  both ranks drew the same weights (3 leaves' sums): "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        FAILURES.append("ranks drew different weights")
+
+
+def tp_forward(cfg, params, dev, lp, mesh=None):
+    """Teacher-forced prefill ``lp`` + TP_STEPS decode steps at one slot;
+    returns the logits (lp's last + each step's, (TP_STEPS + 1, V)) and
+    the all-reduces of the last step, on ``params`` (the rank's shard
+    under ``mesh``)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding
+    toks = torch.as_tensor(SyntheticLM(cfg.vocab, lp + TP_STEPS, seed=2)
+                           .batch_at(0, 0, 1, 1)["tokens"],
+                           dtype=torch.int64, device=dev)
+    cache = registry.init_cache(cfg, 1, lp + TP_STEPS, device=dev)
+    if mesh is not None:
+        cache = sharding.shard_cache(cfg, cache, mesh)
+    with sharding.use_mesh(mesh):
+        logits, cache = registry.prefill(cfg, params, cache,
+                                         {"tokens": toks[:, :lp]})
+        out = [logits[0, -1]]
+        for s in range(TP_STEPS):
+            sharding.reset_counts()
+            logits, cache = registry.decode_step(
+                cfg, params, cache, {"tokens": toks[:, lp + s:lp + s + 1]})
+            out.append(logits[0, -1])
+    torch.cuda.synchronize()
+    return torch.stack(out), dict(sharding.COUNTS)
+
+
+def tp_hold_logits(tag, got, want, tol):
+    """3m's comparison of rank 0's logits with one device's: within
+    ``tol``, and every greedy token equal or, where not, the reference's
+    top two logits within ``tol``."""
+    check(f"{tag} logits (tp={TP} vs one device)", got, want, tol, tol)
+    differ = got.argmax(-1) != want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1])[differ]
+    ok = bool((margins <= tol).all())
+    log(f"  {tag}: greedy agreement over {got.shape[0]} positions "
+        f"{1 - float(differ.float().mean()):.4f}, differing margins "
+        f"{margins.tolist()}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{tag} greedy agreement")
+
+
+def tp_model(mesh, dev, arch, cfg, lp, full_cb=None):
+    """3m for one model: the full tree drawn on the card from one seed on
+    both ranks; rank 0 runs the single-device per-layer path on it (and
+    ``full_cb(params)``, the single-device serving references, while it
+    holds the full tree), then both ranks cut their shards and run
+    ``tp_forward``.  Returns (all-reduces of a decode step, full_cb's
+    result)."""
+    import gc
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding
+    t0 = time.perf_counter()
+    full = registry.init_params(cfg, seed=SEED, device=dev, draw_device=dev)
+    torch.cuda.synchronize()
+    log(f"  {arch}: {registry.count_params(cfg)} parameters drawn on the "
+        f"card on each rank in {time.perf_counter() - t0:.1f} s")
+    tp_checksum(mesh, full)
+    want, extra = None, None
+    if mesh.rank == 0:
+        want, _ = tp_forward(cfg, full, dev, lp)
+        if full_cb is not None:
+            extra = full_cb(full)
+    local = sharding.shard_params(cfg, full, mesh)
+    if full_cb is None:
+        del full
+    else:
+        extra = (extra, full)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, counts = tp_forward(cfg, local, dev, lp, mesh)
+    n_ar = counts.get("all_reduce_sum", 0) + counts.get("all_reduce_max", 0)
+    L = cfg.n_layers
+    ok = L <= n_ar <= 16 * L
+    log(f"  {arch}: collectives of one decode step on a rank {counts} "
+        f"(all-reduces {n_ar}, expected within [{L}, {16 * L}])  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{arch} all-reduces a step")
+    if mesh.rank == 0:
+        tp_hold_logits(f"{arch} f32 prefill {lp} + {TP_STEPS}", got.float(),
+                       want.float(), TP_LOGITS_TOL[arch])
+    del local
+    return n_ar, extra
+
+
+def tp_traffic(cfg):
+    """Phase 4's traffic: 8 greedy prompts of 64/127/256/512 tokens (two
+    each) and one sampled request, 32 new tokens, the greedy ones with
+    their top two logprobs for the tie rule."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.sampling import SamplingParams
+    prompts = [SyntheticLM(cfg.vocab, L, seed=4).batch_at(0, 0, 1, 2)
+               ["tokens"][i] for L in (64, 127, 256, 512) for i in range(2)]
+    greedy = SamplingParams(max_new=32, logprobs=True, top_logprobs=2)
+    sampled = SamplingParams(temperature=0.8, top_k=40, seed=1234, max_new=32)
+    return [(p, greedy) for p in prompts] + [(prompts[3], sampled)]
+
+
+def tp_serve(cfg, params, run, dev, mesh=None):
+    """One 4m run through ``Engine``: warm-up, the counts at 0, the
+    traffic, the counts read.  Returns (streams, counts, stats summary,
+    engine facts)."""
+    import gc
+    import dataclasses
+    from repro_torch.core import dispatch_count
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.metrics import ServeStats
+    wd, sd, dtype = run
+    c = dataclasses.replace(cfg, dtype=dtype)
+    eng = Engine(c, params, EngineConfig(
+        n_slots=4, max_seq=SERVE_MAX_SEQ, weight_dtype=wd, state_dtype=sd,
+        device=str(dev), mesh=mesh))
+    for row in SyntheticLM(c.vocab, 16, seed=3).batch_at(0, 0, 1, 2)[
+            "tokens"]:
+        eng.submit(row, max_new=4)
+    eng.run()
+    eng.stats = ServeStats()
+    dispatch_count.reset()
+    sharding.reset_counts()
+    torch.cuda.synchronize()
+    reqs = [eng.submit(p, sp) for p, sp in tp_traffic(c)]
+    eng.run()
+    torch.cuda.synchronize()
+    snap = dispatch_count.snapshot()
+    facts = dict(spb=eng.pool.state_bytes_per_slot(),
+                 dspb=eng.pool.device_state_bytes_per_slot(),
+                 local_bytes=sum(t.numel() * t.element_size() for t in
+                                 registry.tree_leaves(eng.pool.cache))
+                 // eng.pool.n_total,
+                 back=eng.pool.n_free == 4, collectives=dict(sharding.COUNTS),
+                 straddled=sharding.COUNTS.get("straddled_step", 0),
+                 decode_s=eng.stats.decode_time)
+    smry = eng.stats.summary()
+    s = eng.stats
+    streams = [(r.tokens, r.top_logprobs) for r in reqs]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return streams, snap, smry, facts, (s.prefill_calls, s.decode_steps)
+
+
+def tp_hold_streams(tag, got, want, tol):
+    """4m's tie rule over the greedy requests (the sampled one printed)."""
+    bad, diverged = [], 0
+    for i, ((g, _), (w, wtop)) in enumerate(zip(got[:-1], want[:-1])):
+        j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            if len(g) != len(w):
+                bad.append((i, "length"))
+            continue
+        diverged += 1
+        (_, v0), (_, v1) = wtop[j][:2]
+        log(f"  {tag} request {i}: first differing token at {j}, the "
+            f"single-device run's top-two margin {v0 - v1:.3e}")
+        if v0 - v1 > tol:
+            bad.append((i, j, v0 - v1))
+    same = got[-1][0] == want[-1][0]
+    log(f"  {tag}: {8 - diverged}/8 greedy streams identical, {diverged} "
+        f"first differ within the tie rule ({tol:g}); sampled stream "
+        f"{'identical' if same else 'differs (printed)'}  "
+        f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+    if bad:
+        FAILURES.append(f"{tag} tie rule")
+
+
+TP_SERVE_RUNS = (("f32", "f32", "float32"), ("int8", "int8", "float32"),
+                 ("f32", "f32", "bfloat16"))
+
+
+def tp_hold_serve(tag, cfg, sd, snap, facts, steps, want_dspb):
+    """4m's checks of one tp run on this rank: each kernel's launches
+    against the engine's counters, no plain version, the bytes a slot,
+    every slot back."""
+    from repro_torch.core import dispatch_count
+    admits, dsteps = steps
+    L = cfg.n_layers
+    step_k = "decode_step_q" if sd == "int8" else "decode_step"
+    want = {k: 0 for k in dispatch_count.COUNTERS}
+    want["selective_scan"] = L * admits
+    want["causal_conv1d"] = L * (admits + dsteps)
+    want[step_k] = L * dsteps
+    got = {k: snap[k] for k in dispatch_count.COUNTERS}
+    bad = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+    plain = sum(v for k, v in snap.items() if k.startswith("plain "))
+    log(f"  {tag}: admissions {admits}, pooled decode steps {dsteps}; "
+        f"launches on this rank K4 {got['selective_scan']}, K5 "
+        f"{got['causal_conv1d']}, {step_k} {got[step_k]} (expected "
+        f"{want['selective_scan']}, {want['causal_conv1d']}, "
+        f"{want[step_k]}); others {'0' if not bad else bad}; plain "
+        f"versions {plain}  {'ok' if not bad and not plain else 'FAIL'}")
+    if bad or plain:
+        FAILURES.append(f"{tag} launches")
+    ok = (facts["dspb"] == facts["local_bytes"] == want_dspb
+          and facts["dspb"] < facts["spb"] and facts["back"]
+          and facts["straddled"] == 0)
+    log(f"  {tag}: device_state_bytes_per_slot {facts['dspb']} (the rank's "
+        f"leaves {facts['local_bytes']}, expected {want_dspb}) < "
+        f"state_bytes_per_slot {facts['spb']}; every slot back "
+        f"{facts['back']}; straddled steps {facts['straddled']} (whole "
+        f"groups at d_inner {cfg.d_inner}/{TP})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        FAILURES.append(f"{tag} pool")
+
+
+def tp_collective_ms(mesh, dev, cfg, dtype):
+    """4m: one ``sharding.all_reduce_sum`` alone, at the shapes a decode
+    step of 4 slots sums (out_proj's and the embedding's (4, d_model),
+    x_proj's (4, dt_rank + 2 n)), on CUDA tensors over gloo between the
+    two ranks on the card: wall ms a call (the stream synchronised before
+    each), median and mean of ``TP_COLLECTIVE_CALLS`` after 20 warm-ups."""
+    import statistics
+    from repro_torch.parallel import sharding
+    out = {}
+    dt = getattr(torch, dtype)
+    with sharding.use_mesh(mesh):
+        for width in (cfg.d_model, cfg.dt_rank + 2 * cfg.d_state):
+            t = torch.ones(4, width, device=dev, dtype=dt)
+            times = []
+            for i in range(20 + TP_COLLECTIVE_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sharding.all_reduce_sum(t)
+                if i >= 20:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            out[f"(4, {width}) {dtype}"] = dict(
+                median_ms=statistics.median(times),
+                mean_ms=statistics.fmean(times))
+    return out
+
+
+def tp_dspb(cfg, sd, dtype):
+    """mamba-2.8b's bytes a slot on one rank: h (L, d_inner/tp, 16) at its
+    storage width (+ its replicated (L, g) f32 scales), conv (L, 3,
+    d_inner/tp) in the compute dtype, pos 4."""
+    from repro_torch.core import state_quant
+    L, d = cfg.n_layers, cfg.d_inner // TP
+    h = L * d * 16 * (1 if state_quant.is_quantized(sd) else 4)
+    if state_quant.is_quantized(sd):
+        h += L * state_quant.n_groups(cfg.d_inner) * 4
+    return h + L * 3 * d * (4 if dtype == "float32" else 2) + 4
+
+
+def tp_single_serves(cfg, dev):
+    """Rank 0's single-device references of 4m on the full tree."""
+    def run(full):
+        out = {}
+        for run in TP_SERVE_RUNS:
+            out[run] = tp_serve(cfg, full, run, dev)
+            smry = out[run][2]
+            log(f"  4m one device {run}: {smry['tokens_per_s']:.1f} tok/s")
+        return out
+    return run
+
+
+def tp_families(mesh, dev):
+    """3m's other models at tp=2: qwen2-7b at full width cut to 2 layers
+    (28/4 heads of 128: 14/2 a rank; vocab 152064) and xlstm-350m at full
+    width and depth (4 heads: 2 a rank)."""
+    import gc
+    qcfg = transformer_cfg(QWEN, n_layers=2, dtype="float32")
+    tp_model(mesh, dev, "qwen2-7b", qcfg, TP_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xcfg = xlstm_cfg(dtype="float32", step_impl="fused")
+    tp_model(mesh, dev, "xlstm-350m", xcfg, TP_XLSTM_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_nccl_one(dev):
+    """tp=1 over NCCL (rank 0 alone in an NCCL group): mamba-130m's
+    prefill and decode logits and its served streams bitwise the no-mesh
+    engine's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import registry
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    group = dist.new_group([0], backend="nccl")
+    if dist.get_rank() != 0:
+        return None
+    mesh = make_serving_mesh(1, group=group)
+    cfg = tp_cfg("mamba-130m", dtype="float32")
+    params = registry.init_params(cfg, seed=SEED, device=dev, draw_device=dev)
+    a, _ = tp_forward(cfg, params, dev, TP_PROMPT)
+    b, _ = tp_forward(cfg, params, dev, TP_PROMPT, mesh)
+    same_logits = bool(torch.equal(a, b))
+    streams = []
+    for m in (None, mesh):
+        eng = Engine(cfg, params, EngineConfig(
+            n_slots=4, max_seq=SERVE_MAX_SEQ, device=str(dev), mesh=m))
+        reqs = [eng.submit(p, sp) for p, sp in tp_traffic(cfg)[:4]]
+        eng.run()
+        streams.append([(r.tokens, r.logprobs) for r in reqs])
+    same = same_logits and streams[0] == streams[1]
+    log(f"  tp=1 over NCCL ({mesh.backend}), mamba-130m f32: prefill and "
+        f"decode logits bitwise {same_logits}, 4 served streams and their "
+        f"logprobs bitwise {streams[0] == streams[1]}  "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        FAILURES.append("tp=1 over NCCL bitwise")
+    return same
+
+
+def tp_timing(dev):
+    """The kernels at their shard widths (rank 0, after the tp runs):
+    mamba-2.8b's d_inner 5120/2 for K4 (prefill, L 512), K5 (decode and
+    prefill), K1 and K2 (4 slots); qwen2-7b's 14/2 heads of 128 for K7
+    (L 512), bf16."""
+    from repro_torch.core import weight_quant
+    from repro_torch.kernels import conv1d, decode_step, flash_attention
+    from repro_torch.kernels import ref, selective_scan
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    d, n, r, k = 5120 // TP, 16, 160, 4
+    gen = torch.Generator().manual_seed(SEED + 51)
+    rows = {}
+    x, dt, A, B, C, D, z, _ = scan_inputs(1, 512, d, n, r, bf, gen, dev,
+                                          h0=False)
+    nb, ops_, _ = s6_work(1, 512, d, n, 2, False)
+    rows["selective_scan"] = measure(
+        "selective_scan", f"b=1 L=512 d={d} (5120/{TP}) n=16 bf16",
+        lambda: selective_scan.selective_scan(x, dt, A, B, C, D=D, z=z),
+        lambda: ref.selective_scan(x, dt, A, B, C, D=D, z=z), None,
+        (nb, ops_), 10)
+    xc, w, bias, x_prev = conv_inputs(4, 1, d, k, bf, gen, dev)
+    xp = torch.cat([x_prev, xc], 1).transpose(1, 2).contiguous()
+    wl, bl = w.t().contiguous().unsqueeze(1).to(bf), bias.to(bf)
+    rows["causal_conv1d"] = measure(
+        "causal_conv1d", f"b=4 L=1 d={d} k=4 bf16 (decode)",
+        lambda: conv1d.causal_conv1d(xc, w, bias, x_prev),
+        lambda: ref.causal_conv1d(xc, w, bias, x_prev),
+        lambda: F.conv1d(xp, wl, bl, groups=d), conv_work(4, 1, d, k, 2), 50)
+    x, dt, A, B, C, D, z, h = scan_inputs(4, 1, d, n, r, bf, gen, dev)
+    args = (h, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0])
+    rows["decode_step"] = measure(
+        "decode_step", f"slots=4 d={d} n=16 bf16, f32 state, f32 A",
+        lambda: decode_step.selective_state_step(*args, D=D, z_t=z[:, 0]),
+        lambda: ref.selective_state_step(*args, D=D, z_t=z[:, 0]), None,
+        s6_work(4, 1, d, n, 2, True)[:2], 50)
+    A_q, a_scale = weight_quant.quantize_rows(A)
+    hq, h_scale = q_state(h, "int8")
+    argsq = (hq, h_scale, x[:, 0], dt[:, 0], A_q, B[:, 0], C[:, 0])
+    kwq = dict(D=D, z_t=z[:, 0], state_dtype="int8", a_scale=a_scale)
+    rows["decode_step_q"] = measure(
+        "decode_step_q", f"slots=4 d={d} n=16 bf16, int8 state, int8 A",
+        lambda: decode_step.selective_state_step_q(*argsq, **kwq),
+        lambda: ref.selective_state_step_q(*argsq, **kwq), None,
+        q_step_work(4, d, n, 2), 50)
+    hq_, hkv, dh, L = 28 // TP, 4 // TP, 128, 512
+    q = torch.randn(1, L, hq_, dh, generator=gen).to(dev, bf)
+    kk = torch.randn(1, L, hkv, dh, generator=gen).to(dev, bf)
+    v = torch.randn(1, L, hkv, dh, generator=gen).to(dev, bf)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
+    rows["flash_attention"] = measure(
+        "flash_attention", f"b=1 L=512 heads {hq_}/{hkv} (28/4 over {TP}) "
+        f"x 128 bf16",
+        lambda: flash_attention.flash_attention(q, kk, v, causal=True),
+        lambda: ref.attention(q, kk, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                               enable_gqa=True),
+        flash_work(1, L, L, hq_, hkv, dh, 2), 10, flops=BF16_FLOPS)
+    return rows
+
+
+def tp_rank(rank, world, tmp):
+    """One rank of phases 2m, 3m and 4m (spawned; rank 0 prints).  Writes
+    its failures and results to ``tmp``/rank<r>.json."""
+    import gc
+    import traceback
+    global log
+    torch.set_num_threads(1)
+    if rank:
+        log = lambda msg="": None                       # noqa: E731
+    out = {}
+    try:
+        from repro_torch import resolve_device
+        from repro_torch.launch.mesh import init_ranks, make_serving_mesh
+        init_ranks(rank, world, Path(tmp) / "store", "gloo",
+                   timeout_s=TP_GLOO_TIMEOUT)
+        dev = resolve_device("cuda")
+        mesh = make_serving_mesh(world)
+        log(f"  mesh: {mesh}")
+        t0 = time.perf_counter()
+        log("== phase 2m: collectives on CUDA tensors over gloo; the "
+            "sequence-parallel scan; the straddled-group step")
+        out["collectives"] = tp_probe(mesh, dev)
+        out["scan_launches"] = tp_scan(mesh, dev)
+        out["straddle"] = tp_straddle(mesh, dev)
+        out["launches_2m"] = dict(LAUNCHES_2M)
+        log(f"  phase 2m: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log(f"== phase 3m: {TP_ARCH} (64 layers, full width) f32 at tp={TP} "
+            f"vs one device on the card; tp=1 over NCCL; qwen2-7b and "
+            f"xlstm-350m at tp={TP}")
+        cfg = tp_cfg(TP_ARCH, dtype="float32")
+        n_ar, extra = tp_model(mesh, dev, TP_ARCH, cfg, TP_PROMPT,
+                               full_cb=tp_single_serves(cfg, dev))
+        singles, full = extra
+        out["all_reduces_per_step"] = n_ar
+        log(f"  phase 3m {TP_ARCH}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log(f"== phase 4m: serve {TP_ARCH} at tp={TP} through Engine(mesh=)"
+            f", 9 requests on 4 slots, against one device")
+        out["serve"] = {}
+        for run in TP_SERVE_RUNS:
+            wd, sd, dtype = run
+            tag = f"4m tp={TP} {wd} weights {sd} state {dtype}"
+            streams, snap, smry, facts, steps = tp_serve(cfg, full, run, dev,
+                                                         mesh)
+            tp_hold_serve(tag, cfg, sd, snap, facts, steps,
+                          tp_dspb(cfg, sd, dtype))
+            step_ms = facts["decode_s"] / max(steps[1], 1) * 1e3
+            log(f"  {tag}: a pooled decode step {step_ms:.2f} ms of wall "
+                f"time (decode time over decode steps: sampling and the "
+                f"broadcast included, prefills not)")
+            one = singles[run][2]["tokens_per_s"] if rank == 0 else None
+            log(f"  {tag}: {smry['tokens_per_s']:.1f} tok/s against "
+                f"{one if one is None else f'{one:.1f}'} tok/s on one "
+                f"device (two ranks sharing one card over gloo: not a "
+                f"tensor-parallel speedup); collectives "
+                f"{facts['collectives']}")
+            if rank == 0 and dtype == "float32":
+                tp_hold_streams(tag, streams, singles[run][0], TP_TIE[wd, sd])
+            out["serve"][f"{wd}/{sd}/{dtype}"] = dict(
+                launches={k: v for k, v in snap.items() if v},
+                tokens_per_s=smry["tokens_per_s"],
+                one_device_tokens_per_s=one, steps=steps,
+                bytes_per_slot=(facts["spb"], facts["dspb"]),
+                collectives=facts["collectives"], decode_step_ms=step_ms)
+        out["collective_ms"] = tp_collective_ms(mesh, dev, cfg, "float32")
+        for shape, ms in out["collective_ms"].items():
+            log(f"  4m: one all_reduce_sum of {shape} on cuda over gloo, "
+                f"alone: median {ms['median_ms']:.3f} ms, mean "
+                f"{ms['mean_ms']:.3f} ms ({TP_COLLECTIVE_CALLS} calls)")
+        del full, singles, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  phase 4m: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["nccl_tp1"] = tp_nccl_one(dev)
+        tp_families(mesh, dev)
+        log(f"  phase 3m (tp=1 NCCL, qwen2-7b, xlstm-350m): "
+            f"{time.perf_counter() - t0:.1f} s")
+        if rank == 0:
+            t0 = time.perf_counter()
+            log("== phase 5m: kernels at their shard widths")
+            out["timing"] = tp_timing(dev)
+            log(f"  phase 5m: {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        FAILURES.append(f"rank {rank}: {traceback.format_exc()}")
+        print(f"rank {rank} raised:\n{traceback.format_exc()}", flush=True)
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(
+        {"failures": FAILURES, "out": out}, default=str))
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def phase_tp():
+    """Phases 2m-5m: two spawned ranks on the one card; their failures
+    become this process's.  Returns rank 0's results."""
+    import shutil
+    import torch.multiprocessing as mp
+    tmp = ROOT / "build" / "tp_ranks"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(r, TP, str(tmp)))
+             for r in range(TP)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + TP_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+            FAILURES.append(f"tp rank {r} still running after {TP_TIMEOUT} s")
+    results = []
+    for r in range(TP):
+        f = tmp / f"rank{r}.json"
+        if not f.exists():
+            FAILURES.append(f"tp rank {r} wrote no result (exit code "
+                            f"{procs[r].exitcode})")
+            results.append({})
+            continue
+        res = json.loads(f.read_text())
+        FAILURES.extend(f"tp rank {r}: {x}" for x in res["failures"])
+        results.append(res["out"])
+    return results[0]
+
+
 T_START = time.perf_counter()
 
 
@@ -4214,6 +4956,12 @@ def main() -> int:
 
     log("== phase 1: build")
     phase_build()
+    if "--tp-only" in sys.argv[1:]:
+        # the tensor-parallel phases alone, after the build (prints their
+        # results, not the run's result line)
+        tp = phase_tp()
+        log(json.dumps({"tp": tp}, default=str))
+        return 0 if phase_ok() else 1
     log("== phase 2: kernels vs plain versions on the card")
     errs = phase_kernels(cfg, dev)
     log("  K3 at one slot (the prefix cache's suffix chain)")
@@ -4275,10 +5023,11 @@ def main() -> int:
     check_units(dev, counts, errs)
     if not phase_ok():
         return 1
-    log(f"== phase 3x: xlstm-350m f32 (24 layers), prefill {XLSTM_PROMPT}, "
-        f"card vs CPU")
+    log(f"== phase 3x: xlstm-350m f32 ({XLSTM_MODEL_LAYERS} of 24 layers), "
+        f"prefill {XLSTM_PROMPT}, card vs CPU")
     from repro_torch.core import state_quant
-    phase_model("xlstm-350m", xlstm_cfg(), xlstm_params(dev),
+    phase_model("xlstm-350m", xlstm_cfg(n_layers=XLSTM_MODEL_LAYERS),
+                layer_view(xlstm_params(dev), XLSTM_MODEL_LAYERS),
                 XLSTM_MODEL_RUNS, dev, lambda c: {
                     "h": c["layers"][0]["mlstm"]["C"],
                     "h_scale": c["layers"][0]["mlstm"].get("C_scale"),
@@ -4393,14 +5142,17 @@ def main() -> int:
     if not phase_ok():
         return 1
     t0 = time.perf_counter()
-    log(f"== phase 3t: {QWEN_MOE} (full width, 2 of 24 layers) f32, card vs "
+    # one layer: the CPU's f32 expert GEMMs took 29 s at 2 layers; the
+    # logits' difference is the unembedding's, not the depth's (1.4e-5 at
+    # 1 layer, 1.6e-5 at 2), so TRANSFORMER_MODEL_RUNS' 2e-3 stands
+    log(f"== phase 3t: {QWEN_MOE} (full width, 1 of 24 layers) f32, card vs "
         f"CPU, expert capacity = expert count")
     mcfg = transformer_cfg(QWEN_MOE, n_layers=8)
     mparams = transformer_params(QWEN_MOE, 8, dev)
     phase_transformer_model(
-        f"{QWEN_MOE} (2 layers)", dataclasses.replace(
-            mcfg, n_layers=2, capacity_factor=float(mcfg.n_experts)),
-        layer_view(mparams, 2), TRANSFORMER_MODEL_RUNS[:1], dev)
+        f"{QWEN_MOE} (1 layer)", dataclasses.replace(
+            mcfg, n_layers=1, capacity_factor=float(mcfg.n_experts)),
+        layer_view(mparams, 1), TRANSFORMER_MODEL_RUNS[:1], dev)
     phase_seconds("3t moe", t0)
     if not phase_ok():
         return 1
@@ -4448,8 +5200,23 @@ def main() -> int:
         torch.cuda.empty_cache()
     if not phase_ok():
         return 1
+    # tensor-parallel serving last: its ranks share the card with nothing
+    # else left on it
+    t0 = time.perf_counter()
+    tp = phase_tp()
+    phase_seconds("2m-5m", t0)
+    if not phase_ok():
+        return 1
     log(f"total {time.perf_counter() - T_START:.1f} s")
     for entry in kernels:
+        # the tensor-parallel phases: the kernel's launches on rank 0 in 2m
+        # and in each 4m run, and its row at the shard widths (5m)
+        n = entry["name"]
+        entry["tp_launches"] = {"2m": tp["launches_2m"].get(n, 0), **{
+            f"4m {run}": s["launches"].get(n, 0)
+            for run, s in tp["serve"].items()}}
+        if n in tp["timing"]:
+            entry["tp_shard_row"] = tp["timing"][n]
         # the launches of the speculative serve runs (phases 4s, 4xs, 4js)
         # and of the prefix-cache runs (4p, 4xp, 4jp)
         entry["spec_launches"] = spec_counts.get(entry["name"], 0)

@@ -140,3 +140,55 @@ def quantize_mat(x, state_dtype: str, prev_scale=None):
 def dequantize_mat(q, scale):
     """Inverse of quantize_mat (up to rounding): (..., r, c) f32."""
     return q.float() * scale[..., None]
+
+
+# ---------------------------------------------------------------------------
+# A channel shard of an SSM state (tensor-parallel serving): the rank holds
+# channels [start, start + size) of d, and the group scales of all d (they
+# are replicated).  A group the shard cuts ("straddles") takes its absmax
+# over every rank's part of it: ``reduce_max`` is the collective that
+# takes the elementwise max of the (..., g) partial absmaxes over the
+# ranks.  Each rank's codes are then those of ``quantize_h`` on the whole
+# state, bit for bit: the max is exact and each value is divided by the
+# same scale.
+# ---------------------------------------------------------------------------
+
+def group_size(d: int) -> int:
+    """Channels a scale group of a d-channel state covers."""
+    return D_BLOCK if n_groups(d) > 1 else d
+
+
+def whole_groups(d: int, start: int, size: int):
+    """(g0, g1) when channels [start, start + size) are exactly groups
+    g0..g1-1 of d, else None (the shard straddles a group)."""
+    blk = group_size(d)
+    if start % blk or (size % blk and start + size != d):
+        return None
+    return start // blk, -(-(start + size) // blk)
+
+
+def _channel_groups(d, start, size, device):
+    return (torch.arange(start, start + size, device=device)
+            // group_size(d))
+
+
+def dequantize_h_shard(q, scale, d: int, start: int):
+    """``dequantize_h`` of a channel shard (..., size, n) with the full
+    (..., g) scales: the same multiply per value."""
+    gid = _channel_groups(d, start, q.shape[-2], q.device)
+    return q.float() * scale[..., gid][..., None]
+
+
+def quantize_h_shard(h, state_dtype: str, d: int, start: int, reduce_max,
+                     prev_scale=None):
+    """``quantize_h`` of a channel shard h (..., size, n) of a d-channel
+    state: (codes (..., size, n), full scales (..., g)), the group absmax
+    completed over the ranks by ``reduce_max``."""
+    hf = h.float()
+    gid = _channel_groups(d, start, hf.shape[-2], hf.device)
+    amax_ch = hf.abs().amax(dim=-1)                          # (..., size)
+    part = amax_ch.new_zeros(*amax_ch.shape[:-1], n_groups(d))
+    part.scatter_reduce_(-1, gid.expand_as(amax_ch), amax_ch, "amax")
+    amax = reduce_max(part)
+    scale = update_scale(amax, prev_scale, state_dtype)
+    return encode(hf / scale[..., gid][..., None], state_dtype), scale

@@ -12,6 +12,16 @@ are ``torch.matmul``, as ``repro`` leaves them to XLA.
 Initializers draw from a ``torch.Generator`` on its own device: a CPU
 generator gives the same weights on every device, a CUDA one draws a
 large tree where it is served (other numbers from the same seed).
+
+Under a tensor-parallel mesh (``parallel/sharding.py``) each rank holds
+its shard of the weights: column-parallel projections (q/k/v, the MLP's
+up projections) give the rank's slice of their outputs, row-parallel
+ones (``o_proj``, the MLP's down projection) sum their partial products
+over the ranks (``dense_row``); the embedding is vocab-parallel (a
+masked lookup of the rank's rows, summed), the unembedding gives the
+rank's vocab columns, gathered into full logits; attention runs on the
+rank's query and KV heads, and its KV cache holds those heads.  With no
+mesh every one of these is the single-device computation.
 """
 from __future__ import annotations
 
@@ -20,12 +30,24 @@ import torch.nn.functional as F
 
 from repro_torch.core import approx
 from repro_torch.kernels import ops
+from repro_torch.parallel import sharding
 
 
 def dense_init(gen, d_in, d_out, scale=None):
     scale = scale if scale is not None else d_in ** -0.5
     return {"w": torch.randn(d_in, d_out, generator=gen, device=gen.device)
             * scale}
+
+
+def dense_axes(d_in_name, d_out_name, bias=False, parts=1):
+    """Logical axes of a ``dense_init`` tree (``repro``'s ``dense_init``
+    axes; ``registry.param_axes`` adds the int8 scale leaves).  A fused
+    projection whose output is ``parts`` equal pieces marks its leaves
+    ``sharding.Fused``, so a mesh cuts each piece."""
+    p = {"w": sharding.fused((d_in_name, d_out_name), parts)}
+    if bias:
+        p["b"] = sharding.fused((d_out_name,), parts)
+    return p
 
 
 def dense(p, x, compute_dtype=None):
@@ -45,6 +67,15 @@ def dense(p, x, compute_dtype=None):
     return y
 
 
+def dense_row(p, x, compute_dtype, full_in: int, logical: str):
+    """``dense`` of a row-parallel projection whose input dim (``full_in``
+    wide, named ``logical``) may be split over the mesh: the partial
+    products summed over the ranks, then the bias once."""
+    y = dense({k: v for k, v in p.items() if k != "b"}, x, compute_dtype)
+    y = sharding.sum_partials(y, full_in, logical)
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
 def norm_init(cfg):
     d = cfg.d_model
     if cfg.norm == "rmsnorm":
@@ -54,6 +85,10 @@ def norm_init(cfg):
     if cfg.norm == "ln_nonparam":
         return {}
     raise ValueError(cfg.norm)
+
+
+def norm_axes(cfg):
+    return {k: ("embed",) for k in norm_init(cfg)}
 
 
 def apply_norm(cfg, p, x, eps=1e-5):
@@ -70,15 +105,19 @@ def apply_norm(cfg, p, x, eps=1e-5):
     return xf.to(x.dtype)
 
 
-def group_norm(x, scale, n_groups, eps=1e-5):
+def group_norm(x, scale, n_groups, eps=1e-5, cols=None):
     """x (..., d) normalized per group of d / n_groups channels (the xLSTM
     head norm, ``repro`` blocks.py:87): mean and biased variance in f32,
-    then the scale, cast back to x's dtype."""
+    then the scale, cast back to x's dtype.  ``cols`` = (start, size)
+    keeps those channels of the normed x before the scale (a rank's
+    shard, ``scale`` its slice)."""
     shp = x.shape
     xf = x.float().reshape(*shp[:-1], n_groups, -1)
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
     xf = ((xf - mu) * torch.rsqrt(var + eps)).reshape(shp)
+    if cols is not None:
+        xf = xf.narrow(-1, *cols)
     return (xf * scale).to(x.dtype)
 
 
@@ -116,6 +155,13 @@ def attention_init(cfg, gen):
             "wk": proj(d, hkv * dh, cfg.qkv_bias),
             "wv": proj(d, hkv * dh, cfg.qkv_bias),
             "wo": proj(hq * dh, d, False)}
+
+
+def attention_axes(cfg):
+    return {"wq": dense_axes("embed", "heads", cfg.qkv_bias),
+            "wk": dense_axes("embed", "kv", cfg.qkv_bias),
+            "wv": dense_axes("embed", "kv", cfg.qkv_bias),
+            "wo": dense_axes("heads", "embed")}
 
 
 def _grouped_scores(q, k, scale):
@@ -170,12 +216,16 @@ def decode_attention(q, k_cache, v_cache, pos):
     return o.reshape(b, 1, hq, dh).to(q.dtype)
 
 
-def _kv_quant(t):
+def _kv_quant(t, full=None):
     """(b, l, hkv*dh) -> int8 payload + per-(b, l) f32 absmax scale
     (``repro`` blocks.py:199).  ``torch.round`` rounds half to even, as
-    ``jnp.round`` does."""
+    ``jnp.round`` does.  ``full``: the KV width when ``t`` holds the
+    rank's heads of it, whose absmax is then taken over the ranks."""
     tf = t.float()
-    scale = torch.clamp(tf.abs().amax(-1, keepdim=True), min=1e-6) / 127.0
+    amax = tf.abs().amax(-1, keepdim=True)
+    if full is not None:
+        amax = sharding.max_over(full, "kv")(amax)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
     q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -194,7 +244,9 @@ def attention_apply(cfg, p, x, positions, cache=None, pos=None,
     the card).  ``return_kv`` also returns the rotated flat k/v of the
     sequence (the prefill cache fill)."""
     b, l, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq, hkv = local_heads(cfg, p)
+    dh = cfg.head_dim
+    kv_full = cfg.n_kv_heads * dh
     cdt = x.dtype
     q = dense(p["wq"], x, cdt).reshape(b, l, hq, dh)
     k = dense(p["wk"], x, cdt).reshape(b, l, hkv, dh)
@@ -207,8 +259,8 @@ def attention_apply(cfg, p, x, positions, cache=None, pos=None,
         onehot = (torch.arange(S, device=x.device)[None, :]
                   == pos[:, None])[..., None]                  # (b, S, 1)
         if cfg.kv_cache_dtype == "int8":
-            kq, ks = _kv_quant(k.reshape(b, l, hkv * dh))
-            vq, vs = _kv_quant(v.reshape(b, l, hkv * dh))
+            kq, ks = _kv_quant(k.reshape(b, l, hkv * dh), kv_full)
+            vq, vs = _kv_quant(v.reshape(b, l, hkv * dh), kv_full)
             new_cache = {"k": torch.where(onehot, kq, cache["k"]),
                          "v": torch.where(onehot, vq, cache["v"]),
                          "k_scale": torch.where(onehot, ks,
@@ -232,7 +284,27 @@ def attention_apply(cfg, p, x, positions, cache=None, pos=None,
         if return_kv:
             new_cache = {"k": k.reshape(b, l, hkv * dh),
                          "v": v.reshape(b, l, hkv * dh)}
-    return dense(p["wo"], o.reshape(b, l, hq * dh), cdt), new_cache
+    return (dense_row(p["wo"], o.reshape(b, l, hq * dh), cdt,
+                      cfg.n_heads * dh, "heads"), new_cache)
+
+
+def local_heads(cfg, p):
+    """(query heads, KV heads) of an attention layer's param shard: all of
+    them off a mesh, the rank's where the mesh splits them.  A split must
+    fall between heads and keep each query group with its KV head."""
+    dh = cfg.head_dim
+    wq, wk = p["wq"]["w"].shape[-1], p["wk"]["w"].shape[-1]
+    if wq % dh or wk % dh:
+        raise ValueError(
+            f"the mesh splits attention inside a head (local q/kv widths "
+            f"{wq}/{wk}, head_dim {dh})")
+    hq, hkv = wq // dh, wk // dh
+    if hq * cfg.n_kv_heads != hkv * cfg.n_heads:
+        raise ValueError(
+            f"the mesh splits the {cfg.n_heads} query and {cfg.n_kv_heads} "
+            f"KV heads unevenly ({hq}/{hkv} a rank): a query group must "
+            f"stay with its KV head")
+    return hq, hkv
 
 
 # ---------------------------------------------------------------------------
@@ -248,16 +320,24 @@ def mlp_init(cfg, gen, d_ff=None, d_in=None):
     return {"w1": dense_init(gen, d, f), "w2": dense_init(gen, f, d)}
 
 
-def mlp_apply(cfg, p, x):
+def mlp_axes(cfg):
+    names = ("w1", "w3", "w2") if cfg.mlp == "swiglu" else ("w1", "w2")
+    return {k: (dense_axes("ffn", "embed") if k == "w2"
+                else dense_axes("embed", "ffn")) for k in names}
+
+
+def mlp_apply(cfg, p, x, d_ff=None):
     """``repro`` blocks.py:284: swiglu ``w2(silu(w1 x) * w3 x)`` with the
-    MARCA SiLU of cfg.silu_impl, or ``w2(gelu(w1 x))``."""
+    MARCA SiLU of cfg.silu_impl, or ``w2(gelu(w1 x))``.  ``d_ff`` (the
+    hidden width, cfg.d_ff when None) tells ``w2`` whether the mesh
+    splits its contraction."""
     cdt = x.dtype
     if cfg.mlp == "swiglu":
         h = approx.get_silu(cfg.silu_impl)(dense(p["w1"], x, cdt))
         h = h * dense(p["w3"], x, cdt)
     else:
         h = F.gelu(dense(p["w1"], x, cdt), approximate="tanh")
-    return dense(p["w2"], h, cdt)
+    return dense_row(p["w2"], h, cdt, d_ff or cfg.d_ff, "ffn")
 
 
 # ---------------------------------------------------------------------------
@@ -269,9 +349,22 @@ def embed_init(cfg, gen):
                                device=gen.device) * 0.02}
 
 
+def embed_axes(cfg):
+    return {"tok": ("vocab", "embed")}
+
+
 def embed_apply(cfg, p, tokens, dtype):
     # index then cast: the same values as repro's cast-then-index
-    return p["tok"][tokens].to(dtype)
+    start, n = sharding.local_range(cfg.vocab, "vocab")
+    if n == cfg.vocab:
+        return p["tok"][tokens].to(dtype)
+    # vocab-parallel: the rank's rows, zeros for the others' tokens, summed
+    # over the ranks (one nonzero term each: exact)
+    local = tokens.long() - start
+    inside = (local >= 0) & (local < n)
+    rows = p["tok"][local.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return sharding.sum_partials(rows, cfg.vocab, "vocab").to(dtype)
 
 
 def unembed_init(cfg, gen):
@@ -281,7 +374,12 @@ def unembed_init(cfg, gen):
                              device=gen.device) * cfg.d_model ** -0.5}
 
 
+def unembed_axes(cfg):
+    return {} if cfg.tie_embeddings else {"w": ("embed", "vocab")}
+
+
 def unembed_apply(cfg, p, embed_p, x):
     w = embed_p["tok"].T if cfg.tie_embeddings else p["w"]
     ldt = getattr(torch, cfg.logits_dtype)
-    return torch.matmul(x.to(ldt), w.to(ldt))
+    return sharding.gather_cols(torch.matmul(x.to(ldt), w.to(ldt)),
+                                cfg.vocab, "vocab")

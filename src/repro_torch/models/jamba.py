@@ -72,6 +72,49 @@ def _sublayer_init(cfg, gen, pos):
     return p
 
 
+def _sublayer_axes(cfg, pos):
+    is_attn, is_moe = _pos_kind(cfg, pos)
+    p = {"norm1": blocks.norm_axes(cfg), "norm2": blocks.norm_axes(cfg)}
+    if is_attn:
+        p["attn"] = blocks.attention_axes(cfg)
+    else:
+        p["mamba"] = mamba.mamba_block_axes(cfg)
+    if is_moe:
+        p["moe"] = moe.moe_axes(cfg)
+    else:
+        p["mlp"] = blocks.mlp_axes(cfg)
+    return p
+
+
+def param_axes(cfg):
+    """Logical axes of ``init``'s tree (``repro`` jamba.py, per group
+    without the stacked group axis)."""
+    return {"embed": blocks.embed_axes(cfg),
+            "groups": [{f"pos{i}": _sublayer_axes(cfg, i)
+                        for i in range(_period(cfg))}
+                       for _ in range(_n_groups(cfg))],
+            "norm_f": blocks.norm_axes(cfg),
+            "unembed": blocks.unembed_axes(cfg)}
+
+
+def cache_axes(cfg):
+    """Logical axes of ``init_cache``'s leaves: the group axis is
+    ``repro``'s "layers"."""
+    layers = {}
+    for i in range(_period(cfg)):
+        if _pos_kind(cfg, i)[0]:
+            kv = ("layers", "act_batch", "act_seq", "act_ffn")
+            leaf = {"k": kv, "v": kv}
+            if cfg.kv_cache_dtype == "int8":
+                sc = ("layers", "act_batch", "act_seq", None)
+                leaf.update({"k_scale": sc, "v_scale": sc})
+        else:
+            leaf = {k: ("layers",) + a
+                    for k, a in mamba.mamba_state_axes(cfg).items()}
+        layers[f"pos{i}"] = leaf
+    return {"layers": layers, "pos": ("act_batch",)}
+
+
 def _zero_aux(device):
     return {"moe_lb": torch.zeros((), device=device),
             "moe_z": torch.zeros((), device=device)}
@@ -241,8 +284,9 @@ def prefill(cfg, p, cache, batch):
                     return torch.nn.functional.pad(t, (0, 0, 0, S - l))
 
                 if cfg.kv_cache_dtype == "int8":
-                    kq, ks = blocks._kv_quant(kv["k"])
-                    vq, vs = blocks._kv_quant(kv["v"])
+                    kv_full = cfg.n_kv_heads * cfg.head_dim
+                    kq, ks = blocks._kv_quant(kv["k"], kv_full)
+                    vq, vs = blocks._kv_quant(kv["v"], kv_full)
                     st = {"k": pad(kq), "v": pad(vq), "k_scale": pad(ks),
                           "v_scale": pad(vs)}
                 else:

@@ -28,6 +28,7 @@ from repro_torch.core import approx, selective_scan, state_quant
 from repro_torch.core import weight_quant
 from repro_torch.kernels import ops, ref
 from repro_torch.models import blocks
+from repro_torch.parallel import sharding
 
 
 def mamba_block_init(cfg, gen):
@@ -53,6 +54,43 @@ def mamba_block_init(cfg, gen):
     }
 
 
+def mamba_block_axes(cfg):
+    """Logical axes of ``mamba_block_init``'s tree (``repro``
+    mamba.py:64-80, without the stacked "layers" axis)."""
+    return {"in_proj": blocks.dense_axes("embed", "ffn", parts=2),
+            "conv_w": ("conv", "ffn"), "conv_b": ("ffn",),
+            "x_proj": blocks.dense_axes("ffn", None),
+            "dt_proj": blocks.dense_axes(None, "ffn"),
+            "dt_bias": ("ffn",), "A_log": ("ffn", "state"), "D": ("ffn",),
+            "out_proj": blocks.dense_axes("ffn", "embed")}
+
+
+def mamba_state_axes(cfg):
+    """Logical axes of ``mamba_state_init``'s leaves (``repro``
+    mamba.py:280-293)."""
+    out = {"h": ("act_batch", "act_ffn", None),
+           "conv": ("act_batch", None, "act_ffn")}
+    if state_quant.is_quantized(cfg.state_dtype):
+        out["h_scale"] = ("act_batch", None)
+    return out
+
+
+# Tensor-parallel serving: in_proj, conv, dt_proj, A, D and the state are
+# local over the rank's d_inner channels (in_proj cut piecewise, so its
+# output still chunks into x and z); x_proj and out_proj contract over
+# d_inner and sum their partial products over the ranks.  An int8/fp8
+# state's group scales are replicated: where the rank's channels are
+# whole groups the quantized step kernel runs on them and the ranks'
+# new scales are gathered; where a group straddles ranks the step runs
+# on the dequantized state and the requantization completes each group's
+# absmax over the ranks (``state_quant.quantize_h_shard``).  The choice
+# is made from the shapes alone.
+
+def _channels(cfg):
+    """(start, size) of this rank's d_inner channels."""
+    return sharding.local_range(cfg.d_inner, "ffn")
+
+
 def _project(cfg, p, x):
     """in_proj -> (x_in, z), two views of one (b, l, 2*di) output."""
     xz = blocks.dense(p["in_proj"], x, x.dtype)
@@ -63,7 +101,8 @@ def _ssm_inputs(cfg, p, x_a):
     """x_a (b, l, di) -> dt (b, l, di), B (b, l, n), C (b, l, n)."""
     n, r = cfg.d_state, cfg.dt_rank
     cdt = x_a.dtype
-    dbc = blocks.dense(p["x_proj"], x_a, cdt)
+    dbc = sharding.sum_partials(blocks.dense(p["x_proj"], x_a, cdt),
+                                cfg.d_inner, "ffn")
     dt_low, B, C = dbc.split([r, n, n], dim=-1)
     dt = blocks.dense(p["dt_proj"], dt_low, cdt)
     dt = F.softplus(dt.float() + p["dt_bias"]).to(cdt)
@@ -79,11 +118,20 @@ def _a_and_scale(p):
     return -torch.exp(p["A_log"]), None
 
 
+def _out_proj(cfg, p, y, dtype):
+    return sharding.sum_partials(blocks.dense(p["out_proj"], y, dtype),
+                                 cfg.d_inner, "ffn")
+
+
 def read_state_h(cfg, state):
     """The stored state as the f32 the scan and step take: a cast for an
     f32/bf16 pool, a dequantization with the group scales
     (``state["h_scale"]``) for an int8/fp8 one."""
     if state_quant.is_quantized(cfg.state_dtype):
+        start, size = _channels(cfg)
+        if size != cfg.d_inner:
+            return state_quant.dequantize_h_shard(
+                state["h"], state["h_scale"], cfg.d_inner, start)
         return state_quant.dequantize_h(state["h"], state["h_scale"])
     return state["h"].float()
 
@@ -94,10 +142,45 @@ def write_state_h(cfg, h, prev_state=None):
     update; None is a cold start (prefill)."""
     if state_quant.is_quantized(cfg.state_dtype):
         prev = None if prev_state is None else prev_state["h_scale"]
-        q, scale = state_quant.quantize_h(h, cfg.state_dtype,
-                                          prev_scale=prev)
+        start, size = _channels(cfg)
+        if size != cfg.d_inner:
+            q, scale = state_quant.quantize_h_shard(
+                h, cfg.state_dtype, cfg.d_inner, start,
+                sharding.max_over(cfg.d_inner, "ffn"), prev_scale=prev)
+        else:
+            q, scale = state_quant.quantize_h(h, cfg.state_dtype,
+                                              prev_scale=prev)
         return {"h": q, "h_scale": scale}
     return {"h": h.to(ops.storage_dtype(cfg.state_dtype))}
+
+
+def _step_q(cfg, hq, h_scale, x_t, dt_t, A, B_t, C_t, D, z_t, impl,
+            a_scale):
+    """One quantized-state step of the rank's channels: K2 where they are
+    whole scale groups (all of them off a mesh), else K1 on the
+    dequantized state and a requantization whose group absmax is taken
+    over the ranks.  Returns (y, codes, the full group scales)."""
+    kw = dict(D=D, z_t=z_t, impl=impl, exp_impl=cfg.exp_impl,
+              silu_impl=cfg.silu_impl, a_scale=a_scale)
+    d = cfg.d_inner
+    start, size = _channels(cfg)
+    groups = state_quant.whole_groups(d, start, size)
+    if groups is not None:
+        g0, g1 = groups
+        y, hq, scale = ops.selective_state_step_q(
+            hq, h_scale[..., g0:g1].contiguous(), x_t, dt_t, A, B_t, C_t,
+            state_dtype=cfg.state_dtype, **kw)
+        if size != d:
+            scale = sharding.gather_cols(scale, state_quant.n_groups(d),
+                                         "ffn")
+        return y, hq, scale
+    sharding.COUNTS["straddled_step"] += 1
+    h = state_quant.dequantize_h_shard(hq, h_scale, d, start)
+    y, h = ops.selective_state_step(h, x_t, dt_t, A, B_t, C_t, **kw)
+    hq, scale = state_quant.quantize_h_shard(
+        h, cfg.state_dtype, d, start, sharding.max_over(d, "ffn"),
+        prev_scale=h_scale)
+    return y, hq, scale
 
 
 def mamba_block_apply(cfg, p, x, state=None):
@@ -120,7 +203,7 @@ def mamba_block_apply(cfg, p, x, state=None):
                                    impl=cfg.scan_impl, chunk=cfg.scan_chunk,
                                    exp_impl=cfg.exp_impl,
                                    silu_impl=cfg.silu_impl)
-    out = blocks.dense(p["out_proj"], y, x.dtype)
+    out = _out_proj(cfg, p, y, x.dtype)
     return out, {**write_state_h(cfg, h_last, prev_state=state),
                  "conv": new_conv}
 
@@ -138,20 +221,19 @@ def mamba_block_step(cfg, p, x_t, state):
     dt, B, C = _ssm_inputs(cfg, p, x_a)
     A, a_scale = _a_and_scale(p)
     if state_quant.is_quantized(cfg.state_dtype):
-        # dequant on read and requant on write stay inside the kernel:
-        # the pooled h never reaches device memory at f32
-        y, hq, scale = ops.selective_state_step_q(
-            state["h"], state["h_scale"], x_a[:, 0], dt[:, 0], A, B[:, 0],
-            C[:, 0], D=p["D"], z_t=z[:, 0], state_dtype=cfg.state_dtype,
-            impl=cfg.step_impl, exp_impl=cfg.exp_impl,
-            silu_impl=cfg.silu_impl, a_scale=a_scale)
-        out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
+        # dequant on read and requant on write stay inside the kernel
+        # (where the rank's channels are whole scale groups): the pooled
+        # h never reaches device memory at f32
+        y, hq, scale = _step_q(cfg, state["h"], state["h_scale"], x_a[:, 0],
+                               dt[:, 0], A, B[:, 0], C[:, 0], p["D"],
+                               z[:, 0], cfg.step_impl, a_scale)
+        out = _out_proj(cfg, p, y[:, None, :], x_t.dtype)
         return out, {"h": hq, "h_scale": scale, "conv": new_conv}
     y, h = ops.selective_state_step(
         read_state_h(cfg, state), x_a[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
         D=p["D"], z_t=z[:, 0], impl=cfg.step_impl, exp_impl=cfg.exp_impl,
         silu_impl=cfg.silu_impl, a_scale=a_scale)
-    out = blocks.dense(p["out_proj"], y[:, None, :], x_t.dtype)
+    out = _out_proj(cfg, p, y[:, None, :], x_t.dtype)
     return out, {**write_state_h(cfg, h), "conv": new_conv}
 
 
@@ -218,17 +300,26 @@ def mamba_block_verify(cfg, p, x, state):
     dt, B, C = _ssm_inputs(cfg, p, x_a)
     A, a_scale = _a_and_scale(p)
     impl = ops.resolve_cell_impl(cfg.step_impl, x.device)
-    common = dict(D=p["D"], z_seq=z, impl=impl, exp_impl=cfg.exp_impl,
-                  silu_impl=cfg.silu_impl, a_scale=a_scale)
     if state_quant.is_quantized(cfg.state_dtype):
-        y, hq_all, scale_all = selective_scan.decode_scan_q(
-            state["h"], state["h_scale"], x_a, dt, A, B, C,
-            state_dtype=cfg.state_dtype, **common)
-        out = blocks.dense(p["out_proj"], y, x.dtype)
-        return out, {"h": hq_all, "h_scale": scale_all, "conv": conv_all}
-    y, h_all = selective_scan.decode_scan(read_state_h(cfg, state), x_a, dt,
-                                          A, B, C, **common)
-    out = blocks.dense(p["out_proj"], y, x.dtype)
+        # the quantized micro-scan (``selective_scan.decode_scan_q``) run
+        # through the rank's step, so a channel shard keeps its group
+        # scales whole
+        hq, scale, ys, qs, ss = state["h"], state["h_scale"], [], [], []
+        for t in range(x_a.shape[1]):
+            y, hq, scale = _step_q(cfg, hq, scale, x_a[:, t], dt[:, t], A,
+                                   B[:, t], C[:, t], p["D"], z[:, t], impl,
+                                   a_scale)
+            ys.append(y)
+            qs.append(hq)
+            ss.append(scale)
+        out = _out_proj(cfg, p, torch.stack(ys, 1), x.dtype)
+        return out, {"h": torch.stack(qs, 1), "h_scale": torch.stack(ss, 1),
+                     "conv": conv_all}
+    y, h_all = selective_scan.decode_scan(
+        read_state_h(cfg, state), x_a, dt, A, B, C, D=p["D"], z_seq=z,
+        impl=impl, exp_impl=cfg.exp_impl, silu_impl=cfg.silu_impl,
+        a_scale=a_scale)
+    out = _out_proj(cfg, p, y, x.dtype)
     return out, {"h": h_all.to(ops.storage_dtype(cfg.state_dtype)),
                  "conv": conv_all}
 

@@ -38,6 +38,25 @@ def init(cfg, gen):
             "unembed": blocks.unembed_init(cfg, gen)}
 
 
+def param_axes(cfg):
+    """Logical axes of ``init``'s tree (``repro`` mamba_lm.py, per layer
+    without the stacked "layers" axis)."""
+    return {"embed": blocks.embed_axes(cfg),
+            "layers": [{"norm": blocks.norm_axes(cfg),
+                        "mixer": mamba.mamba_block_axes(cfg)}
+                       for _ in range(cfg.n_layers)],
+            "norm_f": blocks.norm_axes(cfg),
+            "unembed": blocks.unembed_axes(cfg)}
+
+
+def cache_axes(cfg):
+    """Logical axes of ``init_cache``'s leaves (``repro``'s, stacked)."""
+    out = {k: ("layers",) + a
+           for k, a in mamba.mamba_state_axes(cfg).items()}
+    out["pos"] = ("act_batch",)
+    return out
+
+
 def _layer_apply(cfg, lp, x, state=None, step=False):
     xn = blocks.apply_norm(cfg, lp["norm"], x)
     if step:

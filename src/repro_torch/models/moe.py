@@ -11,8 +11,16 @@ as ``repro`` leaves them to XLA, with the expert weights cast to the
 compute dtype per call as there.
 
 ``moe_impl="ep"`` (the shard_map all-to-all dispatch) waits for the
-port of parallel serving (ROADMAP A13) and raises; "auto" finds no mesh
-here and takes the dense dispatch, as ``repro`` does without one.
+port of expert-parallel training (ROADMAP A13b) and raises; "auto" takes
+the dense dispatch, as ``repro`` does without a mesh and as its serving
+engine forces under one.
+
+Under a tensor-parallel mesh the experts are split over "expert" (the
+rank holds experts [e0, e0 + E_local)), while the router is replicated:
+every rank routes every token with the global capacity, so the routing
+is the single-device routing token for token.  Each rank fills and runs
+only its experts' buckets, combines their outputs, and the ranks sum
+the partial combines; the shared experts are a row-parallel MLP.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 
 from repro_torch.core import approx
 from repro_torch.models import blocks
+from repro_torch.parallel import sharding
 
 
 def _e_padded(cfg):
@@ -39,6 +48,16 @@ def moe_init(cfg, gen, d_ff=None):
     if cfg.n_shared_experts:
         p["shared"] = blocks.mlp_init(cfg, gen,
                                       d_ff=cfg.n_shared_experts * f)
+    return p
+
+
+def moe_axes(cfg):
+    """Logical axes of ``moe_init``'s tree (``repro`` moe.py:26-44)."""
+    p = {"router": blocks.dense_axes("embed", None),
+         "w1": ("expert", "embed", None), "w3": ("expert", "embed", None),
+         "w2": ("expert", None, "embed")}
+    if cfg.n_shared_experts:
+        p["shared"] = blocks.mlp_axes(cfg)
     return p
 
 
@@ -89,23 +108,30 @@ def moe_apply(cfg, p, x):
     onehot = (e_flat[:, None] == experts).long()             # (T*k, E)
     pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, e_flat[:, None])[:, 0]
     keep = pos < cap
+    # the rank's experts (all of them off a mesh): assignments to the
+    # others' experts are dropped here and summed in from their ranks
+    e0, E_loc = sharding.local_range(E, "expert")
+    if E_loc != E:
+        keep = keep & (e_flat >= e0) & (e_flat < e0 + E_loc)
+        e_flat = e_flat - e0
     slot = torch.where(keep, e_flat * cap + pos, torch.zeros_like(pos))
     xrep = xf.repeat_interleave(k, dim=0)                     # (T*k, d)
-    buckets = torch.zeros(E * cap, d, dtype=x.dtype, device=x.device)
+    buckets = torch.zeros(E_loc * cap, d, dtype=x.dtype, device=x.device)
     buckets.index_add_(0, slot, torch.where(keep[:, None], xrep,
                                             torch.zeros_like(xrep)))
-    buckets = buckets.reshape(E, cap, d)
+    buckets = buckets.reshape(E_loc, cap, d)
 
     # the experts: a batched swiglu
     cdt = x.dtype
     h = silu(torch.bmm(buckets, p["w1"].to(cdt)))
     h = h * torch.bmm(buckets, p["w3"].to(cdt))
-    y_flat = torch.bmm(h, p["w2"].to(cdt)).reshape(E * cap, d)
+    y_flat = torch.bmm(h, p["w2"].to(cdt)).reshape(E_loc * cap, d)
 
     # combine: gather back, weight by the gate, sum over the k choices
     gflat = (gate.reshape(-1) * keep).to(cdt)
     y = (y_flat[slot] * gflat[:, None]).reshape(T, k, d).sum(1)
-    y = y.reshape(b, s, d)
+    y = sharding.sum_partials(y, E, "expert").reshape(b, s, d)
     if cfg.n_shared_experts:
-        y = y + blocks.mlp_apply(cfg, p["shared"], x)
+        y = y + blocks.mlp_apply(cfg, p["shared"], x,
+                                 d_ff=cfg.n_shared_experts * cfg.d_ff)
     return y, aux

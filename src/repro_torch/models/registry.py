@@ -8,6 +8,11 @@ the zoo: mamba, jamba, xlstm and transformer.
       its layers (built once per engine)
   forward / prefill / decode_step(cfg, params, ...) -> (logits, ...)
   init_cache(cfg, batch, max_seq, dtype, device) -> decode cache
+  param_axes / cache_axes(cfg) -> the logical axes of every param and
+      cache leaf (``repro``'s ``abstract_params`` / ``cache_axes`` axes,
+      int8 weights' code and scale leaves included; a fused projection's
+      leaves are ``sharding.Fused``), for ``parallel/sharding.py``;
+      abstract_cache -> init_cache's shapes on the meta device
   gather_slots / scatter_slots / mask_slots -> the serving engine's
       slot contract over cache_slot_axes (nested cache trees: jamba's
       {"layers": {"pos{i}": {...}}, "pos"}, xLSTM's {"layers": [{"mlstm":
@@ -32,6 +37,7 @@ import torch
 from repro_torch.core import weight_quant
 from repro_torch.kernels import ops
 from repro_torch.models import jamba, mamba_lm, transformer, xlstm
+from repro_torch.parallel import sharding
 
 _FAMILIES = {"transformer": transformer, "mamba": mamba_lm, "jamba": jamba,
              "xlstm": xlstm}
@@ -115,13 +121,25 @@ def stack_params(cfg, params):
     return family(cfg).stack_params(cfg, params)
 
 
-def uses_megakernel(cfg, device) -> bool:
+def uses_megakernel(cfg, device, mesh=None) -> bool:
     """Whether a decode step of ``cfg`` on ``device`` runs the cross-layer
     kernel K3 (and so needs ``stack_params``).  ``"auto"`` gives K3 on the
     card only for a family that has an instance of it, and the per-layer
     step otherwise (a transformer, whose ``repro`` decode step is per
     layer); an explicit ``"megakernel"`` for a family without one raises,
-    as ``repro``'s ``stacked_step`` does."""
+    as ``repro``'s ``stacked_step`` does.  Under a tensor-parallel
+    ``mesh`` a decode step is per layer ("auto"; the engine serves such a
+    config as "fused"): K3 runs whole layers in one launch, with no
+    point between their row-parallel contractions where the ranks could
+    sum, and an explicit "megakernel" raises."""
+    if mesh is not None:
+        if cfg.step_impl == "megakernel":
+            raise ValueError(
+                f"step_impl='megakernel' is unsupported under a mesh "
+                f"({mesh}): the cross-layer kernel has no point between "
+                f"a layer's row-parallel contractions for the ranks' sums "
+                f"(ROADMAP A16); use 'auto' or 'fused'")
+        return False
     if ops.resolve_step_impl(cfg.step_impl, device) != "megakernel":
         return False
     if hasattr(family(cfg), "stacked_step"):
@@ -135,6 +153,66 @@ def uses_megakernel(cfg, device) -> bool:
 def init_cache(cfg, batch, max_seq, dtype=None, device="cpu"):
     dtype = dtype or getattr(torch, cfg.dtype)
     return family(cfg).init_cache(cfg, batch, max_seq, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes (tensor-parallel serving, ``parallel/sharding.py``)
+# ---------------------------------------------------------------------------
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def _quantized_axes(node):
+    """The axes of ``weight_quant.quantize_tree``'s output: a dense
+    ``w`` gains ``w_scale`` on its output dim, ``A_log`` becomes ``A_q``
+    (the same axes) and ``A_scale`` (its rows'), the subtrees under
+    ``weight_quant.SKIP_KEYS`` stay as they are."""
+    if isinstance(node, dict):
+        if ("w" in node and set(node) <= {"w", "b"} and _is_axes(node["w"])
+                and len(node["w"]) >= 2):
+            w = node["w"]
+            out = {"w": w, "w_scale": sharding.fused(
+                w[:-2] + w[-1:], sharding.parts_of(w))}
+            if "b" in node:
+                out["b"] = node["b"]
+            return out
+        out = {}
+        for k, v in node.items():
+            if k in weight_quant.SKIP_KEYS:
+                out[k] = v
+            elif k == "A_log":
+                out["A_q"], out["A_scale"] = v, v[:-1]
+            else:
+                out[k] = _quantized_axes(v)
+        return out
+    if isinstance(node, list):
+        return [_quantized_axes(v) for v in node]
+    return node
+
+
+def param_axes(cfg):
+    """A tree congruent with ``init_params(cfg)`` (f32 or int8 per
+    cfg.weight_dtype) whose leaves are the logical axes of each param
+    leaf: ``repro``'s ``abstract_params`` axes without its stacked
+    "layers" axis (the port keeps layers in a list)."""
+    axes = family(cfg).param_axes(cfg)
+    if weight_quant.is_quantized(cfg.weight_dtype):
+        axes = _quantized_axes(axes)
+    return axes
+
+
+def cache_axes(cfg):
+    """A tree congruent with ``init_cache(cfg, ...)`` whose leaves are the
+    logical axes of each cache leaf, as ``repro``'s ``cache_axes``."""
+    return family(cfg).cache_axes(cfg)
+
+
+def abstract_cache(cfg, batch, max_seq, dtype=None):
+    """``init_cache``'s tree on the meta device: shapes and dtypes, no
+    memory (``repro``'s ``abstract_cache``)."""
+    return init_cache(cfg, batch, max_seq, dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------

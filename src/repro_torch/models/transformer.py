@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import blocks, moe
+from repro_torch.parallel import sharding
 
 
 def _layer_init(cfg, gen):
@@ -41,6 +42,43 @@ def _layer_init(cfg, gen):
     else:
         p["mlp"] = blocks.mlp_init(cfg, gen)
     return p
+
+
+def _layer_axes(cfg):
+    p = {"norm1": blocks.norm_axes(cfg), "attn": blocks.attention_axes(cfg),
+         "norm2": blocks.norm_axes(cfg)}
+    if cfg.is_moe:
+        p["moe"] = moe.moe_axes(cfg)
+        if cfg.dense_residual:
+            p["mlp"] = blocks.mlp_axes(cfg)
+    else:
+        p["mlp"] = blocks.mlp_axes(cfg)
+    return p
+
+
+def param_axes(cfg):
+    """Logical axes of ``init``'s tree (``repro`` transformer.py:54-75,
+    per layer without the stacked "layers" axis)."""
+    p = {"embed": blocks.embed_axes(cfg), "norm_f": blocks.norm_axes(cfg)}
+    if cfg.n_codebooks > 1:
+        p["heads"] = {f"cb{i}": blocks.dense_axes("embed", "vocab")
+                      for i in range(cfg.n_codebooks)}
+    else:
+        p["unembed"] = blocks.unembed_axes(cfg)
+    p["layers"] = [_layer_axes(cfg) for _ in range(cfg.n_layers)]
+    return p
+
+
+def cache_axes(cfg):
+    """Logical axes of ``init_cache``'s leaves (``repro``
+    transformer.py:139-151)."""
+    kv = ("layers", "act_batch", "act_seq", "act_ffn")
+    out = {"k": kv, "v": kv}
+    if cfg.kv_cache_dtype == "int8":
+        sc = ("layers", "act_batch", "act_seq", None)
+        out.update({"k_scale": sc, "v_scale": sc})
+    out["pos"] = ("act_batch",)
+    return out
 
 
 def _zero_aux(device):
@@ -108,8 +146,9 @@ def _logits(cfg, p, h):
     (f32 inputs, as ``repro``)."""
     h = blocks.apply_norm(cfg, p["norm_f"], h)
     if cfg.n_codebooks > 1:
-        return torch.stack([blocks.dense(p["heads"][f"cb{i}"], h.float())
-                            for i in range(cfg.n_codebooks)], dim=2)
+        return torch.stack([sharding.gather_cols(
+            blocks.dense(p["heads"][f"cb{i}"], h.float()), cfg.vocab,
+            "vocab") for i in range(cfg.n_codebooks)], dim=2)
     return blocks.unembed_apply(cfg, p.get("unembed", {}), p["embed"], h)
 
 
@@ -200,8 +239,9 @@ def prefill(cfg, p, cache, batch):
         return torch.nn.functional.pad(t, (0, 0, 0, S - l))
 
     if cfg.kv_cache_dtype == "int8":
-        kq, ksc = blocks._kv_quant(ks)
-        vq, vsc = blocks._kv_quant(vs)
+        kv_full = cfg.n_kv_heads * cfg.head_dim
+        kq, ksc = blocks._kv_quant(ks, kv_full)
+        vq, vsc = blocks._kv_quant(vs, kv_full)
         new = {"k": pad(kq), "v": pad(vq), "k_scale": pad(ksc),
                "v_scale": pad(vsc)}
     else:

@@ -27,6 +27,18 @@ launches a token at xlstm-350m, two at its smoke config).  Prefill runs
 the recurrences as a per-token loop of plain tensor code, as ``repro``
 runs them in ``lax.scan`` with no kernel.
 
+Under a tensor-parallel mesh each rank holds its heads where the mesh
+splits them: the mLSTM's up projection cut piecewise into [u | g] of the
+rank's channels, its conv, q/k/i/f weights, group norm and states over
+the rank's heads, the sLSTM's four gates cut piecewise, its R and states
+over the rank's heads; the down / out projections sum their partial
+products over the ranks.  Where the heads do not divide (4 heads on 8
+ranks) ``spec_for_shape`` keeps the head-wise leaves (q/k/i/f weights,
+R, the recurrent states) whole while it still splits the channel-wise
+ones (up, conv, gates, group norm scale, down / out): each rank then
+gathers its channel shards before the recurrence, runs every head, and
+keeps its channels of the normed output (``_mesh_heads``).
+
 Speculative decoding: ``mlstm_block_verify`` / ``slstm_block_verify``
 run a K-token window with the front end over the whole window and the
 recurrence chained per token through the decode step's cell (an int8/fp8
@@ -41,6 +53,7 @@ import torch
 from repro_torch.core import approx, state_quant
 from repro_torch.kernels import megakernel, ops, ref
 from repro_torch.models import blocks, mamba
+from repro_torch.parallel import sharding
 
 
 def _dtype(cfg):
@@ -54,6 +67,42 @@ def _dtype(cfg):
 def _mlstm_dims(cfg):
     di = 2 * cfg.d_model                 # pf = 2 up-projection
     return di, di // cfg.n_heads
+
+
+def _mesh_heads(cfg, nh_local, width, full):
+    """(the rank's head count, whether it gathers its channels) from its
+    shard's shapes: ``nh_local`` heads over ``width`` of ``full``
+    channels.  The heads split with their channels, or every head stays
+    whole on a channel shard, which the rank gathers before the
+    head-wise recurrence."""
+    if width * cfg.n_heads == full * nh_local:
+        return nh_local, False
+    if nh_local != cfg.n_heads:
+        raise ValueError(f"{nh_local} of {cfg.n_heads} xLSTM heads on "
+                         f"{width} of {full} channels")
+    return nh_local, True
+
+
+def _head_norm(h, scale, nh, full):
+    """The per-head group norm of h (b, L, nh*dh) with the rank's
+    ``scale``: where the rank runs every head on a channel shard (the
+    scale narrower than h), its channels of the normed h."""
+    cols = None
+    if scale.shape[-1] != h.shape[-1]:
+        cols = sharding.local_range(full, "ffn")
+    return blocks.group_norm(h, scale, nh, cols=cols)
+
+
+def mlstm_block_axes(cfg):
+    """Logical axes of ``mlstm_block_init``'s tree (``repro``
+    xlstm.py:40-62)."""
+    return {"norm": blocks.norm_axes(cfg),
+            "up": blocks.dense_axes("embed", "ffn", parts=2),
+            "conv_w": ("conv", "ffn"),
+            "wq": ("heads", None, None), "wk": ("heads", None, None),
+            "wi": ("heads", None), "wf": ("heads", None),
+            "bi": ("heads",), "bf": ("heads",), "gn_scale": ("ffn",),
+            "down": blocks.dense_axes("ffn", "embed")}
 
 
 def mlstm_block_init(cfg, gen):
@@ -97,23 +146,28 @@ def _conv(cfg, u, w, conv_state, conv_impl):
 def _mlstm_inputs(cfg, p, x, conv_state, conv_impl=None):
     """Block front end shared by apply (L = seq) and step (L = 1): norm ->
     up -> conv -> SiLU -> q, k, v and the gate pre-activations
-    (``repro`` xlstm.py:110)."""
-    nh = cfg.n_heads
-    _, dh = _mlstm_dims(cfg)
+    (``repro`` xlstm.py:110).  Also returns the gate g, the new conv tail
+    and the conv input u, each over the rank's channels."""
+    di, dh = _mlstm_dims(cfg)
+    nh, gather = _mesh_heads(cfg, p["wq"].shape[0], p["conv_w"].shape[-1],
+                             di)
     b, L, _ = x.shape
     silu = approx.get_silu(cfg.silu_impl)
     xn = blocks.apply_norm(cfg, p["norm"], x)
     ug = blocks.dense(p["up"], xn, x.dtype)
     u, g = ug.chunk(2, dim=-1)                           # (b, L, di) each
     c, new_conv = _conv(cfg, u, p["conv_w"], conv_state, conv_impl)
-    ch = silu(c).reshape(b, L, nh, dh)
+    ch, v = silu(c), u
+    if gather:
+        ch, v = (sharding.gather_cols(t, di, "ffn") for t in (ch, v))
+    ch = ch.reshape(b, L, nh, dh)
     q = torch.einsum("blhd,hde->blhe", ch, p["wq"].to(x.dtype))
     k = torch.einsum("blhd,hde->blhe", ch, p["wk"].to(x.dtype))
-    v = u.reshape(b, L, nh, dh)
+    v = v.reshape(b, L, nh, dh)
     chf = ch.float()
     ig = torch.einsum("blhd,hd->blh", chf, p["wi"]) + p["bi"]
     fg = torch.einsum("blhd,hd->blh", chf, p["wf"]) + p["bf"]
-    return q, k, v, ig, fg, g, new_conv
+    return q, k, v, ig, fg, g, new_conv, u
 
 
 def _mlstm_scan(q, k, v, ig, fg, state, chunk):
@@ -169,21 +223,17 @@ def write_state_C(cfg, C, prev_state=None):
 def mlstm_block_apply(cfg, p, x, state=None):
     """Full-sequence path; ``state`` a continuation or None (the init
     state).  Returns (y (b, L, d), new state)."""
-    nh = cfg.n_heads
-    di, _ = _mlstm_dims(cfg)
-    b, L, _ = x.shape
-    silu = approx.get_silu(cfg.silu_impl)
+    b = x.shape[0]
     conv_state = None if state is None else state["conv"]
-    q, k, v, ig, fg, g, new_conv = _mlstm_inputs(cfg, p, x, conv_state)
+    q, k, v, ig, fg, g, new_conv, _ = _mlstm_inputs(cfg, p, x, conv_state)
     if state is None:
-        s0 = _mlstm_state(cfg, b, x.device)
+        s0 = _mlstm_state(cfg, b, x.device, q.shape[2])
         rec = {"C": s0["C"], "n": s0["n"], "m": s0["m"]}
     else:
         rec = {"C": read_state_C(cfg, state), "n": state["n"],
                "m": state["m"]}
     h, new_rec = _mlstm_scan(q, k, v, ig, fg, rec, cfg.scan_chunk)
-    hf = blocks.group_norm(h.reshape(b, L, di), p["gn_scale"], nh)
-    out = blocks.dense(p["down"], hf * silu(g), x.dtype)
+    out = _mlstm_out(cfg, p, h, g, x.dtype)
     new_state = write_state_C(cfg, new_rec["C"], prev_state=state)
     new_state.update({"n": new_rec["n"], "m": new_rec["m"],
                       "conv": new_conv})
@@ -195,17 +245,13 @@ def mlstm_block_step(cfg, p, x_t, state, conv_impl=None):
     one ``ref.mlstm_cell`` step.  ``h`` is contracted from the f32 C'
     before C' is requantized.  ``conv_impl`` overrides cfg.conv_impl (the
     plain K3 passes "xla", as ``repro``'s megakernel body does)."""
-    nh = cfg.n_heads
-    di, dh = _mlstm_dims(cfg)
-    b = x_t.shape[0]
-    silu = approx.get_silu(cfg.silu_impl)
-    q, k, v, ig, fg, g, new_conv = _mlstm_inputs(cfg, p, x_t, state["conv"],
-                                                 conv_impl=conv_impl)
+    _, dh = _mlstm_dims(cfg)
+    q, k, v, ig, fg, g, new_conv, _ = _mlstm_inputs(
+        cfg, p, x_t, state["conv"], conv_impl=conv_impl)
     h_t, (C_new, n_new, m_new) = ref.mlstm_cell(
         read_state_C(cfg, state), state["n"], state["m"], q[:, 0].float(),
         k[:, 0].float(), v[:, 0].float(), ig[:, 0], fg[:, 0], dh)
-    hf = blocks.group_norm(h_t.reshape(b, 1, di), p["gn_scale"], nh)
-    out = blocks.dense(p["down"], hf * silu(g), x_t.dtype)
+    out = _mlstm_out(cfg, p, h_t[:, None], g, x_t.dtype)
     new_state = write_state_C(cfg, C_new, prev_state=state)
     new_state.update({"n": n_new, "m": m_new,
                       "conv": new_conv.to(state["conv"].dtype)})
@@ -220,31 +266,39 @@ def mlstm_block_verify(cfg, p, x, state):
     same ``ref.mlstm_cell``, C stored (requantized) after every step.
     Returns (out (b, K, d), states), each state leaf stacked per step on
     axis 1."""
-    nh = cfg.n_heads
-    di, dh = _mlstm_dims(cfg)
-    b, K, _ = x.shape
-    silu = approx.get_silu(cfg.silu_impl)
-    q, k, v, ig, fg, g, _ = _mlstm_inputs(cfg, p, x, state["conv"])
-    conv_all = mamba._conv_tail_states(state["conv"], v.reshape(b, K, di))
+    _, dh = _mlstm_dims(cfg)
+    q, k, v, ig, fg, g, _, u = _mlstm_inputs(cfg, p, x, state["conv"])
+    conv_all = mamba._conv_tail_states(state["conv"], u)
     st, hs, steps = state, [], []
-    for t in range(K):
+    for t in range(x.shape[1]):
         h_t, (C, n, m) = ref.mlstm_cell(
             read_state_C(cfg, st), st["n"], st["m"], q[:, t].float(),
             k[:, t].float(), v[:, t].float(), ig[:, t], fg[:, t], dh)
         st = {**write_state_C(cfg, C, prev_state=st), "n": n, "m": m}
         hs.append(h_t)
         steps.append(st)
-    hf = blocks.group_norm(torch.stack(hs, 1).reshape(b, K, di),
-                           p["gn_scale"], nh)
-    out = blocks.dense(p["down"], hf * silu(g), x.dtype)
+    out = _mlstm_out(cfg, p, torch.stack(hs, 1), g, x.dtype)
     states = {key: torch.stack([s[key] for s in steps], 1) for key in st}
     states["conv"] = conv_all
     return out, states
 
 
-def _mlstm_state(cfg, batch, device):
-    nh = cfg.n_heads
-    di, dh = _mlstm_dims(cfg)
+def _mlstm_out(cfg, p, h, g, dtype):
+    """h (b, L, nh, dh) and the gate g (b, L, channels) -> the block
+    output: the head norm, the SiLU gate, the down projection summed
+    over the ranks."""
+    b, L, nh, _ = h.shape
+    di = _mlstm_dims(cfg)[0]
+    silu = approx.get_silu(cfg.silu_impl)
+    hf = _head_norm(h.reshape(b, L, -1), p["gn_scale"], nh, di)
+    return blocks.dense_row(p["down"], hf * silu(g), dtype, di, "ffn")
+
+
+def _mlstm_state(cfg, batch, device, nh=None):
+    """The f32 init state of ``nh`` heads (all of them when None)."""
+    nh = nh or cfg.n_heads
+    _, dh = _mlstm_dims(cfg)
+    di = nh * dh
     return {
         "C": torch.zeros(batch, nh, dh, dh, device=device),
         "n": torch.zeros(batch, nh, dh, device=device),
@@ -267,6 +321,53 @@ def mlstm_state_init(cfg, batch, device):
 # ---------------------------------------------------------------------------
 # sLSTM: scalar memory with a hidden-state recurrence
 # ---------------------------------------------------------------------------
+
+def mlstm_state_axes(cfg):
+    """Logical axes of ``mlstm_state_init``'s leaves (``repro``
+    xlstm.py:300-309)."""
+    out = {"C": ("act_batch", "act_heads", None, None),
+           "n": ("act_batch", "act_heads", None),
+           "m": ("act_batch", "act_heads"),
+           "conv": ("act_batch", None, "act_ffn")}
+    if state_quant.is_quantized(cfg.state_dtype):
+        out["C_scale"] = ("act_batch", "act_heads", None)
+    return out
+
+
+def slstm_block_axes(cfg):
+    """Logical axes of ``slstm_block_init``'s tree (``repro``
+    xlstm.py:318-336)."""
+    return {"norm": blocks.norm_axes(cfg),
+            "wx": blocks.dense_axes("embed", "ffn", parts=4),
+            "r": (None, "heads", None, None),
+            "b": sharding.fused(("ffn",), 4),
+            "gn_scale": ("ffn",), "out": blocks.dense_axes("ffn", "embed")}
+
+
+def _slstm_front(cfg, p, x):
+    """norm -> the gate pre-activations (b, L, 4 * the rank's channels),
+    and (nh, dh, p) for the recurrence: where the rank runs every head on
+    a channel shard, the four gates' shards and the bias gathered whole
+    (p then carries the whole bias)."""
+    d = cfg.d_model
+    nh, gather = _mesh_heads(cfg, p["r"].shape[1], p["gn_scale"].shape[0],
+                             d)
+    xn = blocks.apply_norm(cfg, p["norm"], x)
+    gx = blocks.dense(p["wx"], xn, x.dtype)
+    if gather:
+        gx, bias = (sharding.gather_cols(t.unflatten(-1, (4, -1)), d,
+                                         "ffn").flatten(-2)
+                    for t in (gx, p["b"]))
+        p = {**p, "b": bias}
+    return gx, nh, d // cfg.n_heads, p
+
+
+def _slstm_out(cfg, p, h, nh, dtype):
+    """h (b, L, nh*dh) -> the head norm and the out projection summed
+    over the ranks."""
+    hf = _head_norm(h, p["gn_scale"], nh, cfg.d_model)
+    return blocks.dense_row(p["out"], hf, dtype, cfg.d_model, "ffn")
+
 
 def slstm_block_init(cfg, gen):
     d, nh = cfg.d_model, cfg.n_heads
@@ -309,27 +410,21 @@ def _slstm_scan(p, gates_x, state, nh, dh):
 
 
 def slstm_block_apply(cfg, p, x, state=None):
-    d, nh = cfg.d_model, cfg.n_heads
-    xn = blocks.apply_norm(cfg, p["norm"], x)
-    gates_x = blocks.dense(p["wx"], xn, x.dtype)
+    gates_x, nh, dh, p = _slstm_front(cfg, p, x)
     if state is None:
-        state = slstm_state_init(cfg, x.shape[0], x.device)
-    h, new_state = _slstm_scan(p, gates_x, state, nh, d // nh)
-    hf = blocks.group_norm(h, p["gn_scale"], nh)
-    return blocks.dense(p["out"], hf, x.dtype), new_state
+        state = slstm_state_init(cfg, x.shape[0], x.device, nh)
+    h, new_state = _slstm_scan(p, gates_x, state, nh, dh)
+    return _slstm_out(cfg, p, h, nh, x.dtype), new_state
 
 
 def slstm_block_step(cfg, p, x_t, state):
     """Single-token decode: one gate recurrence step."""
-    d, nh = cfg.d_model, cfg.n_heads
+    gx, nh, dh, p = _slstm_front(cfg, p, x_t)
     b = x_t.shape[0]
-    xn = blocks.apply_norm(cfg, p["norm"], x_t)
-    g_t = blocks.dense(p["wx"], xn, x_t.dtype)[:, 0].float()   # (b, 4d)
     h_new, (c_new, n_new, m_new) = ref.slstm_cell(
         state["c"], state["n"], state["m"],
-        _slstm_gates(p, g_t, state["h"], nh, d // nh))
-    hf = blocks.group_norm(h_new.reshape(b, 1, d), p["gn_scale"], nh)
-    out = blocks.dense(p["out"], hf, x_t.dtype)
+        _slstm_gates(p, gx[:, 0].float(), state["h"], nh, dh))
+    out = _slstm_out(cfg, p, h_new.reshape(b, 1, nh * dh), nh, x_t.dtype)
     return out, {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
@@ -338,11 +433,9 @@ def slstm_block_verify(cfg, p, x, state):
     over the whole window, the hidden-state recurrence (R h_{t-1})
     chained per token.  Returns (out (b, K, d), states (c, n, h, m)
     stacked per step on axis 1)."""
-    d, nh = cfg.d_model, cfg.n_heads
-    dh = d // nh
+    gx, nh, dh, p = _slstm_front(cfg, p, x)
+    gx = gx.float()                                          # (b, K, 4d)
     b, K, _ = x.shape
-    xn = blocks.apply_norm(cfg, p["norm"], x)
-    gx = blocks.dense(p["wx"], xn, x.dtype).float()          # (b, K, 4d)
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     steps = []
     for t in range(K):
@@ -351,13 +444,14 @@ def slstm_block_verify(cfg, p, x, state):
         steps.append({"c": c, "n": n, "h": h, "m": m})
     states = {key: torch.stack([s[key] for s in steps], 1)
               for key in steps[0]}
-    hf = blocks.group_norm(states["h"].reshape(b, K, d), p["gn_scale"], nh)
-    return blocks.dense(p["out"], hf, x.dtype), states
+    return (_slstm_out(cfg, p, states["h"].reshape(b, K, nh * dh), nh,
+                       x.dtype), states)
 
 
-def slstm_state_init(cfg, batch, device):
-    nh = cfg.n_heads
-    dh = cfg.d_model // nh
+def slstm_state_init(cfg, batch, device, nh=None):
+    """The init state of ``nh`` heads (all of them when None)."""
+    dh = cfg.d_model // cfg.n_heads
+    nh = nh or cfg.n_heads
     return {"c": torch.zeros(batch, nh, dh, device=device),
             "n": torch.zeros(batch, nh, dh, device=device),
             "h": torch.zeros(batch, nh, dh, device=device),
@@ -375,6 +469,30 @@ def _is_slstm(cfg, i):
 
 def _kind(cfg, i):
     return "slstm" if _is_slstm(cfg, i) else "mlstm"
+
+
+def slstm_state_axes(cfg):
+    """Logical axes of ``slstm_state_init``'s leaves (``repro``
+    xlstm.py:469)."""
+    return {k: ("act_batch", "act_heads", None) for k in ("c", "n", "h", "m")}
+
+
+def param_axes(cfg):
+    """Logical axes of ``init``'s tree (``repro``'s)."""
+    return {"embed": blocks.embed_axes(cfg),
+            "layers": [{_kind(cfg, i): (slstm_block_axes if _is_slstm(cfg, i)
+                                        else mlstm_block_axes)(cfg)}
+                       for i in range(cfg.n_layers)],
+            "norm_f": blocks.norm_axes(cfg),
+            "unembed": blocks.unembed_axes(cfg)}
+
+
+def cache_axes(cfg):
+    """Logical axes of ``init_cache``'s leaves (``repro``'s)."""
+    return {"layers": [{_kind(cfg, i): (slstm_state_axes if _is_slstm(cfg, i)
+                                        else mlstm_state_axes)(cfg)}
+                       for i in range(cfg.n_layers)],
+            "pos": ("act_batch",)}
 
 
 def init(cfg, gen):

@@ -60,8 +60,21 @@ session (no max_new horizon, slot pinned) for families whose state does
 not grow with max_seq; ``submit_snapshot`` admits a request prefilled
 elsewhere (``runtime/disagg.py``) with one scatter.
 
-Not ported yet (ROADMAP A13): tensor-parallel serving (``mesh``), which
-raises ``NotImplementedError`` here.
+Tensor-parallel serving (``EngineConfig.mesh``, a ``launch.mesh.Mesh``
+from ``make_serving_mesh(tp)``; ``rules`` the logical-axis rules) is
+SPMD: one process per rank, each making the same ``Engine`` from the
+same full param tree (the engine cuts the rank's shard,
+``sharding.shard_params``; an int8 engine's f32 prefill master too) and
+making the same calls — every ``submit`` and ``cancel`` on every rank,
+in the same order, and the same ``step``/``run`` loop.  The models sum
+their row-parallel products and gather the vocab-parallel logits over
+the mesh (``parallel/sharding.py``), so every rank computes the same
+full logits; the tokens each step samples (with their logprobs) are
+still broadcast from the first rank, so no rank's host state (slots,
+stops, stream callbacks, which fire on every rank) can drift.  Under a
+mesh a decode step runs per layer ("auto" serves as "fused"; an
+explicit "megakernel" raises, ``registry.uses_megakernel``), the MoE's
+"auto" dispatch is the dense one and "ep" raises, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -78,6 +91,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import weight_quant
 from repro_torch.models import registry
+from repro_torch.parallel import sharding
 from repro_torch.runtime import metrics as metrics_lib
 from repro_torch.runtime import sampling
 from repro_torch.runtime.prefix_cache import (PrefixCache, PrefixCacheConfig,
@@ -125,8 +139,12 @@ class EngineConfig:
     # PrefixCacheConfig restores cached block-boundary snapshots and
     # computes only the suffix
     prefix_cache: Optional[PrefixCacheConfig] = None
-    # not ported yet: must stay None
+    # tensor-parallel serving: a launch.mesh.Mesh (make_serving_mesh(tp),
+    # 1-D over "model"); every rank makes the same Engine and the same
+    # calls.  None (default) serves on one device
     mesh: Optional[object] = None
+    # logical-axis -> mesh-axis rules; None = sharding.ShardingRules()
+    rules: Optional[sharding.ShardingRules] = None
     # where the engine runs: "cuda" unless the caller asks for "cpu"
     device: str = "cuda"
 
@@ -187,10 +205,6 @@ class Engine:
         if cfg.frontend in ("audio_stub", "vision_stub"):
             raise NotImplementedError(
                 "serving engine supports token frontends only")
-        if ecfg.mesh is not None:
-            raise NotImplementedError(
-                "EngineConfig.mesh is not ported to repro_torch yet "
-                "(ROADMAP A13)")
         if ecfg.step_impl is not None:
             cfg = dataclasses.replace(cfg, step_impl=ecfg.step_impl)
         if ecfg.state_dtype is not None:
@@ -200,9 +214,25 @@ class Engine:
                                       kv_cache_dtype=ecfg.kv_cache_dtype)
         ecfg.default_params.validate()
         self.device = resolve_device(ecfg.device)
+        self.mesh = ecfg.mesh
+        self.rules = ecfg.rules or sharding.ShardingRules()
         # K3 for a family that has an instance of it; a transformer
-        # decodes per layer (an explicit "megakernel" raises here)
-        stack = registry.uses_megakernel(cfg, self.device)
+        # decodes per layer (an explicit "megakernel" raises here, and
+        # under a mesh)
+        stack = registry.uses_megakernel(cfg, self.device, self.mesh)
+        if self.mesh is not None:
+            if cfg.step_impl == "auto":
+                cfg = dataclasses.replace(cfg, step_impl="fused")
+            # the dense dispatch routes with the global capacity on every
+            # rank; the expert-parallel one would drop overflow tokens by
+            # a shard's capacity, and its logits would differ from the
+            # single-device routing's
+            if getattr(cfg, "moe_impl", None) == "ep":
+                raise ValueError(
+                    "moe_impl='ep' is unsupported under a serving mesh: "
+                    "per-shard capacity drops break token identity")
+            if getattr(cfg, "moe_impl", None) == "auto":
+                cfg = dataclasses.replace(cfg, moe_impl="dense")
         prefill_params = params
         if ecfg.weight_dtype is not None:
             already = weight_quant.is_quantized(cfg.weight_dtype)
@@ -214,10 +244,19 @@ class Engine:
                 # dequantizes its codes)
                 params = registry.quantize_params(cfg, params)
         self.cfg = cfg
+        distinct = prefill_params is not params
+        if self.mesh is not None:
+            # the rank's shard of each tree; the f32 prefill master under
+            # the rules an unquantized engine's weights take
+            params = sharding.shard_params(cfg, params, self.mesh,
+                                           self.rules)
+            if distinct:
+                prefill_params = sharding.shard_params(
+                    dataclasses.replace(cfg, weight_dtype="f32"),
+                    prefill_params, self.mesh, self.rules)
         self.params = registry.tree_to(params, self.device)
-        self.prefill_params = (self.params if prefill_params is params
-                               else registry.tree_to(prefill_params,
-                                                     self.device))
+        self.prefill_params = (registry.tree_to(prefill_params, self.device)
+                               if distinct else self.params)
         # the prefix cache's suffix chain steps the prefill master, through
         # K3 where decode runs K3: its own view of the master unless the
         # master is the decode tree
@@ -235,18 +274,21 @@ class Engine:
         # in the same speculative pass
         self.pool = SlotStatePool(
             cfg, ecfg.n_slots, ecfg.max_seq, device=self.device,
-            n_scratch=ecfg.n_slots if ecfg.draft is not None else 0)
-        self._spec = (SpecDecoder(cfg, self.params, ecfg.draft, self.device)
+            n_scratch=ecfg.n_slots if ecfg.draft is not None else 0,
+            mesh=self.mesh, rules=self.rules)
+        self._spec = (SpecDecoder(cfg, self.params, ecfg.draft, self.device,
+                                  mesh=self.mesh)
                       if ecfg.draft is not None else None)
         # the scheduler's degradation knob: clamps every slot's window
         self.spec_cap: Optional[int] = None
         # sessions need a state that does not grow with max_seq (jamba's
         # KV strips do): compare a slot with the cache one position longer,
         # made on the meta device, so nothing is allocated
-        longer = registry.init_cache(cfg, 1, ecfg.max_seq + 1, device="meta")
+        slot = registry.abstract_cache(cfg, 1, ecfg.max_seq)
+        longer = registry.abstract_cache(cfg, 1, ecfg.max_seq + 1)
         self._cache_growable = any(
             x.shape != y.shape
-            for x, y in zip(registry.tree_leaves(self.pool.fresh),
+            for x, y in zip(registry.tree_leaves(slot),
                             registry.tree_leaves(longer)))
         self._prefix = (PrefixCache(ecfg.prefix_cache, self.device)
                         if ecfg.prefix_cache is not None else None)
@@ -473,6 +515,21 @@ class Engine:
         return torch.as_tensor(np.asarray(toks), dtype=torch.int64,
                                device=self.device)
 
+    def _agree(self, *tensors):
+        """The tensors as the mesh's first rank holds them (the sampled
+        tokens and their logprobs; one broadcast of all of them, packed
+        in f64, which holds token ids and f32 values exactly).  Off a
+        mesh, the tensors themselves."""
+        if self.mesh is None:
+            return tensors
+        flat = sharding.broadcast(torch.cat(
+            [t.reshape(-1).to(torch.float64) for t in tensors]))
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+            at += t.numel()
+        return tuple(out)
+
     def _admit_into_slot(self, req: Request, slot: int):
         """Prefill ``req``'s prompt into ``slot`` (its params row already
         set) and sample its first token.  With the prefix cache and a
@@ -511,6 +568,7 @@ class Engine:
             last = logits[:, -1, :]
         tok_dev = sampling.sample(last, self.pool.params.rows([slot]), [0])
         lp, tv, ti = sampling.token_logprobs(last, tok_dev)
+        tok_dev, lp, tv, ti = self._agree(tok_dev, lp, tv, ti)
         tok = int(tok_dev[0])                    # host sync: first token
         req.t_first = self._now()
         # prefill_tokens counts computed tokens only: restored ones go to
@@ -543,6 +601,10 @@ class Engine:
         slot is evicted at once.  The prefill side of disaggregated
         serving (``runtime/disagg.py``).  Returns (state, tok, lp, tv row,
         ti row)."""
+        with sharding.use_mesh(self.mesh, self.rules):
+            return self._prefill_snapshot(prompt, params, seed)
+
+    def _prefill_snapshot(self, prompt, params, seed):
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         slot = self.pool.alloc()
         if slot is None:
@@ -643,6 +705,7 @@ class Engine:
             tb = sampling.sample(last, self.pool.params.rows([slots[b]]),
                                  [0])
             lb, tvb, tib = sampling.token_logprobs(last, tb)
+            tb, lb, tvb, tib = self._agree(tb, lb, tvb, tib)
             firsts.append((int(tb[0]), lb[0].item(), tvb[0].tolist(),
                            tib[0].tolist()))
         for b in range(n):
@@ -770,6 +833,7 @@ class Engine:
             last = logits[:, -1, :]
             tok = sampling.sample(last, sp, base + t)
             lp, tv, ti = sampling.token_logprobs(last, tok)
+            tok, lp, tv, ti = self._agree(tok, lp, tv, ti)
             toks = tok[:, None]
             outs.append(tok)
             lps.append(lp)
@@ -916,6 +980,10 @@ class Engine:
         are free), then one decode burst (one speculative pass with a
         draft).
         Returns False when there was nothing to do."""
+        with sharding.use_mesh(self.mesh, self.rules):
+            return self._step()
+
+    def _step(self) -> bool:
         did = self._sweep_cancelled()
         while self._ready and self.pool.n_free:
             req = self._ready[0][2]

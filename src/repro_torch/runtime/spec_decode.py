@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import registry
+from repro_torch.parallel import sharding
 from repro_torch.runtime import sampling
 
 
@@ -185,7 +186,7 @@ class SpecDecoder:
     (and, for a megakernel draft, its K3 view, built here once), and the
     propose / verify halves of a pass."""
 
-    def __init__(self, cfg, params, draft: DraftConfig, device):
+    def __init__(self, cfg, params, draft: DraftConfig, device, mesh=None):
         if draft.k < 1:
             raise ValueError("draft.k must be >= 1")
         n = draft.layers or cfg.n_layers
@@ -193,12 +194,16 @@ class SpecDecoder:
         if draft.step_impl is not None:
             dcfg = dataclasses.replace(dcfg, step_impl=draft.step_impl)
         self.cfg, self.dcfg = cfg, dcfg
+        # under a tensor-parallel mesh the draft view is cut from the
+        # rank's shard of the tree, and every token a pass decides on is
+        # broadcast from the first rank (the engine's SPMD contract)
+        self.mesh = mesh
         self.k = draft.k
         self.n_draft = n
         self.full = n == cfg.n_layers
         self.draft_params = (params if self.full else
                              registry.draft_params(cfg, params, n))
-        if (registry.uses_megakernel(dcfg, device)
+        if (registry.uses_megakernel(dcfg, device, mesh)
                 and "stack" not in self.draft_params):
             # the draft's K3 view of its layers, built once; a full-depth
             # draft reuses the target's
@@ -230,6 +235,8 @@ class SpecDecoder:
                 self.cfg, cache, new, self.n_draft))
             last = logits[:, -1]
             tok = sampling.sample(last, sp, base_step + i)
+            if self.mesh is not None:
+                tok = sharding.broadcast(tok)
             toks = tok[:, None]
             d_toks.append(tok)
             d_logits.append(last)
@@ -253,6 +260,9 @@ class SpecDecoder:
         tl = logits.movedim(1, 0)                                # (K+1, b, V)
         emit, n_acc, pending = accept_tokens_hetero(
             draft_toks, tl, draft_logits, sp, step, depth_limit)
+        if self.mesh is not None:
+            emit, n_acc, pending = (sharding.broadcast(t)
+                                    for t in (emit, n_acc, pending))
         snap = registry.mask_slots(
             self.cfg, cache, registry.select_step(self.cfg, caches, n_acc),
             torch.as_tensor(active, device=x0.device))

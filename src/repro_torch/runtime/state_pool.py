@@ -21,6 +21,13 @@ evict, n_free, active_*), and their ids never meet a live slot's.
 A pinned slot holds an infinite-stream session's open-ended lease:
 ``evict`` refuses it until ``unpin``, and the SLO scheduler leaves it out
 of the capacity it projects with.
+
+Under a tensor-parallel mesh (``mesh``, ``rules``) every rank's pool holds
+its shard of each cache leaf (``sharding.shard_cache``: a leaf the rules
+split over the mesh at its shard shape, the others in full).  Slot axes
+are never split, so every slot operation is rank-local and the same on
+every rank.  ``state_bytes_per_slot`` stays the unsharded number;
+``device_state_bytes_per_slot`` counts what one rank holds.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import registry
+from repro_torch.parallel import sharding
 from repro_torch.runtime import sampling
 
 
@@ -40,7 +48,7 @@ class SlotStatePool:
     = n_slots + n_scratch`` entries."""
 
     def __init__(self, cfg, n_slots: int, max_seq: int, dtype=None,
-                 device="cpu", n_scratch: int = 0):
+                 device="cpu", n_scratch: int = 0, mesh=None, rules=None):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if n_scratch < 0:
@@ -51,16 +59,26 @@ class SlotStatePool:
         self.n_total = n_slots + n_scratch
         self.max_seq = max_seq
         self.device = torch.device(device)
-        self.cache = registry.init_cache(cfg, self.n_total, max_seq, dtype,
-                                         self.device)
+        self.mesh = mesh
+        self.rules = rules
+        self.cache = self._local(registry.init_cache(
+            cfg, self.n_total, max_seq, dtype, self.device))
         # the init state of one slot: eviction scatters this back
-        self._fresh = registry.init_cache(cfg, 1, max_seq, dtype,
-                                          self.device)
+        self._fresh = self._local(registry.init_cache(cfg, 1, max_seq, dtype,
+                                                      self.device))
+        # the unsharded pool's leaves, shapes only
+        self._full = registry.abstract_cache(cfg, self.n_total, max_seq,
+                                             dtype)
         self.params = sampling.SlotParams(self.n_total)
         self._free: list[int] = list(range(n_slots))
         self._scratch_free: list[int] = list(range(n_slots, self.n_total))
         self._active: list[bool] = [False] * self.n_total
         self._pinned: list[bool] = [False] * self.n_total
+
+    def _local(self, cache):
+        if self.mesh is None:
+            return cache
+        return sharding.shard_cache(self.cfg, cache, self.mesh, self.rules)
 
     @property
     def fresh(self):
@@ -195,12 +213,28 @@ class SlotStatePool:
             self.cfg, self.cache, new_cache,
             torch.as_tensor(active, device=self.device))
 
+    @staticmethod
+    def _bytes(cache) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in registry.tree_leaves(cache))
+
     def state_bytes_per_slot(self) -> int:
         """Device bytes one slot occupies across every cache leaf:
         quantized payloads at their storage width, their f32 scales
-        included (jamba's KV strips at max_seq)."""
-        return sum(t.numel() * t.element_size()
-                   for t in registry.tree_leaves(self.cache)) // self.n_total
+        included (jamba's KV strips at max_seq).  Under a mesh, the
+        unsharded number (the whole slot, over all ranks' shards)."""
+        return self._bytes(self._full) // self.n_total
+
+    def device_state_bytes_per_slot(self) -> int:
+        """The bytes one slot occupies on one rank: a leaf the mesh
+        splits at its shard shape, a replicated one in full
+        (``repro``'s per-device count).  Without a mesh it equals
+        ``state_bytes_per_slot``."""
+        return self._bytes(self.cache) // self.n_total
+
+    def device_slots_per_gb(self) -> float:
+        """Slot capacity per GiB of one rank's decode-state memory."""
+        return (1 << 30) / max(1, self.device_state_bytes_per_slot())
 
     def slots_per_gb(self) -> float:
         """Slot capacity per GiB of decode-state memory (the capacity

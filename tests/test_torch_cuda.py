@@ -1716,3 +1716,47 @@ def test_cuda_decode_step_on_trainable_params_raises(cuda):
     with torch.no_grad():
         logits, _ = registry.decode_step(cfg, p, cache, tok)
     assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving's pieces on the card: two gloo ranks on the one
+# card (``_torch_ranks.run_ranks``), or rank 0 alone in an NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 5e-4), ("bfloat16", 3e-2)])
+def test_cuda_sp_scan_matches_one_launch(cuda, dtype, tol, tmp_path):
+    """The sequence-parallel scan, half of L a rank, one K4 launch a rank,
+    against one K4 launch over the whole sequence: y within ``tol`` plus
+    ``tol`` of its magnitude, h_last within 5e-4."""
+    from _torch_ranks import run_ranks
+    from _torch_tp_cases import _cuda_sp_scan
+    for launches, y_err, h_err in run_ranks(_cuda_sp_scan, 2, tmp_path,
+                                            dtype, tol):
+        assert launches == 1
+        assert y_err <= tol and h_err <= 5e-4, (y_err, h_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sd", ["int8", "fp8"])
+def test_cuda_straddled_step_matches_k2(cuda, sd, tmp_path):
+    """A rank whose channels cut a scale group: K1 on the dequantized
+    shard, the absmax exchanged, against the single-device K2 step —
+    codes within one, scales to f32 rounding."""
+    from _torch_ranks import run_ranks
+    from _torch_tp_cases import _cuda_straddle
+    for k1, k2, codes, rel, y_err in run_ranks(_cuda_straddle, 2, tmp_path,
+                                               sd):
+        assert (k1, k2) == (1, 0)
+        assert codes <= 1 and rel <= 1e-5 and y_err <= 1e-4, (codes, rel,
+                                                              y_err)
+
+
+@pytest.mark.gpu
+def test_cuda_tp1_over_nccl_is_bitwise(cuda, tmp_path):
+    """tp=1 over NCCL: the served streams and logprobs bitwise the no-mesh
+    engine's."""
+    from _torch_ranks import run_ranks
+    from _torch_tp_cases import _cuda_nccl_tp1
+    single, tp1 = run_ranks(_cuda_nccl_tp1, 2, tmp_path)[0]
+    assert single == tp1

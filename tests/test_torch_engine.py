@@ -385,20 +385,20 @@ def test_entry_points_run_on_cuda_unless_asked_for_cpu(model):
 @pytest.mark.parametrize("what", ["draft", "prefix_cache", "mesh", "n",
                                   "weight_int8", "megakernel",
                                   "int8_state", "fp8_state"])
-def test_unported_features_raise(model, what):
-    """What is not ported (``mesh``) raises NotImplementedError; int8
-    weights, int8/fp8 state, the megakernel, speculative decoding
-    (``draft``), the prefix cache and best-of-n (``n``), which did before
+def test_unported_features_raise(model, what, tmp_path):
+    """Int8 weights, int8/fp8 state, the megakernel, speculative decoding
+    (``draft``), the prefix cache, best-of-n (``n``) and tensor-parallel
+    serving (``mesh``, here a one-rank gloo group), which raised before
     they were ported, now build an engine that serves a request."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_serving_mesh
     _, tcfg, _, tp = model
     ecfg = EngineConfig(device=CPU, n_slots=2, max_seq=64)
-    if what == "mesh":
-        ecfg.mesh = object()
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Engine(tcfg, tp, ecfg)
-        return
     params = tsampling.SamplingParams(max_new=3)
-    if what == "draft":
+    if what == "mesh":
+        init_ranks(0, 1, tmp_path / "store")
+        ecfg.mesh = make_serving_mesh(1)
+    elif what == "draft":
         ecfg.draft = DraftConfig(k=2, layers=1)
     elif what == "prefix_cache":
         ecfg.prefix_cache = PrefixCacheConfig(block=2)
@@ -411,9 +411,13 @@ def test_unported_features_raise(model, what):
         ecfg.step_impl = "megakernel"
     else:
         ecfg.state_dtype = what.split("_")[0]
-    eng = Engine(tcfg, tp, ecfg)
-    r = eng.submit(np.arange(4), params)
-    eng.run()
+    try:
+        eng = Engine(tcfg, tp, ecfg)
+        r = eng.submit(np.arange(4), params)
+        eng.run()
+    finally:
+        if what == "mesh":
+            dist.destroy_process_group()
     assert r.finished and len(r.tokens) == 3
     if what == "prefix_cache":
         assert eng.stats.prefix_misses == 1 and eng.stats.prefix_inserts == 1

@@ -43,6 +43,15 @@ def test_port_file_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("name", ["_torch_ranks.py", "_torch_tp_cases.py"])
+def test_rank_helpers_import_neither_jax_nor_repro(name):
+    """The tensor-parallel tests' rank functions run in spawned ranks,
+    which must start without JAX."""
+    path = ROOT / "tests" / name
+    bad = [m for m in _imported_modules(path.read_text()) if _forbidden(m)]
+    assert not bad, f"tests/{name} imports {bad}"
+
+
 def test_guard_sees_lazy_and_dotted_imports():
     src = ("def f():\n    import jax.numpy as jnp\n"
            "    from repro.kernels import ops\n"
@@ -72,6 +81,8 @@ def test_serve_path_imports_with_jax_blocked():
         "import repro_torch.core.buffer_manager\n"
         "import repro_torch.launch.train, repro_torch.runtime.train_loop\n"
         "import repro_torch.optim, repro_torch.checkpoint\n"
+        "import repro_torch.parallel.sharding, repro_torch.parallel.sp_scan\n"
+        "import repro_torch.launch.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -264,11 +264,13 @@ def test_selective_scan_resumes_across_split(L1):
 
 def test_bf16_state_pool_and_unported_families():
     """A bf16 state pool; what stays unported raises, naming its ROADMAP
-    item: tensor-parallel serving (A13)."""
+    item: the cross-layer megakernel under a tensor-parallel mesh (A16;
+    the mesh itself is served since A13a)."""
     _, tcfg = _cfgs(state_dtype="bf16")
     cache = tregistry.init_cache(tcfg, 2, 16)
     assert cache["h"].dtype == torch.bfloat16
     assert "h_scale" not in cache
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="A16"):
         Engine(tcfg, tregistry.init_params(tcfg),
-               EngineConfig(device="cpu", mesh=object()))
+               EngineConfig(device="cpu", mesh=object(),
+                            step_impl="megakernel"))
